@@ -1,0 +1,49 @@
+"""Carrying weights across from the reference package.
+
+Both functions take plain NumPy arrays and JSON (what the reference's
+arrays and `plan_to_json` give), so this module imports nothing of the
+reference.  Tests use them to make both packages compute on the same
+weights; the reference's init RNG is never imitated.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.nn.config import CapsNetConfig
+from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
+from repro_torch.nn.plans import ConvPlan, PrimaryCapsPlan, RoutingPlan, \
+    plan_from_json
+
+
+def params_from_reference(np_params: dict, device=None) -> dict:
+    """The reference's float params ({layer: {"w", "b"} | {"W"}}, NumPy)
+    -> the port's (same layouts: HWIO convs, [J, I, O, D] routing W)."""
+    device = resolve_device(device)
+    return {layer: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+                    for k, v in ws.items()}
+            for layer, ws in np_params.items()}
+
+
+def qnet_from_reference(plan_json: dict, np_qweights: dict,
+                        cfg: CapsNetConfig, *, rounding: str = "floor",
+                        backend: str = "torch", device=None) -> QuantCapsNet:
+    """The reference's `plan_to_json(qnet.plan)` and int8 qweights ->
+    the port's QuantCapsNet.  The pipeline's per-channel options and
+    variants are read off the plan."""
+    device = resolve_device(device)
+    plan = plan_from_json(plan_json)
+    convs = [p.conv if isinstance(p, PrimaryCapsPlan) else p
+             for p in plan.layers.values()
+             if isinstance(p, (ConvPlan, PrimaryCapsPlan))]
+    routes = [p for p in plan.layers.values() if isinstance(p, RoutingPlan)]
+    pipe = CapsPipeline.from_config(
+        cfg, variants=plan.variants,
+        per_channel=any(c.per_channel for c in convs),
+        per_channel_w=any(r.per_out for r in routes))
+    qweights = {layer: {k: torch.from_numpy(np.array(v, np.int8)).to(device)
+                        for k, v in ws.items()}
+                for layer, ws in np_qweights.items()}
+    return QuantCapsNet(pipeline=pipe, plan=plan, qweights=qweights,
+                        rounding=rounding, backend=backend)

@@ -1,0 +1,87 @@
+"""Integer squash (paper Eq. 8): the CUDA kernel's wrapper and its plain
+version.
+
+`squash_q7` takes int8 [..., D] (D <= 16).  A tensor on the CPU goes to
+the plain version (`repro_torch.quant.int8_ops.squash_q7`, the torch
+oracle); a CUDA tensor goes to `csrc/squash_q7.cu` or raises.  The
+kernel replaces the Pallas TPU kernel `repro.kernels.squash
+.squash_q7_pallas`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.quant import int8_ops as q
+
+MAX_DIM = 16                           # csrc/q7.cuh kMaxDim
+
+squash_q7_plain = q.squash_q7
+
+
+def _lib():
+    lib = build.load("squash_q7")
+    fn = lib.squash_q7_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def isqrt_newton(n):
+    """The kernels' device isqrt on an int32 tensor (a check entry: the
+    squash and routing kernels inline it).  CPU tensors take the plain
+    `int8_ops.isqrt_newton`."""
+    if n.device.type == "cpu":
+        return q.isqrt_newton(n)
+    if n.device.type != "cuda" or n.dtype != torch.int32:
+        raise NotImplementedError(f"isqrt_newton on {n.device} {n.dtype}")
+    fn = build.load("squash_q7").isqrt_newton_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    src = n.contiguous()
+    out = torch.empty_like(src)
+    with torch.cuda.device(src.device):
+        err = fn(src.data_ptr(), out.data_ptr(), src.numel(),
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "isqrt_newton")
+    isqrt_newton.launches += 1
+    return out
+
+
+isqrt_newton.launches = 0
+
+
+def check_in_frac(in_frac: int) -> None:
+    """The reference computes `1 << in_frac` on Python ints, which fits
+    int32 for 0 <= in_frac <= 30 only; the kernels take that range."""
+    if not 0 <= in_frac <= 30:
+        raise ValueError(f"squash in_frac {in_frac} outside [0, 30]")
+
+
+def squash_q7(s, in_frac: int, out_frac: int = 7):
+    """[..., D] int8 -> int8, rows squashed independently."""
+    if s.device.type == "cpu":
+        return squash_q7_plain(s, in_frac=in_frac, out_frac=out_frac)
+    if s.device.type != "cuda":
+        raise NotImplementedError(f"squash_q7 on {s.device}")
+    if s.dtype != torch.int8:
+        raise TypeError(f"squash_q7 takes int8, got {s.dtype}")
+    D = s.shape[-1]
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"squash_q7 takes capsule dim 1..{MAX_DIM}, got {D}")
+    check_in_frac(in_frac)
+    s2 = s.reshape(-1, D).contiguous()
+    out = torch.empty_like(s2)
+    with torch.cuda.device(s.device):
+        err = _lib()(s2.data_ptr(), out.data_ptr(), s2.shape[0], D, in_frac,
+                     out_frac, torch.cuda.current_stream().cuda_stream)
+    build.check(err, "squash_q7")
+    squash_q7.launches += 1
+    return out.reshape(s.shape)
+
+
+squash_q7.launches = 0

@@ -1,0 +1,9 @@
+"""Typed capsule layers, plans, variants, backends and the pipeline."""
+from repro_torch.nn.config import (CAPSNET_CONFIGS, CIFAR10, EDGE_TINY,
+                                   MNIST, SMALLNORB, CapsNetConfig)
+from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
+from repro_torch.nn.variants import REGISTRY, VariantSet
+
+__all__ = ["CAPSNET_CONFIGS", "CIFAR10", "EDGE_TINY", "MNIST", "SMALLNORB",
+           "CapsNetConfig", "CapsPipeline", "QuantCapsNet", "REGISTRY",
+           "VariantSet"]

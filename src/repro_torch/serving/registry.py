@@ -1,0 +1,165 @@
+"""Multi-model registry: model ids -> quantized CapsNets + wave functions.
+
+Two caches with different lifetimes:
+
+  * model cache — `model(id)` builds a `QuantCapsNet` lazily on first
+    request (init -> calibrate -> PTQ, paper Alg. 6/7) on the registry's
+    device; externally quantized models are `install()`ed under an id
+    and skip the lazy path.
+  * wave cache — `executable(id, bucket)` binds `wave_fn` to (model,
+    bucket) once and reuses it for every later wave.
+
+`quantize_count` / `compile_count` / `exec_hits` count builds, wave
+bindings and wave-cache hits, so tests can pin reuse.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.data.synthetic import make_image_dataset
+from repro_torch.device import resolve_device
+from repro_torch.nn.config import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB,
+                                   CapsNetConfig)
+from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
+from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH, VariantSet
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Everything needed to materialize a servable quantized CapsNet."""
+    model_id: str
+    config: CapsNetConfig
+    backend: str = "torch"           # "torch" oracle | "cuda" kernels
+    rounding: str = "floor"
+    dataset: str = "mnist"           # calibration kind, or "uniform"
+    calib_n: int = 32
+    seed: int = 0
+    softmax_impl: str = DEFAULT_SOFTMAX
+    squash_impl: str = DEFAULT_SQUASH
+    per_channel: bool = False        # per-output-channel conv PTQ
+
+    @property
+    def variants(self) -> VariantSet:
+        return VariantSet(softmax=self.softmax_impl,
+                          squash=self.squash_impl)
+
+    def images(self, n: int, seed: int) -> np.ndarray:
+        """n request/calibration images matching the config's geometry
+        ("uniform" serves geometries with no dataset analogue)."""
+        if self.dataset == "uniform":
+            rng = np.random.default_rng(seed)
+            shape = (n,) + tuple(self.config.input_shape)
+            return rng.uniform(0, 1, shape).astype(np.float32)
+        return make_image_dataset(self.dataset, n, seed=seed)[0]
+
+    def build(self, device=None) -> QuantCapsNet:
+        device = resolve_device(device)
+        pipe = CapsPipeline.from_config(self.config, variants=self.variants,
+                                        per_channel=self.per_channel)
+        params = pipe.init(torch.Generator().manual_seed(self.seed), device)
+        calib = self.images(self.calib_n, self.seed + 1)
+        return pipe.quantize(params, calib, rounding=self.rounding,
+                             backend=self.backend)
+
+
+def default_specs() -> dict:
+    """The paper's three configs plus the edge-tiny geometry, x both op
+    backends: "mnist@torch", "mnist@cuda", ... (ids are dataset@backend)."""
+    out = {}
+    for ds, cfg, kind in (("mnist", MNIST, "mnist"),
+                          ("smallnorb", SMALLNORB, "smallnorb"),
+                          ("cifar10", CIFAR10, "cifar10"),
+                          ("edge_tiny", EDGE_TINY, "uniform")):
+        for be in ("torch", "cuda"):
+            mid = f"{ds}@{be}"
+            out[mid] = ModelSpec(mid, cfg, backend=be, dataset=kind)
+    return out
+
+
+def wave_fn(qnet: QuantCapsNet, bucket: int):
+    """What one serving wave computes, bound to (model, bucket): float
+    images [bucket,H,W,C] -> (v_q int8 [B,J,O], lengths float32 [B,J],
+    pred int32 [B]), all on the model's device."""
+    shape = (bucket,) + tuple(qnet.pipeline.cfg.input_shape)
+    device = qnet.device
+
+    @torch.inference_mode()
+    def fn(x):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if tuple(x.shape) != shape:
+            raise ValueError(f"wave bound to {shape}, got {tuple(x.shape)}")
+        v_q = qnet.forward(qnet.quantize_input(x.to(device)))
+        lengths = qnet.class_lengths(v_q)
+        pred = torch.argmax(lengths, dim=-1).to(torch.int32)
+        return v_q, lengths, pred
+    return fn
+
+
+class ModelRegistry:
+    def __init__(self, specs: dict | None = None, device=None):
+        self.device = resolve_device(device)
+        self.specs = dict(specs) if specs is not None else default_specs()
+        self._models: dict = {}
+        self._execs: dict = {}
+        self.quantize_count = 0
+        self.compile_count = 0
+        self.exec_hits = 0
+
+    # ------------------------------------------------------------------
+    # models
+    # ------------------------------------------------------------------
+    def register(self, spec: ModelSpec) -> None:
+        """(Re-)register a spec under its id, dropping any model and wave
+        functions cached for that id."""
+        self.specs[spec.model_id] = spec
+        self._models.pop(spec.model_id, None)
+        self._drop_waves(spec.model_id)
+
+    def install(self, model_id: str, qnet: QuantCapsNet) -> None:
+        """Serve an already-built model under `model_id`, bypassing the
+        lazy PTQ path (drops wave functions bound to a previous model)."""
+        self._models[model_id] = qnet
+        self._drop_waves(model_id)
+
+    def _drop_waves(self, model_id: str) -> None:
+        for key in [k for k in self._execs if k[0] == model_id]:
+            del self._execs[key]
+
+    def model_ids(self) -> tuple:
+        return tuple(sorted(set(self.specs) | set(self._models)))
+
+    def has(self, model_id: str) -> bool:
+        return model_id in self._models or model_id in self.specs
+
+    def model(self, model_id: str) -> QuantCapsNet:
+        if model_id not in self._models:
+            try:
+                spec = self.specs[model_id]
+            except KeyError:
+                raise KeyError(
+                    f"unknown model {model_id!r}; have {self.model_ids()}")
+            self._models[model_id] = spec.build(self.device)
+            self.quantize_count += 1
+        return self._models[model_id]
+
+    def input_shape(self, model_id: str) -> tuple:
+        """Static geometry only — never triggers the lazy PTQ build."""
+        if model_id in self._models:
+            return tuple(self._models[model_id].pipeline.cfg.input_shape)
+        return tuple(self.specs[model_id].config.input_shape)
+
+    # ------------------------------------------------------------------
+    # wave functions
+    # ------------------------------------------------------------------
+    def executable(self, model_id: str, bucket: int):
+        key = (model_id, bucket)
+        if key in self._execs:
+            self.exec_hits += 1
+            return self._execs[key]
+        exe = wave_fn(self.model(model_id), bucket)
+        self._execs[key] = exe
+        self.compile_count += 1
+        return exe

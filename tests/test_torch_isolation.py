@@ -1,0 +1,93 @@
+"""The port stands alone: `src/repro_torch` and `chip_smoke.py` import
+neither JAX nor anything of the reference package `repro`, the serving
+entry point imports in a process where both are blocked, and every entry
+point asked for the default device on a host without a GPU raises instead
+of quietly running on the CPU.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch import serve_caps
+from repro_torch.nn import EDGE_TINY, CapsPipeline
+from repro_torch.serving import ModelRegistry, default_specs
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_no_jax_or_reference_import_in_the_port():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
+           for p in files}
+    assert {k: v for k, v in bad.items() if v} == {}
+
+
+def test_the_port_imports_with_jax_and_the_reference_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = "\n".join([
+        "import sys",
+        *(f"sys.modules[{m!r}] = None" for m in FORBIDDEN),
+        "import importlib",
+        f"for m in {modules!r}:",
+        "    importlib.import_module(m)",
+        "import repro_torch.launch.serve_caps",
+        "assert not any(m.split('.')[0] in " + repr(FORBIDDEN)
+        + " for m in sys.modules if sys.modules[m] is not None)",
+        "print('ok', len(" + repr(modules) + "))",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_without_a_gpu_raises(no_gpu):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ModelRegistry()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CapsPipeline.from_config(EDGE_TINY).init(torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_specs()["edge_tiny@torch"].build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_caps.main(["--model", "edge_tiny@torch", "--requests", "1"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
+    (tmp_path / "chip_smoke.py").write_bytes(
+        (ROOT / "chip_smoke.py").read_bytes())
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120,
+                         env={k: v for k, v in os.environ.items()
+                              if k != "PYTHONPATH"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
