@@ -19,9 +19,27 @@ Phases, each raising on failure:
    kernels' launch counts over that run must be > 0; then the command
    `serve_caps --model mnist@cuda --requests 128` runs, with its own
    counts, which must be > 0 too;
-4. times at the main path's shapes (B = 64): each kernel, its plain
+4. the other configs and the variant fallback: 16 requests each of
+   `smallnorb@cuda` and `cifar10@cuda`, and of `edge_tiny@cuda`
+   re-registered with the "approx" softmax, every completion equal to
+   the `torch` backend; `CudaBackend.fallbacks` must count the approx
+   run under `routing.softmax` and stay 0 over the default-variant
+   `mnist@cuda` runs of phase 3;
+5. the kernel library, `repro_torch.kernels.ops`, on the card, its
+   launch counts from 0: `matmul_q7` and `w8a8_matmul` bit for bit
+   against their plain versions at the shapes of
+   benchmarks/bench_matmul.py, the MNIST primary-caps im2col product at
+   B=64, 4096^3, two ragged shapes and a K = 140,000 product whose int32
+   accumulator wraps, both roundings (scalar shifts over [-40, 40] at
+   one small shape, random column shifts over [-40, 40]); `bmm_q7` on
+   [8, 256, 256] x [8, 256, 256]; `squash_float` within rtol/atol 1e-6
+   in float32 and one ulp in bfloat16; every launch count must be > 0;
+6. times at the main path's shapes (B = 64): each kernel, its plain
    version and its bound; the per-layer split of one wave; serving
-   img/s and p50/p99.
+   img/s and p50/p99; and each library kernel at each shape of phase 5,
+   beside its plain version, its bound and, as a yardstick only,
+   `torch._int_mm` (cuBLASLt's int8 product without the epilogue,
+   never called by the port).
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -35,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,10 +61,24 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 INT8_OPS_PER_S = 1.979e15          # H100 SXM dense int8 tensor-core rate
+F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 SEED = 0
 N_REQUESTS = 128
+N_OTHER = 16                       # requests of each phase-4 model
 BUCKETS = (1, 4, 16, 64)
 B_TIMED = 64
+ROUNDINGS = ("floor", "nearest")
+# (M, K, N): bench_matmul.py's three, the MNIST primary-caps im2col
+# product at B=64 (64*8*8 patches of 7*7*16 against 16*4 filters),
+# 4096^3, two ragged shapes, and a product whose int32 sum wraps
+GEMM_SHAPES = ((20, 30, 40), (128, 128, 128), (256, 256, 256),
+               (4096, 784, 64), (4096, 4096, 4096), (7, 257, 130),
+               (1, 5, 3), (4, 140_000, 8))
+WRAP_SHAPE = (4, 140_000, 8)
+HEADLINE_GEMM = (4096, 4096, 4096)         # the JSON record's GEMM shape
+BMM_SHAPE = (8, 256, 256, 256)             # (batch, M, K, N)
+SQUASH_FLOAT_SHAPES = (((64 * 1024, 4), "float32"), ((64, 6), "float32"),
+                       ((64 * 1024, 4), "bfloat16"))
 
 
 def log(*a):
@@ -251,11 +284,14 @@ def check_completions(run) -> None:
         if not np.array_equal(got_pred, pred.cpu().numpy()):
             raise AssertionError(f"served pred differs from the {what}")
     v = got_v.astype(np.int32)
-    if v.shape != (2 * N_REQUESTS, 10, 6) or not np.all(np.abs(v) <= 128):
+    cfg = qnet.pipeline.cfg
+    if v.shape != (len(images), cfg.num_classes, cfg.caps_dim) \
+            or not np.all(np.abs(v) <= 128):
         raise AssertionError(f"served v_q of shape {v.shape}")
-    log(f"[main] {len(comps)} served completions bit-exact against the "
+    log(f"[main] {run['spec'].model_id} ({qnet.variants.tag}): "
+        f"{len(comps)} served completions bit-exact against the "
         f"torch backend on the card and on the CPU; pred classes "
-        f"{np.bincount(got_pred, minlength=10).tolist()}")
+        f"{np.bincount(got_pred, minlength=cfg.num_classes).tolist()}")
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +370,216 @@ def time_kernels(run, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the other configs and the variant fallback
+# ---------------------------------------------------------------------------
+def serve_other(dev, mid: str, **spec_edit) -> None:
+    """Serve N_OTHER requests of `mid` (its spec edited by `spec_edit`)
+    and hold every completion against the `torch` backend."""
+    from repro_torch.serving import ModelRegistry, serve_window
+    reg = ModelRegistry(device=dev)
+    if spec_edit:
+        reg.register(dataclasses.replace(reg.specs[mid], **spec_edit))
+    spec = reg.specs[mid]
+    images = spec.images(N_OTHER, SEED)
+    qnet = reg.model(mid)
+    _, done, _ = serve_window(reg, BUCKETS, images, mid)
+    check_completions(dict(spec=spec, qnet=qnet, images=images,
+                           completions=done))
+    if reg.variant_fallbacks:
+        log(f"[other] registry variant fallbacks: {reg.variant_fallbacks}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the kernel library
+# ---------------------------------------------------------------------------
+def gemm_operands(M: int, K: int, N: int, g):
+    """int8 a [M, K], b [K, N] and int32 column shifts over [-40, 40] on
+    the CPU; the wrap shape's operands are all -128."""
+    import torch
+    if (M, K, N) == WRAP_SHAPE:
+        a = torch.full((M, K), -128, dtype=torch.int8)
+        b = torch.full((K, N), -128, dtype=torch.int8)
+    else:
+        a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+        b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8)
+    sh = torch.randint(-40, 41, (N,), generator=g, dtype=torch.int32)
+    return a, b, sh
+
+
+def within(what: str, got, want, rtol: float, atol: float) -> float:
+    """max |got - want| in float32, raising above atol + rtol * |want|
+    or on a value that is not finite."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
+    g32, w32 = got.float(), want.float()
+    diff = (g32 - w32).abs()
+    if not bool(torch.isfinite(g32).all()) or \
+            bool((diff > atol + rtol * w32.abs()).any()):
+        raise AssertionError(f"{what}: max |kernel - plain| = "
+                             f"{float(diff.max())} beyond rtol {rtol} / "
+                             f"atol {atol}")
+    return float(diff.max())
+
+
+def drive_kernel_library(dev) -> dict:
+    """Every call goes through `repro_torch.kernels.ops` on card tensors
+    and is held against its plain version; returns the worst error of
+    each kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_matmul as kw
+    g = torch.Generator().manual_seed(SEED + 1)
+    for (M, K, N) in GEMM_SHAPES:
+        a, b, sh = gemm_operands(M, K, N, g)
+        ad, bd, shd = a.to(dev), b.to(dev), sh.to(dev)
+        small = M * K * N <= 1 << 24
+        for rounding in ROUNDINGS:
+            for shift in (0, 9, 13, -2):
+                got = ops.matmul_q7(ad, bd, shift, rounding)
+                require_equal(f"matmul_q7 {(M, K, N)} shift {shift} "
+                              f"{rounding}", got,
+                              kq.matmul_q7_plain(ad, bd, shift, rounding))
+                if small:
+                    require_equal(f"matmul_q7 {(M, K, N)} vs plain on cpu",
+                                  got, kq.matmul_q7_plain(a, b, shift,
+                                                          rounding))
+            got = ops.w8a8_matmul(ad, bd, shd, rounding)
+            require_equal(f"w8a8_matmul {(M, K, N)} {rounding}", got,
+                          kw.w8a8_matmul_plain(ad, bd, shd, rounding))
+            if small:
+                require_equal(f"w8a8_matmul {(M, K, N)} vs plain on cpu",
+                              got, kw.w8a8_matmul_plain(a, b, sh, rounding))
+    a, b, _ = gemm_operands(33, 70, 17, g)
+    for rounding in ROUNDINGS:
+        for shift in range(-40, 41):
+            require_equal(f"matmul_q7 shift {shift} {rounding}",
+                          ops.matmul_q7(a.to(dev), b.to(dev), shift,
+                                        rounding),
+                          kq.matmul_q7_plain(a, b, shift, rounding))
+    log(f"[library] matmul_q7 and w8a8_matmul bit-exact at {GEMM_SHAPES} "
+        f"(K = 140,000 wraps int32), both roundings; matmul_q7 at every "
+        f"shift in [-40, 40]")
+
+    Bt, M, K, N = BMM_SHAPE
+    a = torch.randint(-128, 128, (Bt, M, K), generator=g, dtype=torch.int8)
+    b = torch.randint(-128, 128, (Bt, K, N), generator=g, dtype=torch.int8)
+    for rounding in ROUNDINGS:
+        require_equal(f"bmm_q7 {BMM_SHAPE} {rounding}",
+                      ops.bmm_q7(a.to(dev), b.to(dev), 13, rounding),
+                      kq.bmm_q7_plain(a, b, 13, rounding))
+    log(f"[library] bmm_q7 bit-exact at {BMM_SHAPE}, both roundings")
+
+    sq_err = 0.0
+    for shape, dt in SQUASH_FLOAT_SHAPES:
+        dtype = getattr(torch, dt)
+        s = (torch.randn(shape, generator=g) * 2).to(dtype).to(dev)
+        got = ops.squash_float(s)
+        # float32: rsqrtf and torch's rsqrt may round differently;
+        # bfloat16: float32 results that far apart may round one ulp apart
+        rtol, atol = (1e-6, 1e-6) if dt == "float32" else (2.0 ** -7, 1e-6)
+        err = within(f"squash_float {shape} {dt}", got,
+                     ks.squash_float_plain(s), rtol, atol)
+        if dt == "float32":
+            sq_err = max(sq_err, err)
+        log(f"[library] squash_float {shape} {dt}: max |kernel - plain| "
+            f"{err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+    return {"q7_matmul": 0, "w8a8_matmul": 0, "squash_float": sq_err}
+
+
+def gemm_bound(M: int, K: int, N: int, extra_bytes: int = 0):
+    bytes_ms = (M * K + K * N + M * N + extra_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * M * K * N / INT8_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def int_mm_ms(a, b):
+    """torch._int_mm (cuBLASLt int8 x int8 -> int32, the product alone)
+    where it takes the shape (M > 16, K and N multiples of 8), else None.
+    A yardstick only: the port never calls it."""
+    import torch
+    M, K = a.shape
+    N = b.shape[1]
+    if M <= 16 or K % 8 or N % 8:
+        return None
+    try:
+        return cuda_ms(lambda: torch._int_mm(a, b))
+    except RuntimeError as e:             # a layout cuBLASLt refuses
+        log(f"[time] torch._int_mm {(M, K, N)} refused: {e}")
+        return None
+
+
+def time_library(dev, card: str) -> dict:
+    """Kernel, plain, bound and yardstick times at every phase-5 shape;
+    returns the JSON record's entries of the three library kernels."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_matmul as kw
+    g = torch.Generator().manual_seed(SEED + 2)
+    rows = {"q7_matmul": [], "w8a8_matmul": [], "squash_float": []}
+    for (M, K, N) in GEMM_SHAPES:
+        a, b, sh = (t.to(dev) for t in gemm_operands(M, K, N, g))
+        yard = int_mm_ms(a, b)
+        for name, fn, plain, extra in (
+                ("q7_matmul", lambda: ops.matmul_q7(a, b, 13),
+                 lambda: kq.matmul_q7_plain(a, b, 13), 0),
+                ("w8a8_matmul", lambda: ops.w8a8_matmul(a, b, sh),
+                 lambda: kw.w8a8_matmul_plain(a, b, sh), 4 * N)):
+            bound, by = gemm_bound(M, K, N, extra)
+            rows[name].append(dict(shape=[M, K, N], ms=cuda_ms(fn),
+                                   plain_ms=cuda_ms(plain, iters=10),
+                                   bound_ms=bound, bound_by=by,
+                                   int_mm_ms=yard))
+    Bt, M, K, N = BMM_SHAPE
+    a = torch.randint(-128, 128, (Bt, M, K), generator=g,
+                      dtype=torch.int8).to(dev)
+    b = torch.randint(-128, 128, (Bt, K, N), generator=g,
+                      dtype=torch.int8).to(dev)
+    bound, by = gemm_bound(Bt * M, K, N, (Bt - 1) * K * N)
+    rows["q7_matmul"].append(dict(
+        shape=list(BMM_SHAPE), ms=cuda_ms(lambda: ops.bmm_q7(a, b, 13)),
+        plain_ms=cuda_ms(lambda: kq.bmm_q7_plain(a, b, 13), iters=10),
+        bound_ms=bound, bound_by=by, int_mm_ms=None))
+    for shape, dt in SQUASH_FLOAT_SHAPES:
+        dtype = getattr(torch, dt)
+        s = torch.randn(shape, generator=g).to(dtype).to(dev)
+        R, D = shape
+        nbytes = 2 * R * D * s.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * R * D / F32_OPS_PER_S * 1e3
+        rows["squash_float"].append(dict(
+            shape=[R, D], dtype=dt, ms=cuda_ms(lambda: ops.squash_float(s)),
+            plain_ms=cuda_ms(lambda: ks.squash_float_plain(s), iters=10),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            int_mm_ms=None))
+    for name, rs in rows.items():
+        for r in rs:
+            yard = "n/a" if r["int_mm_ms"] is None \
+                else f"{r['int_mm_ms']:.4f} ms"
+            what = f"{r['shape']} {r.get('dtype', 'int8')}"
+            log(f"[time] {card} | {name} {what}: kernel {r['ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
+                f"torch._int_mm yardstick {yard}")
+    head = {"q7_matmul": list(HEADLINE_GEMM),
+            "w8a8_matmul": list(HEADLINE_GEMM),
+            "squash_float": [SQUASH_FLOAT_SHAPES[0][0][0],
+                             SQUASH_FLOAT_SHAPES[0][0][1]]}
+    out = {}
+    for name, rs in rows.items():
+        top = next(r for r in rs if r["shape"] == head[name])
+        out[name] = dict(top, shapes=rs)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not next to this script "
@@ -348,8 +594,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
+    from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_matmul as kw
+    from repro_torch.nn.backend import get_backend
     dev = torch.device("cuda")
     card = card_line()
     log(f"[card] {card} | torch {torch.__version__} CUDA "
@@ -361,7 +610,8 @@ def main() -> int:
         f"({', '.join(sorted(libs))})")
     for name, entry in sorted(build.BUILD_LOG.items()):
         for line in entry["ptxas"].splitlines():
-            if "registers" in line or "smem" in line or "error" in line:
+            if any(w in line for w in ("registers", "smem", "spill",
+                                       "error")):
                 log(f"[build] {name}: {line.strip()}")
 
     # phase 2
@@ -396,8 +646,48 @@ def main() -> int:
                              f"launches {cli}")
     log(f"[main] serve_caps --model mnist@cuda --requests {N_REQUESTS}: "
         f"launches {cli}")
+    fallbacks = get_backend("cuda").fallbacks
+    if sum(fallbacks.values()) != 0:
+        raise AssertionError(f"default-variant mnist@cuda fell back: "
+                             f"{dict(fallbacks)}")
 
     # phase 4
+    serve_other(dev, "smallnorb@cuda")
+    serve_other(dev, "cifar10@cuda")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        serve_other(dev, "edge_tiny@cuda", softmax_impl="approx")
+        n0 = fallbacks[("routing.softmax", "approx")]
+        if n0 == 0:
+            raise AssertionError(f"edge_tiny@cuda approx: no routing.softmax "
+                                 f"fallback counted ({dict(fallbacks)})")
+        rc = serve_caps.main(["--model", "mnist@cuda", "--softmax", "approx",
+                              "--requests", str(N_OTHER)])
+        if rc != 0 or fallbacks[("routing.softmax", "approx")] == n0:
+            raise AssertionError(f"serve_caps --model mnist@cuda --softmax "
+                                 f"approx: exit {rc}, fallbacks "
+                                 f"{dict(fallbacks)}")
+    log(f"[other] cuda backend fallbacks {dict(fallbacks)}; "
+        f"{len(caught)} warning(s): "
+        f"{sorted({str(w.message)[:60] for w in caught})}")
+
+    # phase 5: counts from 0 just before the library path, read just after
+    kq.matmul_q7.launches = kq.bmm_q7.launches = 0
+    kw.w8a8_matmul.launches = ks.squash_float.launches = 0
+    errs.update(drive_kernel_library(dev))
+    launches.update(q7_matmul=kq.matmul_q7.launches + kq.bmm_q7.launches,
+                    w8a8_matmul=kw.w8a8_matmul.launches,
+                    squash_float=ks.squash_float.launches)
+    log(f"[library] launches over the kernel-library path: matmul_q7 "
+        f"{kq.matmul_q7.launches}, bmm_q7 {kq.bmm_q7.launches}, "
+        f"w8a8_matmul {launches['w8a8_matmul']}, squash_float "
+        f"{launches['squash_float']}")
+    for name in ("q7_matmul", "w8a8_matmul", "squash_float"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"kernel-library path")
+
+    # phase 6
     times = time_kernels(run, dev)
     m = run["engine"].metrics.summary()
     log(f"[serve] {card} | {N_REQUESTS} requests, buckets {BUCKETS}: "
@@ -409,18 +699,35 @@ def main() -> int:
             f"({t['bound_by']}); no single PyTorch call computes it, so "
             f"library_ms is null")
 
-    sources = {"squash_q7": ("src/repro_torch/kernels/csrc/squash_q7.cu",
-                             "src/repro/kernels/squash.py:50"),
-               "routing_q7": ("src/repro_torch/kernels/csrc/routing_q7.cu",
-                              "src/repro/kernels/routing.py:90")}
-    record = {"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name]["ms"],
-         "plain_ms": times[name]["plain_ms"],
-         "bound_ms": times[name]["bound_ms"],
-         "bound_by": times[name]["bound_by"], "library_ms": None}
-        for name in ("squash_q7", "routing_q7")]}
+    times.update(time_library(dev, card))
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
+               "routing_q7": ("routing_q7.cu",
+                              "src/repro/kernels/routing.py:90"),
+               "q7_matmul": ("q7_matmul.cu",
+                             "src/repro/kernels/q7_matmul.py:51"),
+               "w8a8_matmul": ("w8a8_matmul.cu",
+                               "src/repro/kernels/w8a8_matmul.py:47"),
+               "squash_float": ("squash_float.cu",
+                                "src/repro/kernels/squash.py:75")}
+    record = {"kernels": []}
+    for name, (src, replaces) in sources.items():
+        t = times[name]
+        entry = {"name": name, "route": "cuda", "source": csrc + src,
+                 "replaces": replaces, "launches": launches[name],
+                 "max_abs_err": errs[name], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 "library_note": "no single PyTorch call computes this "
+                 "function", "shape": t["shape"]}
+        if "shapes" in t:
+            entry["shapes"] = t["shapes"]
+            entry["yardstick"] = (
+                "int_mm_ms: torch._int_mm, cuBLASLt's int8 x int8 -> int32 "
+                "product alone (no shift epilogue), where it takes the "
+                "shape; the port never calls it")
+        record["kernels"].append(entry)
     log("kernels: " + ", ".join(f"{k['name']} x{k['launches']}"
                                 for k in record["kernels"]))
     log(card)

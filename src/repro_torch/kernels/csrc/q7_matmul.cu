@@ -1,0 +1,48 @@
+// int8 x int8 -> int32 GEMM with the q7 scalar-shift epilogue (paper's
+// mat_mult_q7 family): C = sat8(round_shift(A @ B, shift)), A [M, K],
+// B [K, N] row-major int8, optionally batched ([..., M, K] x [..., K, N]
+// with one launch, the batch on gridDim.z).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/q7_matmul.py,
+// q7_matmul_pallas (body _q7_matmul_kernel), and is bit-exact with
+// repro_torch.quant.int8_ops.matmul_q7 (the epilogue is q7::rshift_sat8:
+// nearest adds the half-LSB, a negative shift shifts left, shifts outside
+// [0, 31] follow XLA's rules).
+//
+// Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
+// M*K + K*N + M*N bytes at 3.35 TB/s; square products from about 256^3
+// up are bound by operations, thin ones (small M or N) by bytes.  The
+// design (i8_gemm.cuh) reaches the tensor cores through mma.sync
+// m16n8k32 with int32 accumulators in registers and tiles staged in
+// shared memory; it does not reach the wgmma rate, which needs TMA and a
+// pipelined ring of tiles (later work).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "i8_gemm.cuh"
+#include "q7.cuh"
+
+namespace {
+
+struct ScalarShift {
+  int shift;
+  bool nearest;
+  __device__ __forceinline__ void stage(int32_t*, int, int) const {}
+  __device__ __forceinline__ int32_t apply(int32_t acc, int,
+                                           const int32_t*) const {
+    return q7::rshift_sat8(acc, shift, nearest);
+  }
+};
+
+}  // namespace
+
+// C entry point (loaded with ctypes): `batch` products of [M, K] x [K, N]
+// packed back to back.  Returns cudaGetLastError() after the launch; 0
+// means the launch was accepted.
+extern "C" int q7_matmul_launch(const void* a, const void* b, void* c,
+                                int batch, int M, int N, int K, int shift,
+                                int nearest, void* stream) {
+  return i8gemm::launch(a, b, c, batch, M, N, K,
+                        ScalarShift{shift, nearest != 0}, stream);
+}

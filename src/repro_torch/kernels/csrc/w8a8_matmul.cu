@@ -1,0 +1,53 @@
+// W8A8 GEMM with a per-output-column power-of-two shift: C [M, N] int8 =
+// sat8(shift_col(A @ W)), A [M, K] and W [K, N] row-major int8,
+// col_shift [N] int32.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/w8a8_matmul.py,
+// w8a8_matmul_pallas (body _w8a8_kernel), and is bit-exact with
+// repro_torch.kernels.ref.w8a8_matmul_ref.  For a column's shift sh:
+// nearest adds shl(1, sh - 1) when sh > 0; then sar(acc, sh) for sh >= 0
+// or shl(acc, -sh) for sh < 0; then sat8 (q7.cuh's XLA shift rules).
+//
+// Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
+// M*K + K*N + M*N + 4*N bytes at 3.35 TB/s, as q7_matmul.cu.  The main
+// loop is i8_gemm.cuh's (mma.sync m16n8k32, int32 accumulators in
+// registers); each block loads the kBN shifts of its output tile into
+// shared memory once, before its K loop.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "i8_gemm.cuh"
+#include "q7.cuh"
+
+namespace {
+
+struct ColumnShift {
+  const int32_t* col_shift;
+  bool nearest;
+  __device__ __forceinline__ void stage(int32_t* tile, int n0, int N) const {
+    for (int j = threadIdx.x; j < i8gemm::kBN; j += blockDim.x)
+      tile[j] = n0 + j < N ? col_shift[n0 + j] : 0;
+    __syncthreads();
+  }
+  __device__ __forceinline__ int32_t apply(int32_t acc, int col,
+                                           const int32_t* tile) const {
+    const int32_t sh = tile[col];
+    if (nearest && sh > 0) acc = q7::wadd(acc, q7::shl(1, sh - 1));
+    acc = sh >= 0 ? q7::sar(acc, sh) : q7::shl(acc, -sh);
+    return q7::sat8(acc);
+  }
+};
+
+}  // namespace
+
+// C entry point (loaded with ctypes).  Returns cudaGetLastError() after
+// the launch; 0 means the launch was accepted.
+extern "C" int w8a8_matmul_launch(const void* a, const void* w,
+                                  const void* col_shift, void* c, int M,
+                                  int N, int K, int nearest, void* stream) {
+  return i8gemm::launch(
+      a, w, c, 1, M, N, K,
+      ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
+      stream);
+}

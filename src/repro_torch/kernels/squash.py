@@ -1,11 +1,12 @@
-"""Integer squash (paper Eq. 8): the CUDA kernel's wrapper and its plain
-version.
+"""Integer squash (paper Eq. 8) and float squash (Eq. 1): the CUDA
+kernels' wrappers and their plain versions.
 
 `squash_q7` takes int8 [..., D] (D <= 16).  A tensor on the CPU goes to
 the plain version (`repro_torch.quant.int8_ops.squash_q7`, the torch
 oracle); a CUDA tensor goes to `csrc/squash_q7.cu` or raises.  The
 kernel replaces the Pallas TPU kernel `repro.kernels.squash
-.squash_q7_pallas`.
+.squash_q7_pallas`.  `squash_float` does the same for float [..., D]
+with `csrc/squash_float.cu` (replacing `squash_float_pallas`).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.routing import squash
 from repro_torch.kernels import build
 from repro_torch.quant import int8_ops as q
 
@@ -85,3 +87,40 @@ def squash_q7(s, in_frac: int, out_frac: int = 7):
 
 
 squash_q7.launches = 0
+
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def squash_float_plain(s):
+    """Float squash (Eq. 1) in float32, returned in the input's dtype."""
+    return squash(s).to(s.dtype)
+
+
+def squash_float(s):
+    """[..., D] float -> the same dtype, rows squashed in float32 (the
+    Pallas kernel's output keeps `s.dtype`).  CPU tensors take the plain
+    `squash_float_plain`; a CUDA tensor goes to `csrc/squash_float.cu`,
+    which replaces `repro.kernels.squash.squash_float_pallas`."""
+    if s.device.type == "cpu":
+        return squash_float_plain(s)
+    if s.device.type != "cuda":
+        raise NotImplementedError(f"squash_float on {s.device}")
+    if s.dtype not in FLOAT_DTYPES:
+        raise TypeError(f"squash_float takes {FLOAT_DTYPES}, got {s.dtype}")
+    D = s.shape[-1]
+    s2 = s.reshape(-1, D).to(torch.float32).contiguous()
+    out = torch.empty_like(s2)
+    fn = build.load("squash_float").squash_float_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(s.device):
+        err = fn(s2.data_ptr(), out.data_ptr(), s2.shape[0], D,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "squash_float")
+    squash_float.launches += 1
+    return out.reshape(s.shape).to(s.dtype)
+
+
+squash_float.launches = 0

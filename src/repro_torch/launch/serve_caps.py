@@ -11,12 +11,22 @@ scheduler, and prints the serving metrics.  With --compare-b1 it
 replays the same requests through a batch-size-1 loop.  Runs on CUDA
 unless --device says otherwise (`--device cpu` serves the `torch`
 backend's models on the CPU).
+
+--softmax/--squash select operator variants from the registry
+(repro_torch.nn.variants; e.g. the ISLPED'22 approximate softmax/squash)
+by rebuilding the spec.  On a `*@cuda` model a non-default variant runs
+the torch oracle on the card (bit-identical, slower), and the run prints
+the fallbacks.  Unknown names fail argparse with the registered ones
+listed.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
+from repro_torch.nn.backend import get_backend
+from repro_torch.nn.variants import REGISTRY
 from repro_torch.serving import ModelRegistry, default_specs, serve_window
 
 
@@ -24,6 +34,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="mnist@cuda",
                     help=f"registry id ({', '.join(sorted(default_specs()))})")
+    ap.add_argument("--softmax", choices=REGISTRY.names("softmax"),
+                    default=None,
+                    help="softmax operator variant (repro_torch.nn."
+                    "variants); default: the spec's own")
+    ap.add_argument("--squash", choices=REGISTRY.names("squash"),
+                    default=None,
+                    help="squash operator variant; default: the spec's own")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--buckets", default="1,4,16,64",
                     help="comma-separated micro-batch bucket sizes")
@@ -41,6 +58,12 @@ def main(argv=None):
     if model_id not in registry.specs:
         ap.error(f"unknown model {model_id!r}; have {sorted(registry.specs)}")
     spec = registry.specs[model_id]
+    if args.softmax or args.squash:
+        spec = dataclasses.replace(
+            spec, **{f"{k}_impl": v for k, v in (("softmax", args.softmax),
+                                                 ("squash", args.squash))
+                     if v})
+        registry.register(spec)
     images = spec.images(args.requests, args.seed)
     print(f"[serve_caps] model={model_id} ({spec.config.name}, "
           f"backend={spec.backend}, variants={spec.variants.tag}) "
@@ -54,6 +77,10 @@ def main(argv=None):
     print("[serve_caps]", engine.metrics.report())
     print(f"[serve_caps] wave functions bound: {registry.compile_count}, "
           f"cache hits: {registry.exec_hits}")
+    if registry.variant_fallbacks:
+        print(f"[serve_caps] cuda->torch variant fallbacks: "
+              f"{registry.variant_fallbacks} (decisions by (op, variant): "
+              f"{dict(get_backend('cuda').fallbacks)})")
     if args.compare_b1:
         b1_engine, _, b1_wall = serve_window(registry, (1,), images,
                                              model_id)

@@ -8,15 +8,22 @@
           integer squash of the primary capsules and the fused
           r-iteration routing loop, the counterparts of the reference's
           `pallas` backend.  The kernels implement the default variants
-          ("q7" softmax, "exact" squash) and a Q0.7 routing output; any
-          other plan, and any tensor that is not on a CUDA device, is
-          refused with NotImplementedError.  A caller who wants another
-          variant asks for the `torch` backend.
+          ("q7" softmax, "exact" squash) and a Q0.7 routing output.  A
+          plan with another variant runs the torch oracle on the same
+          CUDA tensors (bit-identical, slower), counted per decision in
+          `CudaBackend.fallbacks` under (op, variant) and warned once per
+          label; a routing plan with another output format runs the
+          torch loop uncounted, as the reference's `pallas` backend
+          does.  A tensor that is not on a CUDA device is refused with
+          NotImplementedError: no call leaves the card.
 
 The convolutions and the u_hat product are exact integer torch code on
 both backends (float64 im2col products, see int8_ops).
 """
 from __future__ import annotations
+
+import collections
+import warnings
 
 import torch
 
@@ -72,11 +79,10 @@ class TorchBackend:
             out_frac=plan.out_frac)
 
 
-def _require_cuda(op: str, t) -> None:
-    if t.device.type != "cuda":
-        raise NotImplementedError(
-            f"cuda backend: {op} got a tensor on {t.device}; the CUDA "
-            "kernels take CUDA tensors (use the 'torch' backend on the CPU)")
+# the fallback target of CudaBackend: a plain oracle instance, so a
+# routing-level fallback runs the WHOLE loop on oracle ops and records
+# exactly one count per fallback decision
+_TORCH_ORACLE = TorchBackend()
 
 
 class CudaBackend(TorchBackend):
@@ -85,28 +91,48 @@ class CudaBackend(TorchBackend):
 
     name = "cuda"
 
+    def __init__(self):
+        # fallback DECISIONS (one per call, not per image), by (op, variant)
+        self.fallbacks = collections.Counter()
+        self._warned: set = set()
+
+    def _require_cuda(self, op: str, t) -> None:
+        if t.device.type != "cuda":
+            raise NotImplementedError(
+                f"cuda backend: {op} got a tensor on {t.device}; the CUDA "
+                "kernels take CUDA tensors (use the 'torch' backend on the "
+                "CPU)")
+
+    def _fallback(self, op: str, variant: str) -> None:
+        self.fallbacks[(op, variant)] += 1
+        if (op, variant) not in self._warned:
+            self._warned.add((op, variant))
+            warnings.warn(
+                f"cuda backend has no {op} kernel for variant {variant!r}; "
+                "falling back to the torch oracle on the card "
+                "(bit-identical, slower)", RuntimeWarning, stacklevel=3)
+
     def squash_q7(self, s, *, in_frac, out_frac=7, impl=None):
+        self._require_cuda("squash_q7", s)
         impl = impl or REGISTRY.default("squash")
         if impl != REGISTRY.default("squash"):
-            raise NotImplementedError(
-                f"cuda backend has no squash kernel for variant {impl!r}; "
-                "serve this plan on the 'torch' backend")
-        _require_cuda("squash_q7", s)
+            self._fallback("squash", impl)
+            return _TORCH_ORACLE.squash_q7(s, in_frac=in_frac,
+                                           out_frac=out_frac, impl=impl)
         return ksquash.squash_q7(s, in_frac=in_frac, out_frac=out_frac)
 
     def routing_q7(self, u_hat, plan, *, rounding):
-        for kind, impl in (("softmax", plan.softmax_impl),
-                           ("squash", plan.squash_impl)):
-            if impl != REGISTRY.default(kind):
-                raise NotImplementedError(
-                    f"cuda backend has no routing kernel for {kind} "
-                    f"variant {impl!r}; serve this plan on the 'torch' "
-                    "backend")
+        self._require_cuda("routing_q7", u_hat)
+        # the fused kernel implements only the default variants and the
+        # Q0.7 squash output; other plans take the oracle loop
+        if plan.softmax_impl != REGISTRY.default("softmax"):
+            self._fallback("routing.softmax", plan.softmax_impl)
+            return _TORCH_ORACLE.routing_q7(u_hat, plan, rounding=rounding)
+        if plan.squash_impl != REGISTRY.default("squash"):
+            self._fallback("routing.squash", plan.squash_impl)
+            return _TORCH_ORACLE.routing_q7(u_hat, plan, rounding=rounding)
         if plan.out_frac != 7:
-            raise NotImplementedError(
-                f"cuda routing kernel writes Q0.7; plan asks for "
-                f"Q0.{plan.out_frac} (serve it on the 'torch' backend)")
-        _require_cuda("routing_q7", u_hat)
+            return _TORCH_ORACLE.routing_q7(u_hat, plan, rounding=rounding)
         return kroute.routing_q7(
             u_hat, num_iters=plan.routings,
             caps_out_shifts=plan.caps_out_shifts,

@@ -119,6 +119,10 @@ class VariantSet:
     def tag(self) -> str:
         return f"{self.softmax}+{self.squash}"
 
+    def is_default(self) -> bool:
+        return self.softmax == DEFAULT_SOFTMAX \
+            and self.squash == DEFAULT_SQUASH
+
     @classmethod
     def of_plan(cls, plan) -> "VariantSet":
         """Read the selection off a PipelinePlan's layer plans (they must

@@ -72,6 +72,24 @@ def sat8(x):
     return _i32(x).clamp(INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+def matmul_q7_acc(a, b):
+    """Raw int32 accumulator of a [..., K] x b [..., K, N].
+
+    The reference's `lax.dot_general` contracts a's last axis with b's
+    second-to-last and has no batch axes, so a 3-D operand gives a's
+    free axes followed by b's ([B,M,K] x [B,K,N] -> [B,M,B,N]): this is
+    `torch.tensordot`, not the broadcasting `torch.matmul`."""
+    acc = torch.tensordot(a.to(torch.float64), b.to(torch.float64),
+                          dims=([a.dim() - 1], [b.dim() - 2]))
+    return _exact_int32(acc)
+
+
+def matmul_q7(a, b, shift: int, rounding: str = "floor"):
+    """[..., M, K] int8 x [..., K, N] int8 -> int8, int32 accumulation
+    (the paper's `mat_mult_q7` family; axes as in `matmul_q7_acc`)."""
+    return rshift_sat8(matmul_q7_acc(a, b), shift, rounding)
+
+
 def add_q7(a, b, shift_a: int = 0, shift_b: int = 0):
     """Saturating int8 addition with per-operand alignment shifts."""
     aa = _i32(a) << max(-shift_a, 0) if shift_a <= 0 else _i32(a) >> shift_a

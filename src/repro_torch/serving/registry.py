@@ -10,11 +10,16 @@ Two caches with different lifetimes:
     bucket) once and reuses it for every later wave.
 
 `quantize_count` / `compile_count` / `exec_hits` count builds, wave
-bindings and wave-cache hits, so tests can pin reuse.
+bindings and wave-cache hits, so tests can pin reuse.  Models whose
+`cuda` backend falls back to the torch oracle on non-default operator
+variants are listed in `variant_fallbacks` and counted per (model,
+variant) in `fallback_counts`, with one warning each.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import warnings
 
 import numpy as np
 import torch
@@ -107,6 +112,12 @@ class ModelRegistry:
         self.quantize_count = 0
         self.compile_count = 0
         self.exec_hits = 0
+        # model_id -> variant tag for models whose cuda backend falls back
+        # to the torch oracle on non-default operator variants (the
+        # engine-side view of CudaBackend.fallbacks; warned once each)
+        self.variant_fallbacks: dict = {}
+        self.fallback_counts = collections.Counter()   # (model, tag) -> n
+        self._warned_fallbacks: set = set()
 
     # ------------------------------------------------------------------
     # models
@@ -116,6 +127,7 @@ class ModelRegistry:
         functions cached for that id."""
         self.specs[spec.model_id] = spec
         self._models.pop(spec.model_id, None)
+        self.variant_fallbacks.pop(spec.model_id, None)
         self._drop_waves(spec.model_id)
 
     def install(self, model_id: str, qnet: QuantCapsNet) -> None:
@@ -123,6 +135,26 @@ class ModelRegistry:
         lazy PTQ path (drops wave functions bound to a previous model)."""
         self._models[model_id] = qnet
         self._drop_waves(model_id)
+        self._note_variant_fallback(model_id, qnet)
+
+    def _note_variant_fallback(self, model_id: str,
+                               qnet: QuantCapsNet) -> None:
+        """Non-default operator variants on the cuda backend run the torch
+        oracle loop (bit-identical, slower).  Make that observable per
+        model: a count plus one warning per (model, variant)."""
+        vs = qnet.variants
+        if qnet.backend != "cuda" or vs.is_default():
+            self.variant_fallbacks.pop(model_id, None)   # no longer stale
+            return
+        self.variant_fallbacks[model_id] = vs.tag
+        self.fallback_counts[(model_id, vs.tag)] += 1
+        if (model_id, vs.tag) not in self._warned_fallbacks:
+            self._warned_fallbacks.add((model_id, vs.tag))
+            warnings.warn(
+                f"model {model_id!r}: cuda backend falls back to the torch "
+                f"oracle for operator variants {vs.tag!r} (no fused "
+                "kernel; bit-identical, slower)", RuntimeWarning,
+                stacklevel=3)
 
     def _drop_waves(self, model_id: str) -> None:
         for key in [k for k in self._execs if k[0] == model_id]:
@@ -143,6 +175,7 @@ class ModelRegistry:
                     f"unknown model {model_id!r}; have {self.model_ids()}")
             self._models[model_id] = spec.build(self.device)
             self.quantize_count += 1
+            self._note_variant_fallback(model_id, self._models[model_id])
         return self._models[model_id]
 
     def input_shape(self, model_id: str) -> tuple:

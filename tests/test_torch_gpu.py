@@ -5,15 +5,24 @@ without JAX and without the repository's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+import warnings
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels import q7_matmul as kq
 from repro_torch.kernels import routing as kr
 from repro_torch.kernels import squash as ks
+from repro_torch.kernels import w8a8_matmul as kw
+from repro_torch.nn.backend import get_backend
 from repro_torch.serving import ModelRegistry, default_specs
 
 ROUNDINGS = ("floor", "nearest")
+GEMM_MKN = [(20, 30, 40), (128, 128, 128), (7, 257, 130), (1, 5, 3),
+            (200, 64, 96), (4096, 784, 64), (256, 256, 256)]
 MNIST_LIKE = dict(num_iters=3, caps_out_shifts=(8, 8, 9),
                   caps_out_fracs=(7, 7, 6), agree_shifts=(8, 8), logit_frac=7)
 
@@ -64,4 +73,90 @@ def test_cuda_backend_forward_equals_the_torch_backend(cuda):
     v = qnet.forward(x_q)
     assert (ks.squash_q7.launches, kr.routing_q7.launches) == \
         (n0[0] + 1, n0[1] + 1)
+    assert torch.equal(v, qnet.with_backend("torch").forward(x_q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn", GEMM_MKN, ids=lambda m: "x".join(map(str, m)))
+def test_cuda_matmul_q7_and_w8a8_match_plain(cuda, mkn):
+    M, K, N = mkn
+    rng = np.random.default_rng(M + K + N)
+    a, b = i8(rng, (M, K)), i8(rng, (K, N))
+    sh = torch.from_numpy(rng.integers(-40, 41, (N,)).astype(np.int32))
+    ad, bd, shd = a.to(cuda), b.to(cuda), sh.to(cuda)
+    n0 = (kq.matmul_q7.launches, kw.w8a8_matmul.launches)
+    for rounding in ROUNDINGS:
+        for shift in (0, 3, 9, -2, 12):
+            got = ops.matmul_q7(ad, bd, shift, rounding)
+            assert torch.equal(got.cpu(), kq.matmul_q7_plain(a, b, shift,
+                                                             rounding))
+        got = ops.w8a8_matmul(ad, bd, shd, rounding)
+        assert torch.equal(got.cpu(), kw.w8a8_matmul_plain(a, b, sh,
+                                                           rounding))
+    assert (kq.matmul_q7.launches, kw.w8a8_matmul.launches) == \
+        (n0[0] + 10, n0[1] + 2)
+
+
+@pytest.mark.gpu
+def test_cuda_matmul_q7_every_shift_and_the_int32_wrap(cuda):
+    rng = np.random.default_rng(9)
+    a, b = i8(rng, (33, 70)), i8(rng, (70, 17))
+    for rounding in ROUNDINGS:
+        for shift in range(-40, 41):
+            assert torch.equal(
+                ops.matmul_q7(a.to(cuda), b.to(cuda), shift, rounding).cpu(),
+                kq.matmul_q7_plain(a, b, shift, rounding))
+    a = torch.full((4, 140_000), -128, dtype=torch.int8)
+    b = torch.full((140_000, 8), -128, dtype=torch.int8)
+    for shift in (0, 20, 31):
+        assert torch.equal(ops.matmul_q7(a.to(cuda), b.to(cuda), shift).cpu(),
+                           kq.matmul_q7_plain(a, b, shift))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [(), (3,), (2, 5)], ids=str)
+def test_cuda_bmm_q7_is_one_launch(cuda, batch):
+    rng = np.random.default_rng(len(batch))
+    a, b = i8(rng, batch + (70, 90)), i8(rng, batch + (90, 33))
+    n0 = kq.bmm_q7.launches
+    for rounding in ROUNDINGS:
+        got = ops.bmm_q7(a.to(cuda), b.to(cuda), 7, rounding)
+        assert torch.equal(got.cpu(), kq.bmm_q7_plain(a, b, 7, rounding))
+    assert kq.bmm_q7.launches == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+def test_cuda_squash_float_matches_plain(cuda, dtype):
+    s = torch.from_numpy(np.random.default_rng(4).normal(
+        0, 2, (64 * 1024, 4)).astype(np.float32)).to(dtype).to(cuda)
+    n0 = ks.squash_float.launches
+    got = ops.squash_float(s)
+    assert got.dtype == dtype and ks.squash_float.launches == n0 + 1
+    want = ks.squash_float_plain(s)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:      # float32 results a rounding apart may round one ulp apart
+        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -10
+        torch.testing.assert_close(got.float(), want.float(), rtol=ulp,
+                                   atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_backend_serves_a_variant_plan_through_the_oracle(cuda):
+    spec = dataclasses.replace(default_specs()["edge_tiny@cuda"],
+                               softmax_impl="approx")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        reg = ModelRegistry({spec.model_id: spec}, device=cuda)
+        qnet = reg.model(spec.model_id)
+        x_q = qnet.quantize_input(torch.from_numpy(spec.images(9, seed=3))
+                                  .to(cuda))
+        n0 = get_backend("cuda").fallbacks[("routing.softmax", "approx")]
+        v = qnet.forward(x_q)
+    assert reg.variant_fallbacks == {spec.model_id: "approx+exact"}
+    assert get_backend("cuda").fallbacks[("routing.softmax", "approx")] \
+        == n0 + 1
+    assert v.device.type == "cuda"
     assert torch.equal(v, qnet.with_backend("torch").forward(x_q))

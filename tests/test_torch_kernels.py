@@ -142,17 +142,38 @@ def test_every_served_geometry_fits_the_routing_kernel():
 
 def test_kernel_sources_name_what_they_replace():
     names = sorted(p.stem for p in build.sources())
-    assert names == ["routing_q7", "squash_q7"]
+    assert names == ["q7_matmul", "routing_q7", "squash_float", "squash_q7",
+                     "w8a8_matmul"]
     notes = {"routing_q7": "src/repro/kernels/routing.py",
-             "squash_q7": "src/repro/kernels/squash.py"}
+             "squash_q7": "src/repro/kernels/squash.py",
+             "squash_float": "src/repro/kernels/squash.py",
+             "q7_matmul": "src/repro/kernels/q7_matmul.py",
+             "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py"}
     for p in build.sources():
         text = p.read_text()
         assert notes[p.stem] in text and f"{p.stem}_pallas" in text
         assert "Bound on the H100" in text
         assert f'extern "C" int {p.stem}_launch' in text
+    for gemm in ("q7_matmul", "w8a8_matmul"):
+        text = (build.CSRC / f"{gemm}.cu").read_text()
+        assert '#include "i8_gemm.cuh"' in text and "i8gemm::launch" in text
     h = build.source_hash()
     assert h == build.source_hash() and len(h) == 16
     assert str(build.BUILD_ROOT).endswith("build/repro_torch_kernels")
+
+
+@pytest.mark.parametrize("header", ["i8_gemm.cuh", "q7.cuh"])
+def test_source_hash_covers_the_shared_headers(header, tmp_path,
+                                               monkeypatch):
+    """An edit to a header alone must rebuild every kernel."""
+    for p in build.CSRC.iterdir():
+        if p.suffix in (".cu", ".cuh"):
+            (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.source_hash()
+    with open(tmp_path / header, "a") as f:
+        f.write("\n// edited\n")
+    assert build.source_hash() != before
 
 
 def test_build_error_check_raises():

@@ -17,6 +17,7 @@ from `np.random.default_rng` or the shared synthetic dataset.
 * plans derived from the same stats are equal, and PTQ run by the port
   on the converted params gives the reference's plans and int8 weights.
 """
+import collections
 import dataclasses
 import warnings
 
@@ -27,7 +28,9 @@ import pytest
 import torch
 
 from repro.data.synthetic import make_image_dataset
+from repro.nn import CIFAR10 as R_CIFAR10
 from repro.nn import MNIST as R_MNIST
+from repro.nn import SMALLNORB as R_SMALLNORB
 from repro.nn import CapsPipeline as RPipeline
 from repro.nn import VariantSet as RVariantSet
 from repro.nn import all_variant_sets as r_all_variant_sets
@@ -35,8 +38,9 @@ from repro.nn.plans import plan_scalars as r_plan_scalars
 from repro.nn.plans import plan_to_json as r_plan_to_json
 from repro.serving import EDGE_TINY as R_EDGE_TINY
 from repro_torch.convert import params_from_reference, qnet_from_reference
-from repro_torch.nn import EDGE_TINY, MNIST, CapsPipeline, VariantSet
-from repro_torch.nn.backend import CudaBackend, get_backend
+from repro_torch.nn import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB, CapsPipeline,
+                            VariantSet)
+from repro_torch.nn.backend import CudaBackend, TorchBackend, get_backend
 from repro_torch.nn.plans import (RoutingPlan, TapStats, plan_from_json,
                                   plan_scalars, plan_to_json)
 from repro_torch.nn.variants import REGISTRY, all_variant_sets
@@ -251,37 +255,137 @@ def test_quantcapsnet_forward_mnist(mnist):
     assert tuple(v.shape) == (2, 10, 6)
 
 
+@pytest.mark.parametrize("name", ["smallnorb", "cifar10"])
+def test_quantcapsnet_forward_smallnorb_and_cifar10(name):
+    """The paper's other two configs, floor rounding, a 2-image batch,
+    against the reference's jnp backend on converted qweights."""
+    rcfg, cfg = {"smallnorb": (R_SMALLNORB, SMALLNORB),
+                 "cifar10": (R_CIFAR10, CIFAR10)}[name]
+    calib = make_image_dataset(name, 8, seed=1)[0]
+    images = make_image_dataset(name, 2, seed=2)[0]
+    _, _, rq = build_ref(rcfg, calib)
+    qnet = port_qnet(rq, cfg)
+    v = _check_forward(qnet, rq, images, ("jnp",))
+    assert tuple(v.shape) == (2, cfg.num_classes, cfg.caps_dim)
+
+
 # ---------------------------------------------------------------------------
-# the cuda backend's refusals (what it does not implement raises)
+# the cuda backend: CPU refusal and the counted variant fallback
 # ---------------------------------------------------------------------------
+class CardlessCudaBackend(CudaBackend):
+    """CudaBackend whose CUDA check passes, so its fallback decisions can
+    be driven with CPU tensors (its default-variant path then reaches the
+    kernel wrappers, which take CPU tensors to their plain versions)."""
+
+    def _require_cuda(self, op, t):
+        pass
+
+
+VARIANT_EDITS = {"softmax_approx": dict(softmax_impl="approx"),
+                 "softmax_precise": dict(softmax_impl="precise"),
+                 "squash_approx": dict(squash_impl="approx"),
+                 "out_frac_6": dict(squash_out_frac=6)}
+
+
 def test_cuda_backend_refuses_what_its_kernels_do_not_implement(edge):
+    """A tensor that is not on a CUDA device is refused for every plan:
+    the variant fallback never leaves the card."""
     _, images, built = edge
     rq = built["per_tensor"][2]
     qnet = port_qnet(rq, EDGE_TINY, backend="cuda")
     be = get_backend("cuda")
     assert isinstance(be, CudaBackend)
     x_q = qnet.quantize_input(to_torch(images))
+    n0 = sum(be.fallbacks.values())
     with pytest.raises(NotImplementedError, match="CUDA tensors"):
         qnet.forward(x_q)                       # CPU tensors
     s = torch.zeros((4, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="variant 'approx'"):
-        be.squash_q7(s, in_frac=5, impl="approx")
+    for impl in (None, "approx"):
+        with pytest.raises(NotImplementedError, match="CUDA tensors"):
+            be.squash_q7(s, in_frac=5, impl=impl)
     u_hat = torch.zeros((1, 4, 16, 4), dtype=torch.int8)
     plan = qnet.plan["caps"]
-    for edit in (dict(softmax_impl="approx"), dict(softmax_impl="precise"),
-                 dict(squash_impl="approx")):
-        with pytest.raises(NotImplementedError, match="variant"):
+    for edit in [{}] + list(VARIANT_EDITS.values()):
+        with pytest.raises(NotImplementedError, match="CUDA tensors"):
             be.routing_q7(u_hat, dataclasses.replace(plan, **edit),
                           rounding="floor")
-    with pytest.raises(NotImplementedError, match="Q0.7"):
-        be.routing_q7(u_hat, dataclasses.replace(plan, squash_out_frac=6),
-                      rounding="floor")
-    with pytest.raises(NotImplementedError, match="CUDA tensors"):
-        be.routing_q7(u_hat, plan, rounding="floor")
+    assert sum(be.fallbacks.values()) == n0     # refusals are not counted
     with pytest.raises(ValueError, match="unknown backend"):
         get_backend("pallas")
     assert REGISTRY.default("softmax") == "q7"
     assert REGISTRY.default("squash") == "exact"
+
+
+@pytest.mark.parametrize("edit", sorted(VARIANT_EDITS))
+@pytest.mark.parametrize("rounding", ROUNDINGS)
+def test_cuda_backend_variant_plans_return_the_torch_backends_result(
+        edit, rounding):
+    rng = np.random.default_rng(21)
+    u_hat = torch.from_numpy(rng.integers(-128, 128, (3, 4, 16, 4))
+                             .astype(np.int8))
+    plan = dataclasses.replace(
+        RoutingPlan(7, 7, (8, 8), (7, 6), (8,)), **VARIANT_EDITS[edit])
+    be = CardlessCudaBackend()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = be.routing_q7(u_hat, plan, rounding=rounding)
+    want = get_backend("torch").routing_q7(u_hat, plan, rounding=rounding)
+    assert torch.equal(got, want)
+    assert sum(be.fallbacks.values()) == (0 if edit == "out_frac_6" else 1)
+
+
+@pytest.mark.parametrize("variants", [v.tag for v in r_all_variant_sets()])
+def test_cuda_backend_forward_of_every_variant_equals_the_torch_backend(
+        variants, edge):
+    _, images, built = edge
+    sm, sq = variants.split("+")
+    rq = built["per_tensor"][2].with_variants(RVariantSet(softmax=sm,
+                                                          squash=sq))
+    qnet = port_qnet(rq, EDGE_TINY)
+    be = CardlessCudaBackend()
+    x_q = qnet.quantize_input(to_torch(images))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        got = qnet.with_backend(be).forward(x_q)
+    assert torch.equal(got, qnet.forward(x_q))
+    # one decision per face that has no kernel: squash (primary caps) and
+    # the routing loop (its softmax checked first)
+    want = {}
+    if sq != "exact":
+        want[("squash", sq)] = 1
+    if sm != "q7":
+        want[("routing.softmax", sm)] = 1
+    elif sq != "exact":
+        want[("routing.squash", sq)] = 1
+    assert dict(be.fallbacks) == want
+
+
+def test_cuda_backend_counts_every_decision_and_warns_once_per_label():
+    be = CardlessCudaBackend()
+    s = torch.from_numpy(np.random.default_rng(2).integers(
+        -128, 128, (6, 4)).astype(np.int8))
+    u_hat = torch.zeros((1, 4, 16, 4), dtype=torch.int8)
+    plan = RoutingPlan(7, 7, (8, 8), (7, 6), (8,))
+    approx = dataclasses.replace(plan, softmax_impl="approx")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            got = be.squash_q7(s, in_frac=5, impl="approx")
+            be.routing_q7(u_hat, approx, rounding="floor")
+        be.squash_q7(s, in_frac=5)                       # default: kernel
+        be.routing_q7(u_hat, plan, rounding="floor")
+        be.routing_q7(u_hat, dataclasses.replace(plan, squash_out_frac=6),
+                      rounding="floor")                  # uncounted
+    assert torch.equal(got, TorchBackend().squash_q7(s, in_frac=5,
+                                                     impl="approx"))
+    assert be.fallbacks == {("squash", "approx"): 3,
+                            ("routing.softmax", "approx"): 3}
+    msgs = sorted(str(w.message) for w in caught
+                  if issubclass(w.category, RuntimeWarning))
+    assert len(msgs) == 2
+    assert "squash kernel for variant 'approx'" in msgs[1]
+    assert "routing.softmax kernel for variant 'approx'" in msgs[0]
+    assert isinstance(get_backend("cuda").fallbacks, collections.Counter)
 
 
 def test_torch_backend_keeps_logits_format_when_out_frac_is_edited(edge):

@@ -14,6 +14,8 @@ Pinned guarantees, as tests/test_serving.py pins them for the reference:
 
 Everything runs on the EDGE_TINY geometry with the `torch` backend.
 """
+import warnings
+
 import numpy as np
 import pytest
 import torch
@@ -25,7 +27,7 @@ from repro.serving import ModelSpec as RModelSpec
 from repro.serving import EDGE_TINY as R_EDGE_TINY
 from repro_torch.convert import qnet_from_reference
 from repro_torch.launch import serve_caps
-from repro_torch.nn import EDGE_TINY
+from repro_torch.nn import EDGE_TINY, VariantSet
 from repro_torch.serving import (CapsServeEngine, ModelRegistry, ModelSpec,
                                  ServeMetrics, default_specs, serve_window,
                                  wave_fn)
@@ -224,3 +226,35 @@ def test_serve_window_and_the_cli(served, capsys):
     out = capsys.readouterr().out
     assert "6 imgs in" in out and "batched speedup over b1 loop" in out
     assert "device=cpu" in out
+
+
+def test_registry_notes_cuda_variant_fallbacks(served):
+    """A `cuda` model with non-default variants is listed, counted per
+    (model, variant) and warned about once; default variants, the `torch`
+    backend and a re-register clear the entry."""
+    reg = registry()
+    qnet = served[1]
+    approx = qnet.with_variants(VariantSet(softmax="approx"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reg.install("x@cuda", approx.with_backend("cuda"))
+        reg.install("x@cuda", approx.with_backend("cuda"))
+        reg.install("y@torch", approx)
+    assert reg.variant_fallbacks == {"x@cuda": "approx+exact"}
+    assert reg.fallback_counts == {("x@cuda", "approx+exact"): 2}
+    assert [str(w.message).startswith("model 'x@cuda'") for w in caught
+            if issubclass(w.category, RuntimeWarning)] == [True]
+    reg.install("x@cuda", qnet.with_backend("cuda"))
+    assert reg.variant_fallbacks == {}
+    reg.install("x@cuda", approx.with_backend("cuda"))
+    reg.register(ModelSpec("x@cuda", EDGE_TINY, backend="cuda"))
+    assert reg.variant_fallbacks == {}
+
+
+def test_cli_variant_flags(capsys):
+    assert serve_caps.main(["--model", MID, "--requests", "3",
+                            "--buckets", "1,4", "--device", "cpu",
+                            "--softmax", "approx", "--squash", "approx"]) == 0
+    assert "variants=approx+approx" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        serve_caps.main(["--model", MID, "--softmax", "nope"])
