@@ -1,4 +1,5 @@
 // Integer helpers shared by the q7 kernels (squash_q7.cu, routing_q7.cu).
+// Both kernels squash through q7::squash_row, so they share one isqrt.
 //
 // Each helper reproduces the semantics of the torch / XLA integer oracle
 // (repro_torch.quant.int8_ops) on int32, including the cases C++ leaves
@@ -73,36 +74,45 @@ __host__ __device__ __forceinline__ int32_t rshift_sat8(int32_t acc,
   return sat8(acc);
 }
 
-// int8_ops.isqrt_newton (Alg. 4): fixed 32 guarded Newton steps from n/2.
-__host__ __device__ __forceinline__ int32_t isqrt_newton(int32_t n) {
-  int32_t x = floordiv(n, 2);
-  x = x < 1 ? 1 : x;
-#pragma unroll 4
-  for (int k = 0; k < 32; ++k) {
-    const int32_t d = x < 1 ? 1 : x;
-    const int32_t nxt = floordiv(wadd(x, floordiv(n, d)), 2);
-    x = nxt < x ? nxt : x;
+// floor(sqrt(n)) for n >= 2, n for n <= 1: equal to int8_ops.isqrt_newton
+// (Alg. 4, 32 guarded Newton steps from n / 2) on every int32, without its
+// 64 integer divisions.  The float32 root of n (n rounded to float32,
+// then a correctly rounded sqrt) is within 0.01 of sqrt(n) for n < 2^31,
+// so its truncation is floor(sqrt(n)) or one off where sqrt(n) lies that
+// close to an integer; one step down and one step up, with the squares
+// in 64 bits, make it exact.  On the squash's domain, [0, 16 * 128^2],
+// the truncation alone is already exact.
+__device__ __forceinline__ int32_t isqrt(int32_t n) {
+  if (n <= 1) return n;
+  int32_t r = static_cast<int32_t>(__fsqrt_rn(__int2float_rn(n)));
+  if (static_cast<int64_t>(r) * r > n) {
+    --r;
+  } else if (static_cast<int64_t>(r + 1) * (r + 1) <= n) {
+    ++r;
   }
-  return n <= 1 ? n : x;
+  return r;
 }
 
 // int8_ops.squash_q7 on one capsule s[0..D) (int8 values held in int32),
-// D <= kMaxDim; writes the int8 results into v as int32.
-__host__ __device__ __forceinline__ void squash_row(const int32_t* s, int D,
-                                                    int in_frac, int out_frac,
-                                                    int32_t* v) {
+// D <= kSlots <= kMaxDim; writes the int8 results into v as int32.  A
+// caller that knows D at compile time passes it as kSlots, so the loops
+// unroll to D slots.
+template <int kSlots = kMaxDim>
+__device__ __forceinline__ void squash_row(const int32_t* s, int D,
+                                           int in_frac, int out_frac,
+                                           int32_t* v) {
   int32_t Q = 0;
 #pragma unroll
-  for (int d = 0; d < kMaxDim; ++d)
+  for (int d = 0; d < kSlots; ++d)
     if (d < D) Q = wadd(Q, wmul(s[d], s[d]));
-  const int32_t S = isqrt_newton(Q);
+  const int32_t S = isqrt(Q);
   const int shift = out_frac - in_frac + kSquashGuardBits;
   const int32_t num = shift >= 0 ? shl(S, shift) : sar(S, -shift);
   int32_t den = wadd(shl(1, in_frac), sar(Q, in_frac));
   den = den < 1 ? 1 : den;
   const int32_t ratio = floordiv(num, den);
 #pragma unroll
-  for (int d = 0; d < kMaxDim; ++d)
+  for (int d = 0; d < kSlots; ++d)
     if (d < D) v[d] = sat8(sar(wmul(ratio, s[d]), kSquashGuardBits));
 }
 

@@ -11,6 +11,7 @@ with `csrc/squash_float.cu` (replacing `squash_float_pallas`).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,38 +24,41 @@ MAX_DIM = 16                           # csrc/q7.cuh kMaxDim
 squash_q7_plain = q.squash_q7
 
 
-def _lib():
-    lib = build.load("squash_q7")
-    fn = lib.squash_q7_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+@functools.cache
+def _launch(entry: str):
+    """A C entry of the squash_q7 library with its argtypes, bound once."""
+    fn = getattr(build.load("squash_q7"), entry)
+    fn.argtypes = {
+        "squash_q7_launch": [ctypes.c_void_p, ctypes.c_void_p] +
+        [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "isqrt_launch": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                         ctypes.c_void_p]}[entry]
     fn.restype = ctypes.c_int
     return fn
 
 
-def isqrt_newton(n):
-    """The kernels' device isqrt on an int32 tensor (a check entry: the
-    squash and routing kernels inline it).  CPU tensors take the plain
-    `int8_ops.isqrt_newton`."""
+def isqrt(n):
+    """The kernels' device isqrt (`q7::isqrt` in csrc/q7.cuh) on an int32
+    tensor: a check entry, since the squash and routing kernels inline
+    it.  It equals `int8_ops.isqrt_newton`, which CPU tensors take."""
     if n.device.type == "cpu":
         return q.isqrt_newton(n)
     if n.device.type != "cuda" or n.dtype != torch.int32:
-        raise NotImplementedError(f"isqrt_newton on {n.device} {n.dtype}")
-    fn = build.load("squash_q7").isqrt_newton_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        raise NotImplementedError(f"isqrt on {n.device} {n.dtype}")
     src = n.contiguous()
+    if src.numel() >= 2 ** 31:
+        raise ValueError("isqrt takes fewer than 2^31 elements a call")
     out = torch.empty_like(src)
     with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), out.data_ptr(), src.numel(),
-                 torch.cuda.current_stream().cuda_stream)
-    build.check(err, "isqrt_newton")
-    isqrt_newton.launches += 1
+        err = _launch("isqrt_launch")(
+            src.data_ptr(), out.data_ptr(), src.numel(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "isqrt")
+    isqrt.launches += 1
     return out
 
 
-isqrt_newton.launches = 0
+isqrt.launches = 0
 
 
 def check_in_frac(in_frac: int) -> None:
@@ -79,8 +83,9 @@ def squash_q7(s, in_frac: int, out_frac: int = 7):
     s2 = s.reshape(-1, D).contiguous()
     out = torch.empty_like(s2)
     with torch.cuda.device(s.device):
-        err = _lib()(s2.data_ptr(), out.data_ptr(), s2.shape[0], D, in_frac,
-                     out_frac, torch.cuda.current_stream().cuda_stream)
+        err = _launch("squash_q7_launch")(
+            s2.data_ptr(), out.data_ptr(), s2.shape[0], D, in_frac,
+            out_frac, torch.cuda.current_stream().cuda_stream)
     build.check(err, "squash_q7")
     squash_q7.launches += 1
     return out.reshape(s.shape)

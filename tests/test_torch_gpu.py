@@ -47,8 +47,49 @@ def test_cuda_squash_matches_plain(cuda):
         assert torch.equal(got.cpu(), ks.squash_q7_plain(s, in_frac=in_frac))
     assert ks.squash_q7.launches == n0 + 13
     n = torch.arange(0, 16 * 128 * 128 + 1, dtype=torch.int32)
-    assert torch.equal(ks.isqrt_newton(n.to(cuda)).cpu(),
-                       ks.isqrt_newton(n))
+    assert torch.equal(ks.isqrt(n.to(cuda)).cpu(), ks.isqrt(n))
+
+
+@pytest.mark.gpu
+def test_cuda_isqrt_equals_newton_on_every_int31(cuda):
+    """q7::isqrt against int8_ops.isqrt_newton run on the card, over every
+    n in [0, 2^31 - 1] in chunks, and on negative n."""
+    from repro_torch.quant import int8_ops as q
+    chunk = 1 << 27
+    for lo in range(0, 1 << 31, chunk):
+        n = torch.arange(lo, lo + chunk, dtype=torch.int64,
+                         device=cuda).to(torch.int32)
+        assert int((ks.isqrt(n) != q.isqrt_newton(n)).sum()) == 0, lo
+    neg = torch.from_numpy(np.random.default_rng(2).integers(
+        -2 ** 31, 0, 1 << 16).astype(np.int32)).to(cuda)
+    assert torch.equal(ks.isqrt(neg), neg)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 16, 64])
+def test_cuda_routing_every_bucket_and_cluster_size(cuda, B):
+    u = i8(np.random.default_rng(B), (B, 10, 1024, 6)).to(cuda)
+    for rounding in ROUNDINGS:
+        want = kr.routing_q7_plain(u, rounding=rounding, **MNIST_LIKE)
+        for cs in (None,) + kr.CLUSTER_SIZES:
+            got = kr.routing_q7(u, rounding=rounding, cs=cs, **MNIST_LIKE)
+            assert torch.equal(got, want), (cs, rounding)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom", [(3, 7, 33, 16), (2, 3, 9, 6),
+                                  (4, 5, 1600, 6)], ids=str)
+def test_cuda_routing_ragged_slices(cuda, geom):
+    """I not divisible by the cluster size, every size up to min(I, 8)."""
+    u = i8(np.random.default_rng(sum(geom)), geom)
+    kw = dict(num_iters=3, caps_out_shifts=(5, -3, 9),
+              caps_out_fracs=(4, 0, 12), agree_shifts=(-7, 11),
+              logit_frac=-2)
+    for rounding in ROUNDINGS:
+        want = kr.routing_q7_plain(u, rounding=rounding, **kw)
+        for cs in range(1, min(geom[2], kr.MAX_CLUSTER) + 1):
+            got = kr.routing_q7(u.to(cuda), rounding=rounding, cs=cs, **kw)
+            assert torch.equal(got.cpu(), want), (cs, rounding)
 
 
 @pytest.mark.gpu
