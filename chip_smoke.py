@@ -4,6 +4,9 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --device-times   # phase 1 and phase 7's times
 
+(`--device-times` runs on an older tree too: copy this script into a
+`git archive` of it to time its kernels in the same call.)
+
 Phases, each raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
@@ -34,11 +37,20 @@ Phases, each raising on failure:
    launch counts from 0: `matmul_q7` and `w8a8_matmul` bit for bit
    against their plain versions at the shapes of
    benchmarks/bench_matmul.py, the MNIST primary-caps im2col product at
-   B=64, 4096^3, two ragged shapes and a K = 140,000 product whose int32
-   accumulator wraps, both roundings (scalar shifts over [-40, 40] at
-   one small shape, random column shifts over [-40, 40]); `bmm_q7` on
+   B=64, 4096^3, two ragged shapes, a K = 140,000 product whose int32
+   accumulator wraps and a K = 265,296 one whose running sum wraps and
+   comes back (both also on one wgmma block per tile, so that the
+   wrap happens inside the accumulators), both roundings (scalar shifts
+   over [-40, 40] at one small shape, random column shifts over
+   [-40, 40]); a `[library]` line names the route, tile and split
+   `gemm_plan` picks for each shape, the wgmma route is required for
+   4096^3, (4096, 784, 64) and both wrap shapes, and every call must
+   count one launch on that route (`launches_by_route`); A one byte
+   past a 16-byte boundary must take the mma.sync route, 16 bytes past
+   the wgmma one, and a[:, 1:] is checked too; `bmm_q7` on
    [8, 256, 256] x [8, 256, 256]; `squash_float` within rtol/atol 1e-6
-   in float32 and one ulp in bfloat16; every launch count must be > 0;
+   in float32 and one ulp in bfloat16; every launch count must be > 0,
+   and both routes must have been taken;
 6. times at the main path's shapes (B = 64): each kernel, its plain
    version and its bound; the per-layer split of one wave; serving
    img/s and p50/p99; and each library kernel at each shape of phase 5,
@@ -47,8 +59,11 @@ Phases, each raising on failure:
    never called by the port);
 7. device times from a torch.profiler trace (`device_ms`): routing_q7
    at [B, 10, 1024, 6] and squash_q7 at [B*1024, 4] for every bucket B,
-   routing_q7 at every cluster size, and the library kernels at their
-   headline shapes.
+   routing_q7 at every cluster size, matmul_q7 and w8a8_matmul at every
+   phase-5 shape and bmm_q7 at its shape, each the sum over every kernel
+   the call launches (transpose, product, split-K reduction), beside
+   torch._int_mm's device time at the same shapes, and squash_float at
+   its headline shape.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -59,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -82,11 +98,16 @@ B_TIMED = 64
 ROUNDINGS = ("floor", "nearest")
 # (M, K, N): bench_matmul.py's three, the MNIST primary-caps im2col
 # product at B=64 (64*8*8 patches of 7*7*16 against 16*4 filters),
-# 4096^3, two ragged shapes, and a product whose int32 sum wraps
+# 4096^3, two ragged shapes, a product whose int32 sum wraps, and one
+# whose running int32 sum wraps and comes back
 GEMM_SHAPES = ((20, 30, 40), (128, 128, 128), (256, 256, 256),
                (4096, 784, 64), (4096, 4096, 4096), (7, 257, 130),
-               (1, 5, 3), (4, 140_000, 8))
+               (1, 5, 3), (4, 140_000, 8), (8, 265_296, 16))
 WRAP_SHAPE = (4, 140_000, 8)
+WRAP_RETURN_SHAPE = (8, 265_296, 16)
+# shapes whose plan must be the wgmma route
+WGMMA_SHAPES = ((4096, 4096, 4096), (4096, 784, 64), WRAP_SHAPE,
+                WRAP_RETURN_SHAPE)
 HEADLINE_GEMM = (4096, 4096, 4096)         # the JSON record's GEMM shape
 BMM_SHAPE = (8, 256, 256, 256)             # (batch, M, K, N)
 SQUASH_FLOAT_SHAPES = (((64 * 1024, 4), "float32"), ((64, 6), "float32"),
@@ -122,50 +143,70 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, calls: int = 50, warmup: int = 5) -> float:
-    """Device time of one launch of the CUDA kernel whose name holds
-    `kernel`, which fn() launches once: the mean over the launches that
-    a torch.profiler trace (CUDA activity) of `calls` calls recorded.
-    Other kernels the call launches (casts, copies) are left out.  The
-    trace may drop a record now and then (4 of 20 launches of the 4096^3
-    GEMM, 1 of 50 of the squash were seen); it raises below half of
-    `calls`."""
+def device_ms(fn, kernel: str | None, calls: int = 50, warmup: int = 5,
+              parts: dict | None = None) -> float:
+    """Device time of one fn() call from a torch.profiler trace (CUDA
+    activity) of `calls` calls: with `kernel` a name, the mean launch of
+    the kernels whose name holds it (other kernels of the call, casts
+    and copies, are left out); with None, the sum over EVERY kernel the
+    call launches (a wgmma GEMM call runs a transpose, the product and a
+    split-K reduction) of its mean launch times its launches per call,
+    each kernel's share written into `parts` when given.  The trace may
+    drop records (4 of 20 launches of the 4096^3 GEMM, 1 of 50 of the
+    squash, once every record of a trace were seen): a trace that holds
+    fewer than half of some kernel's launches, or none at all, is taken
+    again, at most three times, and then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us, n = 0.0, 0
-    for e in prof.key_averages():
-        if kernel in e.key and e.device_time_total > 0:
-            total_us += e.device_time_total
-            n += e.count
-    if not calls // 2 <= n <= calls:
-        raise AssertionError(f"profiler trace holds {n} launches of "
-                             f"{kernel!r} for {calls} calls: "
-                             f"{[e.key[:60] for e in prof.key_averages()]}")
-    return total_us / n / 1e3
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        got, short = {}, []
+        for e in prof.key_averages():
+            if e.device_time_total <= 0 or (kernel is not None
+                                            and kernel not in e.key):
+                continue
+            per_call = max(1, round(e.count / calls))
+            if not calls // 2 * per_call <= e.count <= calls * per_call:
+                short.append(f"{e.count} launches of {e.key[:60]!r}")
+            got[e.key] = e.device_time_total / e.count * per_call / 1e3
+        if got and not short:
+            if parts is not None:
+                parts.update(got)
+            return sum(got.values())
+        log(f"[device] profiler trace {attempt + 1} of {kernel!r} for "
+            f"{calls} calls is short ({short or 'no kernel'}): taken again")
+    seen = [e.key[:60] for e in prof.key_averages()]
+    raise AssertionError(f"profiler traces of {kernel!r} stay short: "
+                         f"{short or seen}")
 
 
 MNIST_LIKE = dict(num_iters=3, caps_out_shifts=(8, 8, 9),
                   caps_out_fracs=(7, 7, 6), agree_shifts=(8, 8), logit_frac=7)
 MNIST_ROUTING = (10, 1024, 6)              # (J, I, O) of mnist@cuda
-# kernel name (as the profiler shows it) of each wrapper
-KERNEL_NAMES = {"routing_q7": "routing_q7",
-                "squash_q7": "squash_q7",
-                "q7_matmul": "gemm_kernel", "w8a8_matmul": "gemm_kernel",
+# kernel name (as the profiler shows it) of each main-path wrapper; the
+# library kernels are timed over every kernel their call launches
+KERNEL_NAMES = {"routing_q7": "routing_q7", "squash_q7": "squash_q7",
                 "squash_float": "squash_float_kernel"}
+
+
+def shape_key(shape) -> str:
+    return "x".join(map(str, shape))
 
 
 def device_times(dev) -> dict:
     """Profiler device time of every kernel: routing_q7 at the MNIST
     geometry [B, 10, 1024, 6] and squash_q7 at [B*1024, 4] for every
-    bucket B, the library kernels at their headline shapes.  Random
-    operands from SEED: no kernel's work depends on the data."""
+    bucket B; matmul_q7 and w8a8_matmul at every GEMM_SHAPES entry and
+    bmm_q7 at BMM_SHAPE, each summed over every kernel of the call, with
+    torch._int_mm's device time at the same shapes as the yardstick
+    (None where it refuses the shape); squash_float at its headline
+    shape.  Operands as in phase 5, from SEED + 3."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import routing as kr
@@ -176,7 +217,8 @@ def device_times(dev) -> dict:
         return torch.randint(-128, 128, shape, generator=g,
                              dtype=torch.int8).to(dev)
 
-    out = {"routing_q7": {}, "squash_q7": {}}
+    out = {"routing_q7": {}, "squash_q7": {}, "q7_matmul": {},
+           "w8a8_matmul": {}, "int_mm": {}, "parts": {}}
     for B in BUCKETS:
         u = i8((B,) + MNIST_ROUTING)
         s = i8((B * 1024, 4))
@@ -184,17 +226,36 @@ def device_times(dev) -> dict:
             lambda: kr.routing_q7(u, **MNIST_LIKE), KERNEL_NAMES["routing_q7"])
         out["squash_q7"][B] = device_ms(
             lambda: ks.squash_q7(s, in_frac=7), KERNEL_NAMES["squash_q7"])
-    M, K, N = HEADLINE_GEMM
-    a, b = i8((M, K)), i8((K, N))
-    sh = torch.randint(-40, 41, (N,), generator=g, dtype=torch.int32).to(dev)
-    out["q7_matmul"] = device_ms(lambda: ops.matmul_q7(a, b, 13),
-                                 KERNEL_NAMES["q7_matmul"], calls=20)
-    out["w8a8_matmul"] = device_ms(lambda: ops.w8a8_matmul(a, b, sh),
-                                   KERNEL_NAMES["w8a8_matmul"], calls=20)
+    for shape in GEMM_SHAPES:
+        a, b, sh = (x.to(dev) for x in gemm_operands(*shape, g))
+        key = shape_key(shape)
+        for name, call in (("q7_matmul", lambda: ops.matmul_q7(a, b, 13)),
+                           ("w8a8_matmul", lambda: ops.w8a8_matmul(a, b,
+                                                                    sh))):
+            split = out["parts"][f"{name} {key}"] = {}
+            out[name][key] = device_ms(call, None, calls=20, parts=split)
+        out["int_mm"][key] = int_mm_device_ms(a, b)
+    Bt, M, K, N = BMM_SHAPE
+    a, b = i8((Bt, M, K)), i8((Bt, K, N))
+    key = shape_key(BMM_SHAPE)
+    split = out["parts"][f"q7_matmul {key}"] = {}
+    out["q7_matmul"][key] = device_ms(lambda: ops.bmm_q7(a, b, 13), None,
+                                      calls=20, parts=split)
     sf = torch.randn(SQUASH_FLOAT_SHAPES[0][0], generator=g).to(dev)
     out["squash_float"] = device_ms(lambda: ops.squash_float(sf),
                                     KERNEL_NAMES["squash_float"])
     return out
+
+
+def sass_counts(lib: Path) -> dict:
+    """Tensor-core instructions in a built library's SASS (cuobjdump, next
+    to nvcc): IGMMA is wgmma's int8 form, IMMA mma.sync's."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("IGMMA", "IMMA")}
 
 
 def max_abs_diff(a, b) -> int:
@@ -522,13 +583,34 @@ def serve_other(dev, mid: str, **spec_edit) -> None:
 # ---------------------------------------------------------------------------
 # phase 5: the kernel library
 # ---------------------------------------------------------------------------
+def wrap_and_return(M: int, K: int, N: int, g):
+    """int8 a [M, K], b [K, N]: 132,000 products of (-128)(-128), then
+    133,040 of (-128)(127), then random ones.  Every output's running
+    int32 sum passes 2^31 - 1 after 131,072 products and is back near
+    -10,240 before the random tail: wrapping gives the exact result,
+    saturating anywhere (a partial, a split-K sum) does not."""
+    import torch
+    k1, k2 = 132_000, 133_040
+    a = torch.full((M, K), -128, dtype=torch.int8)
+    b = torch.full((K, N), -128, dtype=torch.int8)
+    b[k1:k1 + k2] = 127
+    a[:, k1 + k2:] = torch.randint(-128, 128, (M, K - k1 - k2), generator=g,
+                                   dtype=torch.int8)
+    b[k1 + k2:] = torch.randint(-128, 128, (K - k1 - k2, N), generator=g,
+                                dtype=torch.int8)
+    return a, b
+
+
 def gemm_operands(M: int, K: int, N: int, g):
     """int8 a [M, K], b [K, N] and int32 column shifts over [-40, 40] on
-    the CPU; the wrap shape's operands are all -128."""
+    the CPU; the wrap shape's operands are all -128, the wrap-and-return
+    shape's from `wrap_and_return`."""
     import torch
     if (M, K, N) == WRAP_SHAPE:
         a = torch.full((M, K), -128, dtype=torch.int8)
         b = torch.full((K, N), -128, dtype=torch.int8)
+    elif (M, K, N) == WRAP_RETURN_SHAPE:
+        a, b = wrap_and_return(M, K, N, g)
     else:
         a = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
         b = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8)
@@ -553,10 +635,32 @@ def within(what: str, got, want, rtol: float, atol: float) -> float:
     return float(diff.max())
 
 
+def gemm_route(a, b) -> str:
+    """The route, tile and split that gemm_plan picks for these operands,
+    as one line's words."""
+    from repro_torch.kernels import q7_matmul as kq
+    plan = kq.plan_for(a.contiguous(), b.contiguous())
+    return f"route {plan.route} tile {plan.tile[0]}x{plan.tile[1]} " \
+        f"split {plan.split}"
+
+
+def counted_route(fn, route: str, call):
+    """call(), requiring that it raised fn.launches_by_route[route] by
+    one and no other route's count."""
+    before = dict(fn.launches_by_route)
+    out = call()
+    before[route] += 1
+    if fn.launches_by_route != before:
+        raise AssertionError(f"{fn.__name__}: launches by route "
+                             f"{fn.launches_by_route}, expected {before}")
+    return out
+
+
 def drive_kernel_library(dev) -> dict:
     """Every call goes through `repro_torch.kernels.ops` on card tensors
-    and is held against its plain version; returns the worst error of
-    each kernel."""
+    and is held against its plain version, on the route gemm_plan names
+    (counted in launches_by_route); returns the worst error of each
+    kernel."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import q7_matmul as kq
@@ -566,10 +670,16 @@ def drive_kernel_library(dev) -> dict:
     for (M, K, N) in GEMM_SHAPES:
         a, b, sh = gemm_operands(M, K, N, g)
         ad, bd, shd = a.to(dev), b.to(dev), sh.to(dev)
+        plan = kq.plan_for(ad, bd)
+        log(f"[library] {(M, K, N)}: {gemm_route(ad, bd)}")
+        if (M, K, N) in WGMMA_SHAPES and plan.route != "wgmma":
+            raise AssertionError(f"{(M, K, N)} planned on {plan}")
         small = M * K * N <= 1 << 24
         for rounding in ROUNDINGS:
             for shift in (0, 9, 13, -2):
-                got = ops.matmul_q7(ad, bd, shift, rounding)
+                got = counted_route(kq.matmul_q7, plan.route,
+                                    lambda: ops.matmul_q7(ad, bd, shift,
+                                                          rounding))
                 require_equal(f"matmul_q7 {(M, K, N)} shift {shift} "
                               f"{rounding}", got,
                               kq.matmul_q7_plain(ad, bd, shift, rounding))
@@ -577,12 +687,26 @@ def drive_kernel_library(dev) -> dict:
                     require_equal(f"matmul_q7 {(M, K, N)} vs plain on cpu",
                                   got, kq.matmul_q7_plain(a, b, shift,
                                                           rounding))
-            got = ops.w8a8_matmul(ad, bd, shd, rounding)
+            got = counted_route(kw.w8a8_matmul, plan.route,
+                                lambda: ops.w8a8_matmul(ad, bd, shd,
+                                                        rounding))
             require_equal(f"w8a8_matmul {(M, K, N)} {rounding}", got,
                           kw.w8a8_matmul_plain(ad, bd, shd, rounding))
             if small:
                 require_equal(f"w8a8_matmul {(M, K, N)} vs plain on cpu",
                               got, kw.w8a8_matmul_plain(a, b, sh, rounding))
+        if (M, K, N) in (WRAP_SHAPE, WRAP_RETURN_SHAPE):
+            # one block per tile walks all of K: the int32 sum wraps inside
+            # wgmma's accumulators (a check launch, not counted)
+            one = kq.GemmPlan("wgmma", (kq.TILE_M, 128), 1)
+            for shift in (0, 20, 31):
+                require_equal(f"matmul_q7 {(M, K, N)} shift {shift} on "
+                              f"{one}", kq._launch(ad, bd, shift, "floor",
+                                                   one)[0],
+                              kq.matmul_q7_plain(ad, bd, shift))
+            require_equal(f"w8a8_matmul {(M, K, N)} on {one}",
+                          kw._launch(ad, bd, shd, "nearest", one)[0],
+                          kw.w8a8_matmul_plain(ad, bd, shd))
     a, b, _ = gemm_operands(33, 70, 17, g)
     for rounding in ROUNDINGS:
         for shift in range(-40, 41):
@@ -591,17 +715,48 @@ def drive_kernel_library(dev) -> dict:
                                         rounding),
                           kq.matmul_q7_plain(a, b, shift, rounding))
     log(f"[library] matmul_q7 and w8a8_matmul bit-exact at {GEMM_SHAPES} "
-        f"(K = 140,000 wraps int32), both roundings; matmul_q7 at every "
-        f"shift in [-40, 40]")
+        f"(K = 140,000 wraps int32; K = 265,296 wraps and comes back; both "
+        f"also on one wgmma block per tile), both roundings, each call on "
+        f"the route gemm_plan named; matmul_q7 at every shift in [-40, 40]")
+
+    # misaligned operands: a contiguous view 1 byte past a 16-byte
+    # boundary takes the mma.sync route; a[:, 1:] of [M, K + 1] is not
+    # contiguous, and the wrapper copies it into an aligned [M, K]
+    M, K, N = 4096, 784, 64
+    a, b, sh = gemm_operands(M, K + 1, N, g)
+    b = b[1:]
+    buf = torch.zeros(M * K + 16, dtype=torch.int8, device=dev)
+    for offset in (1, 16):
+        view = buf[offset:offset + M * K].view(M, K)
+        view.copy_(a[:, 1:])
+        route = "mma.sync" if offset == 1 else "wgmma"
+        got = counted_route(kq.matmul_q7, route,
+                            lambda: ops.matmul_q7(view, b.to(dev), 9))
+        require_equal(f"matmul_q7 A at byte offset {offset}", got,
+                      kq.matmul_q7_plain(a[:, 1:], b, 9))
+        got = counted_route(kw.w8a8_matmul, route, lambda: ops.w8a8_matmul(
+            view, b.to(dev), sh.to(dev)))
+        require_equal(f"w8a8_matmul A at byte offset {offset}", got,
+                      kw.w8a8_matmul_plain(a[:, 1:], b, sh))
+    sliced = a.to(dev)[:, 1:]
+    require_equal("matmul_q7 a[:, 1:]", ops.matmul_q7(sliced, b.to(dev), 9),
+                  kq.matmul_q7_plain(a[:, 1:], b, 9))
+    log(f"[library] A 1 byte past a 16-byte boundary ({M}x{K}): route "
+        f"mma.sync, bit-exact; 16 bytes past: route wgmma; a[:, 1:] of "
+        f"[{M}, {K + 1}]: {gemm_route(sliced, b.to(dev))}, bit-exact")
 
     Bt, M, K, N = BMM_SHAPE
     a = torch.randint(-128, 128, (Bt, M, K), generator=g, dtype=torch.int8)
     b = torch.randint(-128, 128, (Bt, K, N), generator=g, dtype=torch.int8)
+    ad, bd = a.to(dev), b.to(dev)
+    route = kq.plan_for(ad, bd).route
     for rounding in ROUNDINGS:
         require_equal(f"bmm_q7 {BMM_SHAPE} {rounding}",
-                      ops.bmm_q7(a.to(dev), b.to(dev), 13, rounding),
+                      counted_route(kq.bmm_q7, route, lambda: ops.bmm_q7(
+                          ad, bd, 13, rounding)),
                       kq.bmm_q7_plain(a, b, 13, rounding))
-    log(f"[library] bmm_q7 bit-exact at {BMM_SHAPE}, both roundings")
+    log(f"[library] bmm_q7 bit-exact at {BMM_SHAPE}, both roundings, one "
+        f"call each: {gemm_route(ad, bd)} (the batch on a 3-D tensor map)")
 
     sq_err = 0.0
     for shape, dt in SQUASH_FLOAT_SHAPES:
@@ -627,20 +782,25 @@ def gemm_bound(M: int, K: int, N: int, extra_bytes: int = 0):
         "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def int_mm_ms(a, b):
-    """torch._int_mm (cuBLASLt int8 x int8 -> int32, the product alone)
-    where it takes the shape (M > 16, K and N multiples of 8), else None.
-    A yardstick only: the port never calls it."""
+def int_mm_ms(a, b, timer=None):
+    """The time of torch._int_mm (cuBLASLt int8 x int8 -> int32, the
+    product alone) by `timer` (cuda_ms when None) where it takes the shape
+    (M > 16, K and N multiples of 8), else None.  A yardstick only: the
+    port never calls it."""
     import torch
     M, K = a.shape
     N = b.shape[1]
     if M <= 16 or K % 8 or N % 8:
         return None
     try:
-        return cuda_ms(lambda: torch._int_mm(a, b))
+        return (timer or cuda_ms)(lambda: torch._int_mm(a, b))
     except RuntimeError as e:             # a layout cuBLASLt refuses
         log(f"[time] torch._int_mm {(M, K, N)} refused: {e}")
         return None
+
+
+def int_mm_device_ms(a, b):
+    return int_mm_ms(a, b, lambda fn: device_ms(fn, None, calls=20))
 
 
 def time_library(dev, card: str) -> dict:
@@ -665,7 +825,7 @@ def time_library(dev, card: str) -> dict:
             rows[name].append(dict(shape=[M, K, N], ms=cuda_ms(fn),
                                    plain_ms=cuda_ms(plain, iters=10),
                                    bound_ms=bound, bound_by=by,
-                                   int_mm_ms=yard))
+                                   int_mm_ms=yard, plan=gemm_route(a, b)))
     Bt, M, K, N = BMM_SHAPE
     a = torch.randint(-128, 128, (Bt, M, K), generator=g,
                       dtype=torch.int8).to(dev)
@@ -675,7 +835,8 @@ def time_library(dev, card: str) -> dict:
     rows["q7_matmul"].append(dict(
         shape=list(BMM_SHAPE), ms=cuda_ms(lambda: ops.bmm_q7(a, b, 13)),
         plain_ms=cuda_ms(lambda: kq.bmm_q7_plain(a, b, 13), iters=10),
-        bound_ms=bound, bound_by=by, int_mm_ms=None))
+        bound_ms=bound, bound_by=by, int_mm_ms=None,
+        plan=gemm_route(a, b)))
     for shape, dt in SQUASH_FLOAT_SHAPES:
         dtype = getattr(torch, dt)
         s = torch.randn(shape, generator=g).to(dtype).to(dev)
@@ -694,6 +855,8 @@ def time_library(dev, card: str) -> dict:
             yard = "n/a" if r["int_mm_ms"] is None \
                 else f"{r['int_mm_ms']:.4f} ms"
             what = f"{r['shape']} {r.get('dtype', 'int8')}"
+            if "plan" in r:
+                what += f" ({r['plan']})"
             log(f"[time] {card} | {name} {what}: kernel {r['ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.6f} ms ({r['bound_by']}), "
@@ -732,8 +895,25 @@ def log_device_times(card: str, dt: dict) -> None:
             shape = [B, *MNIST_ROUTING] if name == "routing_q7" \
                 else [B * 1024, 4]
             log(f"[device] {card} | {name} {shape}: {ms:.5f} ms")
-    for name in ("q7_matmul", "w8a8_matmul", "squash_float"):
-        log(f"[device] {card} | {name} headline shape: {dt[name]:.5f} ms")
+    for name in ("q7_matmul", "w8a8_matmul"):
+        for key, ms in dt[name].items():
+            dims = [int(d) for d in key.split("x")]
+            if len(dims) == 4:                       # bmm_q7 (B, M, K, N)
+                bound, by = gemm_bound(dims[0] * dims[1], dims[2], dims[3],
+                                       (dims[0] - 1) * dims[2] * dims[3])
+            else:
+                extra = 4 * dims[2] if name == "w8a8_matmul" else 0
+                bound, by = gemm_bound(*dims, extra)
+            yard = dt["int_mm"].get(key)
+            yard = "n/a" if yard is None else f"{yard:.5f} ms"
+            split = ", ".join(
+                f"{k.split('(')[0].split('<')[0].split('::')[-1]} "
+                f"{v:.5f}" for k, v in dt["parts"][f"{name} {key}"].items())
+            log(f"[device] {card} | {name} {key}: {ms:.5f} ms, every kernel "
+                f"of the call ({split}); bound {bound:.6f} ms ({by}); "
+                f"torch._int_mm yardstick {yard}")
+    log(f"[device] {card} | squash_float headline shape: "
+        f"{dt['squash_float']:.5f} ms")
 
 
 def main(argv=None) -> int:
@@ -771,7 +951,7 @@ def main(argv=None) -> int:
     for name, entry in sorted(build.BUILD_LOG.items()):
         for line in entry["ptxas"].splitlines():
             if any(w in line for w in ("registers", "smem", "spill",
-                                       "error")):
+                                       "error", "arning", "wgmma")):
                 log(f"[build] {name}: {line.strip()}")
     if argv == ["--device-times"]:
         dt = device_times(dev)
@@ -779,6 +959,14 @@ def main(argv=None) -> int:
         log(card)
         log(json.dumps({"device_times": dt}))
         return 0
+
+    for name in ("q7_matmul", "w8a8_matmul"):
+        sass = sass_counts(libs[name])
+        log(f"[build] {name}: SASS holds {sass['IGMMA']} IGMMA (wgmma) and "
+            f"{sass['IMMA']} IMMA (mma.sync) instructions")
+        if min(sass.values()) == 0:
+            raise AssertionError(f"{name}: a main loop lost its tensor-core "
+                                 f"instruction: {sass}")
 
     # phase 2
     errs = check_kernels(dev)
@@ -840,14 +1028,23 @@ def main(argv=None) -> int:
     # phase 5: counts from 0 just before the library path, read just after
     kq.matmul_q7.launches = kq.bmm_q7.launches = 0
     kw.w8a8_matmul.launches = ks.squash_float.launches = 0
+    kq.transpose_kn.launches = 0
+    for fn in (kq.matmul_q7, kq.bmm_q7, kw.w8a8_matmul):
+        fn.launches_by_route = dict.fromkeys(kq.ROUTES, 0)
     errs.update(drive_kernel_library(dev))
     launches.update(q7_matmul=kq.matmul_q7.launches + kq.bmm_q7.launches,
                     w8a8_matmul=kw.w8a8_matmul.launches,
                     squash_float=ks.squash_float.launches)
     log(f"[library] launches over the kernel-library path: matmul_q7 "
-        f"{kq.matmul_q7.launches}, bmm_q7 {kq.bmm_q7.launches}, "
-        f"w8a8_matmul {launches['w8a8_matmul']}, squash_float "
-        f"{launches['squash_float']}")
+        f"{kq.matmul_q7.launches} {kq.matmul_q7.launches_by_route}, bmm_q7 "
+        f"{kq.bmm_q7.launches} {kq.bmm_q7.launches_by_route}, w8a8_matmul "
+        f"{launches['w8a8_matmul']} {kw.w8a8_matmul.launches_by_route}, "
+        f"squash_float {launches['squash_float']}; transposes of B "
+        f"{kq.transpose_kn.launches}")
+    for fn in (kq.matmul_q7, kw.w8a8_matmul):
+        if min(fn.launches_by_route.values()) == 0:
+            raise AssertionError(f"{fn.__name__} left a route unused: "
+                                 f"{fn.launches_by_route}")
     for name in ("q7_matmul", "w8a8_matmul", "squash_float"):
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the "
@@ -877,8 +1074,13 @@ def main(argv=None) -> int:
             + f" (wrapper picks {kr.cluster_size(B, *MNIST_ROUTING)})")
     for name in ("routing_q7", "squash_q7"):
         times[name]["device_ms"] = dt[name][B_TIMED]
-    for name in ("q7_matmul", "w8a8_matmul", "squash_float"):
-        times[name]["device_ms"] = dt[name]
+    times["squash_float"]["device_ms"] = dt["squash_float"]
+    for name in ("q7_matmul", "w8a8_matmul"):
+        times[name]["device_ms"] = dt[name][shape_key(HEADLINE_GEMM)]
+        for row in times[name]["shapes"]:
+            row["device_ms"] = dt[name][shape_key(row["shape"])]
+            row["int_mm_device_ms"] = dt["int_mm"].get(
+                shape_key(row["shape"]))
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),

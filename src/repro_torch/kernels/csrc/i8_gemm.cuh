@@ -7,7 +7,11 @@
 // operands packed back to back).  Each block computes one kBM x kBN
 // output tile; the K loop runs inside the block.
 //
-// Design (simple first; wgmma, TMA and a pipelined ring are later work):
+// This loop keeps the shapes TMA cannot describe (K % 16 != 0, an
+// operand not 16-byte aligned): kernels/q7_matmul.py::gemm_plan sends
+// every other shape to i8_gemm_sm90.cuh's wgmma loop.
+//
+// Design:
 //   * 256 threads = 8 warps as 2 (rows) x 4 (cols); each warp owns a
 //     64 x 32 sub-tile, 4 x 4 tensor-core tiles of m16n8k32, whose int32
 //     accumulators live in registers (64 per thread).  The launch bounds

@@ -11,16 +11,18 @@
 //
 // Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
 // M*K + K*N + M*N bytes at 3.35 TB/s; square products from about 256^3
-// up are bound by operations, thin ones (small M or N) by bytes.  The
-// design (i8_gemm.cuh) reaches the tensor cores through mma.sync
-// m16n8k32 with int32 accumulators in registers and tiles staged in
-// shared memory; it does not reach the wgmma rate, which needs TMA and a
-// pipelined ring of tiles (later work).
+// up are bound by operations, thin ones (small M or N) by bytes.  Two
+// main loops, chosen per call by kernels/q7_matmul.py::gemm_plan from
+// the shape and the operands' alignment alone: i8_gemm_sm90.cuh (wgmma
+// fed by a TMA ring, split K for thin products; B transposed first by
+// i8_transpose_launch) wherever TMA can describe A (K % 16 == 0, A
+// 16-byte aligned), and i8_gemm.cuh (mma.sync m16n8k32) for the rest.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "i8_gemm.cuh"
+#include "i8_gemm_sm90.cuh"
 #include "q7.cuh"
 
 namespace {
@@ -45,4 +47,29 @@ extern "C" int q7_matmul_launch(const void* a, const void* b, void* c,
                                 int nearest, void* stream) {
   return i8gemm::launch(a, b, c, batch, M, N, K,
                         ScalarShift{shift, nearest != 0}, stream);
+}
+
+// The wgmma route, one launch each: Bt [batch, N, K] = B transposed;
+// the product over A [batch, M, K] and Bt on tiles 128 x bn, into C
+// (split == 1) or into the int32 partials work [batch, split, M, N];
+// and C from those partials.  Each returns cudaGetLastError() after its
+// launch.
+extern "C" int i8_transpose_launch(const void* b, void* bt, int batch, int K,
+                                   int N, void* stream) {
+  return i8sm90::launch_transpose(b, bt, batch, K, N, stream);
+}
+
+extern "C" int q7_matmul_wgmma_launch(const void* a, const void* bt, void* c,
+                                      void* work, int batch, int M, int N,
+                                      int K, int bn, int split, int shift,
+                                      int nearest, void* stream) {
+  return i8sm90::launch_product(a, bt, c, work, batch, M, N, K, bn, split,
+                                ScalarShift{shift, nearest != 0}, stream);
+}
+
+extern "C" int q7_matmul_reduce_launch(const void* work, void* c, int batch,
+                                       int M, int N, int split, int shift,
+                                       int nearest, void* stream) {
+  return i8sm90::launch_reduce(work, c, batch, M, N, split,
+                               ScalarShift{shift, nearest != 0}, stream);
 }

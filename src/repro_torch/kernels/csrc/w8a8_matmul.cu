@@ -9,15 +9,18 @@
 // or shl(acc, -sh) for sh < 0; then sat8 (q7.cuh's XLA shift rules).
 //
 // Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
-// M*K + K*N + M*N + 4*N bytes at 3.35 TB/s, as q7_matmul.cu.  The main
-// loop is i8_gemm.cuh's (mma.sync m16n8k32, int32 accumulators in
-// registers); each block loads the kBN shifts of its output tile into
-// shared memory once, before its K loop.
+// M*K + K*N + M*N + 4*N bytes at 3.35 TB/s, as q7_matmul.cu, on the
+// same two main loops, chosen the same way: i8_gemm_sm90.cuh (wgmma, TMA
+// ring, split K; W transposed by q7_matmul.cu's i8_transpose_launch)
+// where TMA can describe A, i8_gemm.cuh (mma.sync) elsewhere.  Each block
+// that runs the epilogue loads the shifts of its output columns into
+// shared memory once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "i8_gemm.cuh"
+#include "i8_gemm_sm90.cuh"
 #include "q7.cuh"
 
 namespace {
@@ -48,6 +51,32 @@ extern "C" int w8a8_matmul_launch(const void* a, const void* w,
                                   int N, int K, int nearest, void* stream) {
   return i8gemm::launch(
       a, w, c, 1, M, N, K,
+      ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
+      stream);
+}
+
+// The wgmma route: the product over A [batch, M, K] and Wt [batch, N, K]
+// (W transposed by i8_transpose_launch) on tiles 128 x bn, into C (split
+// == 1) or into the int32 partials work [batch, split, M, N]; and C from
+// those partials.  The arguments follow q7_matmul.cu's entries, the
+// epilogue's last.  Each returns cudaGetLastError() after its launch.
+extern "C" int w8a8_matmul_wgmma_launch(const void* a, const void* wt,
+                                        void* c, void* work, int batch,
+                                        int M, int N, int K, int bn,
+                                        int split, const void* col_shift,
+                                        int nearest, void* stream) {
+  return i8sm90::launch_product(
+      a, wt, c, work, batch, M, N, K, bn, split,
+      ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
+      stream);
+}
+
+extern "C" int w8a8_matmul_reduce_launch(const void* work, void* c,
+                                         int batch, int M, int N, int split,
+                                         const void* col_shift, int nearest,
+                                         void* stream) {
+  return i8sm90::launch_reduce(
+      work, c, batch, M, N, split,
       ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
       stream);
 }

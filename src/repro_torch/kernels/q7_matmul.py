@@ -3,15 +3,25 @@ wrappers and their plain versions.
 
 `matmul_q7` takes int8 [M, K] x [K, N]; `bmm_q7` takes [..., M, K] x
 [..., K, N] with equal leading axes (the reference's `vmap` over the 2-D
-kernel) and makes one launch with the batch on the grid.  A tensor on
-the CPU goes to the plain version; a CUDA tensor goes to
+kernel) and keeps the batch on the grid in one call.  A tensor on the
+CPU goes to the plain version; a CUDA tensor goes to
 `csrc/q7_matmul.cu` or raises.  The kernel replaces the Pallas TPU
 kernel `repro.kernels.q7_matmul.q7_matmul_pallas`.
+
+`gemm_plan` picks the main loop of every CUDA call, from the shape and
+the alignment of A alone, before any launch: the "wgmma" route
+(`csrc/i8_gemm_sm90.cuh`: B transposed by `transpose_kn`, then the
+product, then with split K a reduction, one launch each) or the
+"mma.sync" route (`csrc/i8_gemm.cuh`, one launch).  A launch that is
+refused raises; no call changes route.  Each wrapper counts its calls
+in `launches` and, by route, in `launches_by_route`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,7 +29,45 @@ from repro_torch.kernels import build
 from repro_torch.quant import int8_ops as q
 
 MAX_GRID_YZ = 65_535                     # CUDA's gridDim.y / gridDim.z limit
-TILE_M = 128                             # csrc/i8_gemm.cuh kBM
+TILE_M = 128                             # rows of an output tile, both loops
+K_BLOCK = 128                            # i8_gemm_sm90.cuh kBK, K bytes
+MIN_SPLIT_KBLOCKS = 2                    # K blocks of a split-K part, least
+MAX_TRANSPOSE_N = MAX_GRID_YZ * 64       # transpose_kernel: N tiles on grid.y
+H100_SMS = 132
+ROUTES = ("wgmma", "mma.sync")
+
+
+class GemmPlan(NamedTuple):
+    route: str                           # one of ROUTES
+    tile: tuple                          # (rows, cols) of an output tile
+    split: int                           # blocks a tile's K is cut into
+
+
+def gemm_plan(M: int, K: int, N: int, batch: int, a_ptr: int,
+              sms: int = H100_SMS) -> GemmPlan:
+    """Route, output tile and split-K count of `batch` products [M, K] x
+    [K, N] whose A starts at address `a_ptr`, on a card with `sms` SMs.
+
+    TMA describes A only when its rows are whole 16-byte units (K % 16 ==
+    0) and it starts 16-byte aligned; B needs neither, since the wgmma
+    route transposes it into an aligned scratch first.  Every other shape
+    takes the mma.sync loop.  On the wgmma route a product with N >= 256
+    that fills every SM with 128 x 256 tiles takes them (each B byte
+    staged feeds 128 rows, each A byte 256 columns); the rest take 128 x
+    128.  When the output has fewer tiles than the card has SMs and K is
+    long (at least 2 * MIN_SPLIT_KBLOCKS blocks of K_BLOCK), K is cut into
+    min(ceil(sms / tiles), K blocks // MIN_SPLIT_KBLOCKS) parts."""
+    if min(M, K, N, batch) <= 0 or K % 16 or a_ptr % 16 \
+            or N > MAX_TRANSPOSE_N:
+        return GemmPlan("mma.sync", (TILE_M, 128), 1)
+    m_tiles = batch * -(-M // TILE_M)
+    tile_n = 256 if N >= 256 and m_tiles * -(-N // 256) >= sms else 128
+    tiles = m_tiles * -(-N // tile_n)
+    split = 1
+    if tiles < sms:
+        kblocks = -(-K // K_BLOCK)
+        split = max(1, min(-(-sms // tiles), kblocks // MIN_SPLIT_KBLOCKS))
+    return GemmPlan("wgmma", (TILE_M, tile_n), split)
 
 
 matmul_q7_plain = q.matmul_q7          # exact float64 product
@@ -31,12 +79,93 @@ def bmm_q7_plain(a, b, shift: int, rounding: str = "floor"):
                          rounding)
 
 
-def _lib():
-    fn = build.load("q7_matmul").q7_matmul_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
+def transpose_kn_plain(b):
+    """[..., K, N] -> [..., N, K], contiguous."""
+    return b.transpose(-1, -2).contiguous()
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each C entry of csrc/{q7_matmul,w8a8_matmul}.cu and its arguments
+ARGTYPES = {
+    "q7_matmul_launch": [_P] * 3 + [_I] * 6 + [_P],
+    "i8_transpose_launch": [_P, _P] + [_I] * 3 + [_P],
+    "q7_matmul_wgmma_launch": [_P] * 4 + [_I] * 6 + [_I, _I, _P],
+    "q7_matmul_reduce_launch": [_P] * 2 + [_I] * 4 + [_I, _I, _P],
+    "w8a8_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "w8a8_matmul_wgmma_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _P],
+    "w8a8_matmul_reduce_launch": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
+}
+
+
+@functools.cache
+def entry(lib: str, name: str):
+    """C entry `name` of kernel library `lib`, its argtypes bound once."""
+    fn = getattr(build.load(lib), name)
+    fn.argtypes = ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def transpose_kn(b):
+    """int8 B [..., K, N] -> Bt [..., N, K], the wgmma route's K-major
+    copy of B.  A CPU tensor takes the plain version; a CUDA tensor
+    csrc/i8_gemm_sm90.cuh's transpose_kernel (K % 4 == 0) or raises."""
+    if b.device.type == "cpu":
+        return transpose_kn_plain(b)
+    if b.device.type != "cuda" or b.dtype != torch.int8 or b.dim() < 2:
+        raise NotImplementedError(f"transpose_kn on {b.device} {b.dtype} "
+                                  f"{tuple(b.shape)}")
+    b = b.contiguous()
+    K, N = b.shape[-2:]
+    bt = torch.empty(b.shape[:-2] + (N, K), dtype=b.dtype, device=b.device)
+    with torch.cuda.device(b.device):
+        err = entry("q7_matmul", "i8_transpose_launch")(
+            b.data_ptr(), bt.data_ptr(), math.prod(b.shape[:-2]), K, N,
+            torch.cuda.current_stream().cuda_stream)
+    build.check(err, "i8_transpose")
+    transpose_kn.launches += 1
+    return bt
+
+
+transpose_kn.launches = 0
+
+
+def plan_for(a, b) -> GemmPlan:
+    """gemm_plan for contiguous operands on the card."""
+    return gemm_plan(a.shape[-2], a.shape[-1], b.shape[-1],
+                     math.prod(a.shape[:-2]), a.data_ptr(),
+                     sm_count(a.device.index or 0))
+
+
+def wgmma_route(lib: str, plan: GemmPlan, a, b, out, epi: tuple) -> None:
+    """The wgmma route of library `lib` over contiguous a [batch, M, K]
+    and b [batch, K, N] into out: the transpose of b, the product and,
+    with split K, the reduction of the partials in a workspace, one
+    launch each on the current stream, each checked.  `epi` holds the
+    epilogue's trailing arguments of the C entries."""
+    M, K, N = a.shape[-2], a.shape[-1], b.shape[-1]
+    batch = math.prod(a.shape[:-2])
+    bt = transpose_kn(b)
+    work = None
+    if plan.split > 1:
+        work = torch.empty((batch, plan.split, M, N), dtype=torch.int32,
+                           device=a.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = entry(lib, f"{lib}_wgmma_launch")(
+        a.data_ptr(), bt.data_ptr(), out.data_ptr(),
+        None if work is None else work.data_ptr(), batch, M, N, K,
+        plan.tile[1], plan.split, *epi, stream)
+    build.check(err, f"{lib} wgmma")
+    if work is not None:
+        err = entry(lib, f"{lib}_reduce_launch")(
+            work.data_ptr(), out.data_ptr(), batch, M, N, plan.split, *epi,
+            stream)
+        build.check(err, f"{lib} split-K reduction")
 
 
 def check_operands(what: str, a, b, rounding: str) -> None:
@@ -60,18 +189,24 @@ def check_operands(what: str, a, b, rounding: str) -> None:
                          "beyond one launch's grid")
 
 
-def _launch(a, b, shift: int, rounding: str):
-    """One launch over [batch, M, K] x [batch, K, N] -> [batch, M, N]."""
+def _launch(a, b, shift: int, rounding: str, plan: GemmPlan | None = None):
+    """[batch, M, K] x [batch, K, N] -> [batch, M, N] on the route of
+    `plan` (gemm_plan's when None); returns the output and the plan."""
     a, b = a.contiguous(), b.contiguous()
     M, K, N = a.shape[-2], a.shape[-1], b.shape[-1]
     out = torch.empty(a.shape[:-1] + (N,), dtype=torch.int8, device=a.device)
+    epi = (int(shift), int(rounding == "nearest"))
     with torch.cuda.device(a.device):
-        err = _lib()(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                     math.prod(a.shape[:-2]), M, N, K, int(shift),
-                     int(rounding == "nearest"),
-                     torch.cuda.current_stream().cuda_stream)
-    build.check(err, "q7_matmul")
-    return out
+        plan = plan_for(a, b) if plan is None else plan
+        if plan.route == "wgmma":
+            wgmma_route("q7_matmul", plan, a, b, out, epi)
+        else:
+            err = entry("q7_matmul", "q7_matmul_launch")(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                math.prod(a.shape[:-2]), M, N, K, *epi,
+                torch.cuda.current_stream().cuda_stream)
+            build.check(err, "q7_matmul")
+    return out, plan
 
 
 def matmul_q7(a, b, shift: int, rounding: str = "floor"):
@@ -85,24 +220,26 @@ def matmul_q7(a, b, shift: int, rounding: str = "floor"):
         raise ValueError(f"matmul_q7 takes 2-D operands, got "
                          f"{tuple(a.shape)} (use bmm_q7 for a batch)")
     check_operands("matmul_q7", a, b, rounding)
-    out = _launch(a, b, shift, rounding)
+    out, plan = _launch(a, b, shift, rounding)
     matmul_q7.launches += 1
+    matmul_q7.launches_by_route[plan.route] += 1
     return out
 
 
-matmul_q7.launches = 0
-
-
 def bmm_q7(a, b, shift: int, rounding: str = "floor"):
-    """[..., M, K] x [..., K, N] int8 -> int8 [..., M, N], one launch."""
+    """[..., M, K] x [..., K, N] int8 -> int8 [..., M, N], the batch on
+    the grid of each launch."""
     if a.device.type == "cpu":
         return bmm_q7_plain(a, b, shift, rounding)
     if a.device.type != "cuda":
         raise NotImplementedError(f"bmm_q7 on {a.device}")
     check_operands("bmm_q7", a, b, rounding)
-    out = _launch(a, b, shift, rounding)
+    out, plan = _launch(a, b, shift, rounding)
     bmm_q7.launches += 1
+    bmm_q7.launches_by_route[plan.route] += 1
     return out
 
 
-bmm_q7.launches = 0
+for _fn in (matmul_q7, bmm_q7):
+    _fn.launches = 0
+    _fn.launches_by_route = dict.fromkeys(ROUTES, 0)

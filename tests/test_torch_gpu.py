@@ -201,3 +201,131 @@ def test_cuda_backend_serves_a_variant_plan_through_the_oracle(cuda):
         == n0 + 1
     assert v.device.type == "cuda"
     assert torch.equal(v, qnet.with_backend("torch").forward(x_q))
+
+
+# ---------------------------------------------------------------------------
+# the two GEMM routes
+# ---------------------------------------------------------------------------
+def wrap_and_return(M, K, N, rng):
+    """132,000 products of (-128)(-128), 133,040 of (-128)(127), then
+    random ones: the running int32 sum wraps and comes back."""
+    k1, k2 = 132_000, 133_040
+    a = np.full((M, K), -128, np.int8)
+    b = np.full((K, N), -128, np.int8)
+    b[k1:k1 + k2] = 127
+    a[:, k1 + k2:] = rng.integers(-128, 128, (M, K - k1 - k2))
+    b[k1 + k2:] = rng.integers(-128, 128, (K - k1 - k2, N))
+    return torch.from_numpy(a), torch.from_numpy(b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn_offset", [
+    (20, 32, 40, 0), (4096, 784, 64, 0), (4, 2048, 8, 0), (300, 512, 300, 0),
+    (1024, 1024, 1024, 0), (7, 257, 130, 0), (4096, 49, 16, 0),
+    (256, 784, 64, 1), (256, 784, 64, 8)], ids=str)
+def test_cuda_each_route_matches_plain_and_is_counted(cuda, mkn_offset):
+    """A at `offset` bytes past a 16-byte boundary (a contiguous view);
+    every call counts one launch on the route gemm_plan names."""
+    M, K, N, offset = mkn_offset
+    rng = np.random.default_rng(M + K + N + offset)
+    a, b = i8(rng, (M, K)), i8(rng, (K, N))
+    sh = torch.from_numpy(rng.integers(-40, 41, (N,)).astype(np.int32))
+    buf = torch.zeros(M * K + 16, dtype=torch.int8, device=cuda)
+    ad = buf[offset:offset + M * K].view(M, K)
+    ad.copy_(a)
+    bd, shd = b.to(cuda), sh.to(cuda)
+    plan = kq.plan_for(ad, bd)
+    assert plan.route == ("mma.sync" if offset or K % 16 else "wgmma")
+    for fn, call, want in (
+            (kq.matmul_q7, lambda r: ops.matmul_q7(ad, bd, 9, r),
+             lambda r: kq.matmul_q7_plain(a, b, 9, r)),
+            (kw.w8a8_matmul, lambda r: ops.w8a8_matmul(ad, bd, shd, r),
+             lambda r: kw.w8a8_matmul_plain(a, b, sh, r))):
+        for rounding in ROUNDINGS:
+            before = dict(fn.launches_by_route)
+            got = call(rounding)
+            before[plan.route] += 1
+            assert fn.launches_by_route == before
+            assert torch.equal(got.cpu(), want(rounding)), (fn, rounding)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_split", [(128, 1), (256, 1), (128, 3),
+                                        (256, 2), (128, 8)], ids=str)
+def test_cuda_wgmma_every_tile_and_split_matches_plain(cuda, tile_split):
+    """gemm_plan picks one tile and split a shape; any other the kernel
+    takes gives the same bits."""
+    tile_n, split = tile_split
+    plan = kq.GemmPlan("wgmma", (128, tile_n), split)
+    rng = np.random.default_rng(tile_n + split)
+    for M, K, N in ((4, 2048, 8), (200, 784, 300), (129, 1040, 257)):
+        a, b = i8(rng, (M, K)), i8(rng, (K, N))
+        sh = torch.from_numpy(rng.integers(-40, 41, (N,)).astype(np.int32))
+        got, used = kq._launch(a.to(cuda), b.to(cuda), 11, "nearest", plan)
+        assert used == plan
+        assert torch.equal(got.cpu(), kq.matmul_q7_plain(a, b, 11,
+                                                         "nearest"))
+        got, _ = kw._launch(a.to(cuda), b.to(cuda), sh.to(cuda), "floor",
+                            plan)
+        assert torch.equal(got.cpu(), kw.w8a8_matmul_plain(a, b, sh,
+                                                           "floor"))
+
+
+@pytest.mark.gpu
+def test_cuda_transpose_kn_matches_the_plain_transpose(cuda):
+    rng = np.random.default_rng(3)
+    for shape in ((16, 3), (784, 64), (272, 130), (2, 4096, 8), (64, 17),
+                  (3, 528, 33)):
+        b = i8(rng, shape)
+        n0 = kq.transpose_kn.launches
+        got = kq.transpose_kn(b.to(cuda))
+        assert kq.transpose_kn.launches == n0 + 1
+        assert torch.equal(got.cpu(), kq.transpose_kn_plain(b)), shape
+    # B starting one byte past a word boundary: byte loads
+    b = i8(rng, (257, 130))
+    buf = torch.zeros(257 * 130 + 1, dtype=torch.int8, device=cuda)
+    view = buf[1:].view(257, 130)
+    view.copy_(b)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kq.transpose_kn(view)                   # K % 4 != 0 is refused
+    b = i8(rng, (256, 130))
+    view = buf[1:1 + 256 * 130].view(256, 130)
+    view.copy_(b)
+    assert torch.equal(kq.transpose_kn(view).cpu(), b.t().contiguous())
+
+
+@pytest.mark.gpu
+def test_cuda_wrap_and_return_on_every_route(cuda):
+    """The running int32 sum overflows partway through K and comes back:
+    the split-K plan gemm_plan picks, one wgmma block per tile and the
+    mma.sync loop all wrap, so all equal the plain version."""
+    a, b = wrap_and_return(8, 265_296, 16, np.random.default_rng(11))
+    ad, bd = a.to(cuda), b.to(cuda)
+    sh = torch.arange(-8, 8, dtype=torch.int32)
+    planned = kq.plan_for(ad, bd)
+    assert planned.route == "wgmma" and planned.split > 1
+    for plan in (None, kq.GemmPlan("wgmma", (128, 128), 1),
+                 kq.GemmPlan("mma.sync", (128, 128), 1)):
+        for shift in (0, 20, 31):
+            got, _ = kq._launch(ad, bd, shift, "floor", plan)
+            assert torch.equal(got.cpu(), kq.matmul_q7_plain(a, b, shift)), \
+                (plan, shift)
+        got, _ = kw._launch(ad, bd, sh.to(cuda), "nearest", plan)
+        assert torch.equal(got.cpu(), kw.w8a8_matmul_plain(a, b, sh))
+
+
+@pytest.mark.gpu
+def test_cuda_bmm_q7_takes_the_3d_map_in_one_call(cuda):
+    rng = np.random.default_rng(12)
+    a, b = i8(rng, (8, 256, 256)), i8(rng, (8, 256, 256))
+    ad, bd = a.to(cuda), b.to(cuda)
+    assert kq.plan_for(ad, bd).route == "wgmma"
+    n0, r0 = kq.bmm_q7.launches, kq.bmm_q7.launches_by_route["wgmma"]
+    t0 = kq.transpose_kn.launches
+    for rounding in ROUNDINGS:
+        got = ops.bmm_q7(ad, bd, 13, rounding)
+        assert torch.equal(got.cpu(), kq.bmm_q7_plain(a, b, 13, rounding))
+    assert kq.bmm_q7.launches == n0 + 2
+    assert kq.bmm_q7.launches_by_route["wgmma"] == r0 + 2
+    assert kq.transpose_kn.launches == t0 + 2      # one transpose a call
+

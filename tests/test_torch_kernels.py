@@ -319,7 +319,8 @@ def test_kernel_sources_name_what_they_replace():
     assert str(build.BUILD_ROOT).endswith("build/repro_torch_kernels")
 
 
-@pytest.mark.parametrize("header", ["i8_gemm.cuh", "q7.cuh"])
+@pytest.mark.parametrize("header", ["i8_gemm.cuh", "i8_gemm_sm90.cuh",
+                                    "q7.cuh"])
 def test_source_hash_covers_the_shared_headers(header, tmp_path,
                                                monkeypatch):
     """An edit to a header alone must rebuild every kernel."""
@@ -331,6 +332,45 @@ def test_source_hash_covers_the_shared_headers(header, tmp_path,
     with open(tmp_path / header, "a") as f:
         f.write("\n// edited\n")
     assert build.source_hash() != before
+
+
+def test_the_wgmma_main_loop_names_what_it_replaces_and_wraps():
+    """i8_gemm_sm90.cuh: the note of what it replaces and its bound,
+    wgmma on .s8 without .satfinite (XLA's int32 dot wraps), the TMA
+    maps taken through the runtime's driver entry point (no libcuda
+    link), and both GEMM sources exporting the route's C entries."""
+    text = (build.CSRC / "i8_gemm_sm90.cuh").read_text()
+    for note in ("src/repro/kernels/q7_matmul.py", "q7_matmul_pallas",
+                 "src/repro/kernels/w8a8_matmul.py", "w8a8_matmul_pallas",
+                 "Bound on the H100", "modulo 2^32"):
+        assert note in text, note
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {" in text
+    assert "satfinite" not in text.replace("WITHOUT .satfinite", "")
+    assert "cp.async.bulk.tensor.3d" in text and "SWIZZLE_128B" in text
+    assert "cudaGetDriverEntryPoint" in text
+    assert "-lcuda" not in build.NVCC_FLAGS
+    for gemm in ("q7_matmul", "w8a8_matmul"):
+        src = (build.CSRC / f"{gemm}.cu").read_text()
+        assert '#include "i8_gemm_sm90.cuh"' in src
+        for entry in (f"{gemm}_launch", f"{gemm}_wgmma_launch",
+                      f"{gemm}_reduce_launch"):
+            assert f'extern "C" int {entry}(' in src, entry
+    assert 'extern "C" int i8_transpose_launch(' in \
+        (build.CSRC / "q7_matmul.cu").read_text()
+
+
+def test_every_gemm_entry_has_its_argtypes():
+    """Each C entry a GEMM wrapper binds takes a pointer for every
+    pointer and an int for every int of its C signature."""
+    import re
+    from repro_torch.kernels import q7_matmul as kq
+    for lib in ("q7_matmul", "w8a8_matmul"):
+        src = (build.CSRC / f"{lib}.cu").read_text()
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     src):
+            kinds = [ctypes.c_void_p if "*" in a else ctypes.c_int
+                     for a in args.split(",")]
+            assert kq.ARGTYPES[name] == kinds, name
 
 
 def test_build_error_check_raises():
