@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py                  # every phase below
-    python3 chip_smoke.py --device-times   # phase 1 and phase 7's times
+    python3 chip_smoke.py --device-times   # phase 1 and phase 8's times
 
 (`--device-times` runs on an older tree too: copy this script into a
 `git archive` of it to time its kernels in the same call.)
@@ -27,13 +27,23 @@ Phases, each raising on failure:
    kernels' launch counts over that run must be > 0; then the command
    `serve_caps --model mnist@cuda --requests 128` runs, with its own
    counts, which must be > 0 too;
-4. the other configs and the variant fallback: 16 requests each of
+4. the artifact path: `ModelRegistry.export("mnist@cuda", build/edge_smoke)`
+   writes the `.capsbin`, its manifest and the `.c`/`.h` (VM-verified on
+   4 images); the reloaded file `same_as` the lowered program, and
+   `lower(to_qnet(p))` `same_as` p; `install_artifact` puts it on the
+   card and it serves the burst's 128 requests on the `cuda` backend,
+   its kernel counts from 0: every completion must equal the live
+   model's, the first 16 the port's EdgeVM on the CPU, both kernels'
+   counts must be > 0 and `CudaBackend.fallbacks` must not move; then
+   `serve_caps --capsbin PATH --requests 128` must exit 0, and on a
+   copy with conv0's out_shift at 45 (outside [-31, 31]) exit 1;
+5. the other configs and the variant fallback: 16 requests each of
    `smallnorb@cuda` and `cifar10@cuda`, and of `edge_tiny@cuda`
    re-registered with the "approx" softmax, every completion equal to
    the `torch` backend; `CudaBackend.fallbacks` must count the approx
    run under `routing.softmax` and stay 0 over the default-variant
-   `mnist@cuda` runs of phase 3;
-5. the kernel library, `repro_torch.kernels.ops`, on the card, its
+   `mnist@cuda` runs of phases 3 and 4;
+6. the kernel library, `repro_torch.kernels.ops`, on the card, its
    launch counts from 0: `matmul_q7` and `w8a8_matmul` bit for bit
    against their plain versions at the shapes of
    benchmarks/bench_matmul.py, the MNIST primary-caps im2col product at
@@ -48,22 +58,30 @@ Phases, each raising on failure:
    count one launch on that route (`launches_by_route`); A one byte
    past a 16-byte boundary must take the mma.sync route, 16 bytes past
    the wgmma one, and a[:, 1:] is checked too; `bmm_q7` on
-   [8, 256, 256] x [8, 256, 256]; `squash_float` within rtol/atol 1e-6
-   in float32 and one ulp in bfloat16; every launch count must be > 0,
-   and both routes must have been taken;
-6. times at the main path's shapes (B = 64): each kernel, its plain
+   [8, 256, 256] x [8, 256, 256]; `squash_float` at every
+   SQUASH_FLOAT_SHAPES entry ([65536, 4] f32 and bf16, [65536, 8] f16,
+   [64, 6] f32, [16777216, 4] f32 and bf16, [1048576, 16] f32) and on
+   s[:, 1:] of a [65536, 5] f32 tensor (the element path), each call
+   exactly one launch, within rtol/atol 1e-6 in float32 and one ulp in
+   bfloat16/float16 (the 16.7 M-row shapes on their first 4096 rows);
+   every launch count must be > 0, and both GEMM routes must have been
+   taken;
+7. times at the main path's shapes (B = 64): each kernel, its plain
    version and its bound; the per-layer split of one wave; serving
-   img/s and p50/p99; and each library kernel at each shape of phase 5,
-   beside its plain version, its bound and, as a yardstick only,
-   `torch._int_mm` (cuBLASLt's int8 product without the epilogue,
-   never called by the port);
-7. device times from a torch.profiler trace (`device_ms`): routing_q7
+   img/s and p50/p99 of `mnist@cuda` and of its installed artifact over
+   4 alternating windows each (the first the counted ones); and
+   each library kernel at each shape of phase 6, beside its plain
+   version, its bound and, as a yardstick only, `torch._int_mm`
+   (cuBLASLt's int8 product without the epilogue, never called by the
+   port);
+8. device times from a torch.profiler trace (`device_ms`): routing_q7
    at [B, 10, 1024, 6] and squash_q7 at [B*1024, 4] for every bucket B,
    routing_q7 at every cluster size, matmul_q7 and w8a8_matmul at every
-   phase-5 shape and bmm_q7 at its shape, each the sum over every kernel
+   phase-6 shape and bmm_q7 at its shape, each the sum over every kernel
    the call launches (transpose, product, split-K reduction), beside
-   torch._int_mm's device time at the same shapes, and squash_float at
-   its headline shape.
+   torch._int_mm's device time at the same shapes; squash_float at every
+   phase-6 shape, summed the same way, beside its bound and the device
+   time of an empty kernel (the launch floor).
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -75,6 +93,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -92,7 +111,8 @@ F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 INT32_OPS_PER_S = F32_OPS_PER_S / 2
 SEED = 0
 N_REQUESTS = 128
-N_OTHER = 16                       # requests of each phase-4 model
+N_OTHER = 16                       # requests of each phase-5 model
+SERVE_ROUNDS = 4                   # alternating serving windows timed
 BUCKETS = (1, 4, 16, 64)
 B_TIMED = 64
 ROUNDINGS = ("floor", "nearest")
@@ -110,8 +130,22 @@ WGMMA_SHAPES = ((4096, 4096, 4096), (4096, 784, 64), WRAP_SHAPE,
                 WRAP_RETURN_SHAPE)
 HEADLINE_GEMM = (4096, 4096, 4096)         # the JSON record's GEMM shape
 BMM_SHAPE = (8, 256, 256, 256)             # (batch, M, K, N)
+# (shape, dtype): the headline [65536, 4] at the launch floor, the [64, 6]
+# element path, 16-byte words of one and two rows, and three shapes where
+# bytes dominate: [16777216, 4] f32 / bf16 (512 / 256 MiB) and
+# [1048576, 16] f32 (four lanes a row)
 SQUASH_FLOAT_SHAPES = (((64 * 1024, 4), "float32"), ((64, 6), "float32"),
-                       ((64 * 1024, 4), "bfloat16"))
+                       ((64 * 1024, 4), "bfloat16"),
+                       ((64 * 1024, 8), "float16"),
+                       ((16 * 1024 * 1024, 4), "float32"),
+                       ((16 * 1024 * 1024, 4), "bfloat16"),
+                       ((1024 * 1024, 16), "float32"))
+# s[:, 1:] of this shape: rows 20 bytes apart, 4 bytes past alignment
+SQUASH_FLOAT_VIEW = ((64 * 1024, 5), "float32")
+# rows of the 16.7 M-row shapes held against the plain version (the
+# whole call is timed; its first rows are checked)
+SQUASH_FLOAT_CHECK_ROWS = 4096
+EDGE_DIR = ROOT / "build" / "edge_smoke"
 
 
 def log(*a):
@@ -191,12 +225,39 @@ MNIST_LIKE = dict(num_iters=3, caps_out_shifts=(8, 8, 9),
 MNIST_ROUTING = (10, 1024, 6)              # (J, I, O) of mnist@cuda
 # kernel name (as the profiler shows it) of each main-path wrapper; the
 # library kernels are timed over every kernel their call launches
-KERNEL_NAMES = {"routing_q7": "routing_q7", "squash_q7": "squash_q7",
-                "squash_float": "squash_float_kernel"}
+KERNEL_NAMES = {"routing_q7": "routing_q7", "squash_q7": "squash_q7"}
 
 
 def shape_key(shape) -> str:
     return "x".join(map(str, shape))
+
+
+def squash_float_input(shape, dt: str, g, dev, view: bool = False):
+    """A float tensor on the card, normal(0, 2) from `g`; with `view`,
+    its s[:, 1:]."""
+    import torch
+    s = (torch.randn(shape, generator=g) * 2).to(getattr(torch, dt)).to(dev)
+    return s[:, 1:] if view else s
+
+
+def squash_float_cases():
+    """(key, shape, dtype, view) of every squash_float call timed."""
+    cases = [(f"{shape_key(sh)} {dt}", sh, dt, False)
+             for sh, dt in SQUASH_FLOAT_SHAPES]
+    sh, dt = SQUASH_FLOAT_VIEW
+    return cases + [(f"{shape_key(sh)}[:, 1:] {dt}", sh, dt, True)]
+
+
+def squash_float_bound(shape, dt: str, view: bool):
+    """The bytes of one call (each input element read once, each output
+    element written once) over HBM's rate, against 4 float32 operations
+    an element; returns (ms, what bounds it)."""
+    R, D = shape[0], shape[1] - (1 if view else 0)
+    itemsize = {"float32": 4, "bfloat16": 2, "float16": 2}[dt]
+    bytes_ms = 2 * R * D * itemsize / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * R * D / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def device_times(dev) -> dict:
@@ -205,8 +266,12 @@ def device_times(dev) -> dict:
     bucket B; matmul_q7 and w8a8_matmul at every GEMM_SHAPES entry and
     bmm_q7 at BMM_SHAPE, each summed over every kernel of the call, with
     torch._int_mm's device time at the same shapes as the yardstick
-    (None where it refuses the shape); squash_float at its headline
-    shape.  Operands as in phase 5, from SEED + 3."""
+    (None where it refuses the shape); squash_float at every
+    SQUASH_FLOAT_SHAPES entry and on the misaligned view, summed over
+    every kernel of the call (a tree whose wrapper casts bf16 to float32
+    and back counts the casts), and the empty kernel of
+    csrc/squash_float.cu, the launch floor (None on a tree without it).
+    Operands as in phase 6, from SEED + 3."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import routing as kr
@@ -241,9 +306,15 @@ def device_times(dev) -> dict:
     split = out["parts"][f"q7_matmul {key}"] = {}
     out["q7_matmul"][key] = device_ms(lambda: ops.bmm_q7(a, b, 13), None,
                                       calls=20, parts=split)
-    sf = torch.randn(SQUASH_FLOAT_SHAPES[0][0], generator=g).to(dev)
-    out["squash_float"] = device_ms(lambda: ops.squash_float(sf),
-                                    KERNEL_NAMES["squash_float"])
+    out["squash_float"] = {}
+    for key, shape, dt, view in squash_float_cases():
+        sf = squash_float_input(shape, dt, g, dev, view)
+        out["squash_float"][key] = device_ms(lambda: ops.squash_float(sf),
+                                             None)
+        del sf
+    floor = getattr(ks, "squash_float_floor", None)
+    out["squash_float_floor"] = None if floor is None \
+        else device_ms(lambda: floor(dev), None)
     return out
 
 
@@ -444,7 +515,8 @@ def serve_main_path(dev, mid: str = "mnist@cuda"):
     completions = done + [dataclasses.replace(c, rid=c.rid + N_REQUESTS)
                           for c in grouped]
     return dict(spec=spec, qnet=qnet, images=images, ptq_s=ptq_s,
-                engine=engine, wall=wall, completions=completions)
+                engine=engine, wall=wall, completions=completions,
+                registry=reg)
 
 
 def check_completions(run) -> None:
@@ -484,7 +556,95 @@ def check_completions(run) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: times
+# phase 4: the exported artifact, served on the card
+# ---------------------------------------------------------------------------
+def serve_artifact(run, dev) -> dict:
+    """Export the main path's model as an MCU artifact, install the file
+    on the card and serve it: the second path through the entry points a
+    user calls.  Returns the artifact's engine and its kernel counts."""
+    import numpy as np
+    import torch
+    from repro_torch.edge import EdgeProgram, EdgeVM, lower, to_qnet
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.launch import serve_caps
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.serving import ModelRegistry, serve_window
+    shutil.rmtree(EDGE_DIR, ignore_errors=True)
+    result = run["registry"].export(run["spec"].model_id, EDGE_DIR)
+    paths = result["paths"]
+    if sorted(p.suffix for p in paths.values()) != \
+            [".c", ".capsbin", ".h", ".json"] or result["verified"] != 4:
+        raise AssertionError(f"export wrote {paths}, verified "
+                             f"{result['verified']} images")
+    program = EdgeProgram.load(paths["capsbin"])
+    if not program.same_as(result["program"]):
+        raise AssertionError("the reloaded .capsbin is not the program")
+    if not lower(to_qnet(program, device=dev),
+                 name=program.name).same_as(program):
+        raise AssertionError("lower(to_qnet(p)) is not p")
+    log(f"[artifact] {run['spec'].model_id} exported to {EDGE_DIR} "
+        f"({', '.join(p.name for p in paths.values())}; "
+        f"{paths['capsbin'].stat().st_size} bytes .capsbin), VM-verified "
+        f"on {result['verified']} images; reload and lower(to_qnet(p)) "
+        f"give the same program")
+
+    # the artifact path: counts from 0 just before, read just after
+    fallbacks = get_backend("cuda").fallbacks
+    fb0 = dict(fallbacks)
+    ks.squash_q7.launches = 0
+    kr.routing_q7.launches = 0
+    reg = ModelRegistry(specs={}, device=dev)
+    qnet = reg.install_artifact(paths["capsbin"])
+    images = run["images"][:N_REQUESTS]
+    engine, done, _ = serve_window(reg, BUCKETS, images, program.name)
+    launches = {"squash_q7": ks.squash_q7.launches,
+                "routing_q7": kr.routing_q7.launches}
+    if qnet.backend != "cuda" or qnet.device.type != "cuda":
+        raise AssertionError(f"installed on {qnet.device}, backend "
+                             f"{qnet.backend}")
+    if min(launches.values()) == 0 or dict(fallbacks) != fb0:
+        raise AssertionError(f"artifact path launches {launches}, cuda "
+                             f"fallbacks {dict(fallbacks)} (were {fb0})")
+    got = sorted(done, key=lambda c: c.rid)
+    live = sorted((c for c in run["completions"] if c.rid < N_REQUESTS),
+                  key=lambda c: c.rid)
+    v = np.stack([c.v_q for c in got])
+    if not np.array_equal(v, np.stack([c.v_q for c in live])) or \
+            [c.pred for c in got] != [c.pred for c in live]:
+        raise AssertionError("the artifact's completions differ from the "
+                             "live model's")
+    with torch.inference_mode():
+        x_q = qnet.quantize_input(torch.as_tensor(images[:16]).to(dev))
+    if not np.array_equal(v[:16], EdgeVM(program).run(x_q.cpu().numpy())):
+        raise AssertionError("the artifact served on the card differs from "
+                             "the EdgeVM on the CPU")
+    log(f"[artifact] install_artifact on the card (backend cuda): "
+        f"{len(got)} requests bit-identical to the live "
+        f"{run['spec'].model_id}; the first 16 equal the EdgeVM on the "
+        f"CPU; launches {launches}; cuda fallbacks unchanged")
+
+    rc = serve_caps.main(["--capsbin", str(paths["capsbin"]),
+                          "--requests", str(N_REQUESTS)])
+    if rc != 0:
+        raise AssertionError(f"serve_caps --capsbin: exit {rc}")
+    ops = list(program.ops)
+    ops[0] = dataclasses.replace(ops[0], attrs={**ops[0].attrs,
+                                                "out_shift": 45})
+    bad = dataclasses.replace(program, ops=tuple(ops)).save(
+        EDGE_DIR / "tampered")["capsbin"]
+    rc = serve_caps.main(["--capsbin", str(bad), "--requests", "4"])
+    if rc != 1:
+        raise AssertionError(f"serve_caps took an artifact with a shift of "
+                             f"45: exit {rc}")
+    log(f"[artifact] serve_caps --capsbin --requests {N_REQUESTS}: exit 0; "
+        f"a copy with conv0's out_shift at 45: exit 1 (refused)")
+    return dict(engine=engine, launches=launches, registry=reg,
+                model_id=program.name)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: times
 # ---------------------------------------------------------------------------
 def time_kernels(run, dev) -> dict:
     import torch
@@ -561,7 +721,7 @@ def time_kernels(run, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the other configs and the variant fallback
+# phase 5: the other configs and the variant fallback
 # ---------------------------------------------------------------------------
 def serve_other(dev, mid: str, **spec_edit) -> None:
     """Serve N_OTHER requests of `mid` (its spec edited by `spec_edit`)
@@ -581,7 +741,7 @@ def serve_other(dev, mid: str, **spec_edit) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the kernel library
+# phase 6: the kernel library
 # ---------------------------------------------------------------------------
 def wrap_and_return(M: int, K: int, N: int, g):
     """int8 a [M, K], b [K, N]: 132,000 products of (-128)(-128), then
@@ -759,19 +919,32 @@ def drive_kernel_library(dev) -> dict:
         f"call each: {gemm_route(ad, bd)} (the batch on a 3-D tensor map)")
 
     sq_err = 0.0
-    for shape, dt in SQUASH_FLOAT_SHAPES:
-        dtype = getattr(torch, dt)
-        s = (torch.randn(shape, generator=g) * 2).to(dtype).to(dev)
+    for key, shape, dt, view in squash_float_cases():
+        s = squash_float_input(shape, dt, g, dev, view)
+        plan = ks.squash_float_plan(s.shape[-1], s.element_size(),
+                                    s.stride(0), s.data_ptr())
+        if view and plan.path != "element":
+            raise AssertionError(f"squash_float {key} planned on {plan}")
+        n0 = ks.squash_float.launches
         got = ops.squash_float(s)
-        # float32: rsqrtf and torch's rsqrt may round differently;
-        # bfloat16: float32 results that far apart may round one ulp apart
-        rtol, atol = (1e-6, 1e-6) if dt == "float32" else (2.0 ** -7, 1e-6)
-        err = within(f"squash_float {shape} {dt}", got,
-                     ks.squash_float_plain(s), rtol, atol)
+        if ks.squash_float.launches != n0 + 1:
+            raise AssertionError(f"squash_float {key}: "
+                                 f"{ks.squash_float.launches - n0} launches")
+        rows = SQUASH_FLOAT_CHECK_ROWS if shape[0] > 1 << 22 else shape[0]
+        # float32: rsqrtf and torch's rsqrt may round differently, and
+        # lanes add a row's squares in another order; 16-bit types:
+        # float32 results that far apart may round one ulp apart
+        rtol = {"float32": 1e-6, "bfloat16": 2.0 ** -7,
+                "float16": 2.0 ** -10}[dt]
+        err = within(f"squash_float {key}", got[:rows],
+                     ks.squash_float_plain(s[:rows]), rtol, 1e-6)
         if dt == "float32":
             sq_err = max(sq_err, err)
-        log(f"[library] squash_float {shape} {dt}: max |kernel - plain| "
-            f"{err:.3g} (rtol {rtol:.3g}, atol {atol:.3g})")
+        log(f"[library] squash_float {key}: one launch, path {plan.path} "
+            f"({plan.lanes} lane(s) a row, {plan.chunks}); max |kernel - "
+            f"plain| {err:.3g} on {'all' if rows == shape[0] else rows} "
+            f"rows (rtol {rtol:.3g}, atol 1e-06)")
+        del s, got
     return {"q7_matmul": 0, "w8a8_matmul": 0, "squash_float": sq_err}
 
 
@@ -804,7 +977,7 @@ def int_mm_device_ms(a, b):
 
 
 def time_library(dev, card: str) -> dict:
-    """Kernel, plain, bound and yardstick times at every phase-5 shape;
+    """Kernel, plain, bound and yardstick times at every phase-6 shape;
     returns the JSON record's entries of the three library kernels."""
     import torch
     from repro_torch.kernels import ops
@@ -837,24 +1010,20 @@ def time_library(dev, card: str) -> dict:
         plain_ms=cuda_ms(lambda: kq.bmm_q7_plain(a, b, 13), iters=10),
         bound_ms=bound, bound_by=by, int_mm_ms=None,
         plan=gemm_route(a, b)))
-    for shape, dt in SQUASH_FLOAT_SHAPES:
-        dtype = getattr(torch, dt)
-        s = torch.randn(shape, generator=g).to(dtype).to(dev)
-        R, D = shape
-        nbytes = 2 * R * D * s.element_size()
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = 4 * R * D / F32_OPS_PER_S * 1e3
+    for key, shape, dt, view in squash_float_cases():
+        s = squash_float_input(shape, dt, g, dev, view)
+        bound, by = squash_float_bound(shape, dt, view)
         rows["squash_float"].append(dict(
-            shape=[R, D], dtype=dt, ms=cuda_ms(lambda: ops.squash_float(s)),
+            shape=list(s.shape), dtype=dt, key=key,
+            ms=cuda_ms(lambda: ops.squash_float(s)),
             plain_ms=cuda_ms(lambda: ks.squash_float_plain(s), iters=10),
-            bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            int_mm_ms=None))
+            bound_ms=bound, bound_by=by, int_mm_ms=None))
+        del s
     for name, rs in rows.items():
         for r in rs:
             yard = "n/a" if r["int_mm_ms"] is None \
                 else f"{r['int_mm_ms']:.4f} ms"
-            what = f"{r['shape']} {r.get('dtype', 'int8')}"
+            what = r.get("key", f"{r['shape']} {r.get('dtype', 'int8')}")
             if "plan" in r:
                 what += f" ({r['plan']})"
             log(f"[time] {card} | {name} {what}: kernel {r['ms']:.4f} ms, "
@@ -863,11 +1032,10 @@ def time_library(dev, card: str) -> dict:
                 f"torch._int_mm yardstick {yard}")
     head = {"q7_matmul": list(HEADLINE_GEMM),
             "w8a8_matmul": list(HEADLINE_GEMM),
-            "squash_float": [SQUASH_FLOAT_SHAPES[0][0][0],
-                             SQUASH_FLOAT_SHAPES[0][0][1]]}
+            "squash_float": list(SQUASH_FLOAT_SHAPES[0][0])}
     out = {}
     for name, rs in rows.items():
-        top = next(r for r in rs if r["shape"] == head[name])
+        top = next(r for r in rs if r["shape"] == head[name])   # the first
         out[name] = dict(top, shapes=rs)
     return out
 
@@ -912,8 +1080,16 @@ def log_device_times(card: str, dt: dict) -> None:
             log(f"[device] {card} | {name} {key}: {ms:.5f} ms, every kernel "
                 f"of the call ({split}); bound {bound:.6f} ms ({by}); "
                 f"torch._int_mm yardstick {yard}")
-    log(f"[device] {card} | squash_float headline shape: "
-        f"{dt['squash_float']:.5f} ms")
+    floor = dt["squash_float_floor"]
+    log(f"[device] {card} | squash_float empty kernel (launch floor): "
+        + ("n/a on this tree" if floor is None else f"{floor:.5f} ms"))
+    for key, shape, dtype, view in squash_float_cases():
+        ms = dt["squash_float"][key]
+        bound, by = squash_float_bound(shape, dtype, view)
+        vs_floor = "" if floor is None else f", {ms / floor:.2f}x the floor"
+        log(f"[device] {card} | squash_float {key}: {ms:.5f} ms, every "
+            f"kernel of the call; bound {bound:.6f} ms ({by}), "
+            f"{bound / ms:.1%} of it{vs_floor}")
 
 
 def main(argv=None) -> int:
@@ -949,9 +1125,16 @@ def main(argv=None) -> int:
     log(f"[build] {len(libs)} kernel libraries in {build_s:.1f} s "
         f"({', '.join(sorted(libs))})")
     for name, entry in sorted(build.BUILD_LOG.items()):
-        for line in entry["ptxas"].splitlines():
-            if any(w in line for w in ("registers", "smem", "spill",
-                                       "error", "arning", "wgmma")):
+        text = entry["ptxas"]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(b) for b in re.findall(
+            r"(\d+) bytes spill stores", text))
+        log(f"[build] {name}: {len(regs)} kernels, at most "
+            f"{max(regs, default=0)} registers a thread, {spills} bytes of "
+            f"spill stores")
+        for line in text.splitlines():
+            if any(w in line for w in ("error", "arning",
+                                       "Performance Loss")):
                 log(f"[build] {name}: {line.strip()}")
     if argv == ["--device-times"]:
         dt = device_times(dev)
@@ -1005,7 +1188,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"default-variant mnist@cuda fell back: "
                              f"{dict(fallbacks)}")
 
-    # phase 4
+    # phase 4: the artifact path, counted on its own
+    artifact = serve_artifact(run, dev)
+
+    # phase 5
     serve_other(dev, "smallnorb@cuda")
     serve_other(dev, "cifar10@cuda")
     with warnings.catch_warnings(record=True) as caught:
@@ -1025,7 +1211,7 @@ def main(argv=None) -> int:
         f"{len(caught)} warning(s): "
         f"{sorted({str(w.message)[:60] for w in caught})}")
 
-    # phase 5: counts from 0 just before the library path, read just after
+    # phase 6: counts from 0 just before the library path, read just after
     kq.matmul_q7.launches = kq.bmm_q7.launches = 0
     kw.w8a8_matmul.launches = ks.squash_float.launches = 0
     kq.transpose_kn.launches = 0
@@ -1050,12 +1236,28 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name} was not launched on the "
                                  f"kernel-library path")
 
-    # phase 6
+    # phase 7
     times = time_kernels(run, dev)
-    m = run["engine"].metrics.summary()
-    log(f"[serve] {card} | {N_REQUESTS} requests, buckets {BUCKETS}: "
-        f"{m['images_per_s']:.1f} img/s, p50 {m['p50_ms']:.3f} ms, "
-        f"p99 {m['p99_ms']:.3f} ms, {m['waves']} waves")
+    from repro_torch.serving import serve_window
+    sides = {"mnist@cuda": (run["registry"], "mnist@cuda", run["engine"]),
+             "its .capsbin, installed": (artifact["registry"],
+                                         artifact["model_id"],
+                                         artifact["engine"])}
+    rates = {what: [] for what in sides}
+    for rnd in range(SERVE_ROUNDS):
+        for what, (reg, mid, eng) in sides.items():
+            if rnd:         # round 0: the counted windows of phases 3, 4
+                eng, _, _ = serve_window(reg, BUCKETS,
+                                         run["images"][:N_REQUESTS], mid)
+            m = eng.metrics.summary()
+            rates[what].append(m["images_per_s"])
+            log(f"[serve] {card} | {what}, window {rnd + 1}: {N_REQUESTS} "
+                f"requests, buckets {BUCKETS}: {m['images_per_s']:.1f} "
+                f"img/s, p50 {m['p50_ms']:.3f} ms, p99 {m['p99_ms']:.3f} "
+                f"ms, {m['waves']} waves")
+    log(f"[serve] {card} | img/s over {SERVE_ROUNDS} alternating windows: "
+        + "; ".join(f"{what} {min(r):.1f}-{max(r):.1f}"
+                    for what, r in rates.items()))
     for name, t in times.items():
         log(f"[time] {card} | {name} {t['shape']}: kernel {t['ms']:.4f} ms, "
             f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
@@ -1064,7 +1266,7 @@ def main(argv=None) -> int:
 
     times.update(time_library(dev, card))
 
-    # phase 7: device times from the profiler, and each cluster size
+    # phase 8: device times from the profiler, and each cluster size
     dt = device_times(dev)
     log_device_times(card, dt)
     for B, row in cluster_device_times(dev).items():
@@ -1074,7 +1276,11 @@ def main(argv=None) -> int:
             + f" (wrapper picks {kr.cluster_size(B, *MNIST_ROUTING)})")
     for name in ("routing_q7", "squash_q7"):
         times[name]["device_ms"] = dt[name][B_TIMED]
-    times["squash_float"]["device_ms"] = dt["squash_float"]
+    times["squash_float"]["device_ms"] = dt["squash_float"][
+        squash_float_cases()[0][0]]
+    for row in times["squash_float"]["shapes"]:
+        row["device_ms"] = dt["squash_float"][row["key"]]
+    times["squash_float"]["floor_device_ms"] = dt["squash_float_floor"]
     for name in ("q7_matmul", "w8a8_matmul"):
         times[name]["device_ms"] = dt[name][shape_key(HEADLINE_GEMM)]
         for row in times[name]["shapes"]:
@@ -1103,6 +1309,10 @@ def main(argv=None) -> int:
                  "bound_by": t["bound_by"], "library_ms": None,
                  "library_note": "no single PyTorch call computes this "
                  "function", "shape": t["shape"]}
+        if name in artifact["launches"]:
+            entry["launches_by_path"] = {
+                "main": launches[name],
+                "artifact": artifact["launches"][name]}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (

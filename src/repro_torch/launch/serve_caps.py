@@ -12,19 +12,33 @@ replays the same requests through a batch-size-1 loop.  Runs on CUDA
 unless --device says otherwise (`--device cpu` serves the `torch`
 backend's models on the CPU).
 
+With --capsbin PATH the engine serves an exported MCU artifact
+instead: the `.capsbin` is imported back into a QuantCapsNet on the
+device (repro_torch.edge importer; the `cuda` backend on the card, the
+`torch` oracle with `--device cpu`) and installed under its program
+name, so the bits in flight are exactly the bits that shipped.  The
+static verifier (repro_torch.analysis) vets it first; a finding prints
+STATIC CHECK FAILED and exits 1, and --no-check skips it.  --export DIR
+also dumps the served model as an artifact (.capsbin + manifest +
+.c/.h) and prints its flash/RAM report.
+
 --softmax/--squash select operator variants from the registry
-(repro_torch.nn.variants; e.g. the ISLPED'22 approximate softmax/squash)
-by rebuilding the spec.  On a `*@cuda` model a non-default variant runs
-the torch oracle on the card (bit-identical, slower), and the run prints
-the fallbacks.  Unknown names fail argparse with the registered ones
-listed.
+(repro_torch.nn.variants; e.g. the ISLPED'22 approximate softmax/squash):
+on a spec by rebuilding it, on a --capsbin artifact as a pure plan edit.
+On a `*@cuda` model a non-default variant runs the torch oracle on the
+card (bit-identical, slower), and the run prints the fallbacks.  Unknown
+names fail argparse with the registered ones listed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
+import numpy as np
+
+from repro_torch.analysis import CheckError
 from repro_torch.nn.backend import get_backend
 from repro_torch.nn.variants import REGISTRY
 from repro_torch.serving import ModelRegistry, default_specs, serve_window
@@ -33,14 +47,20 @@ from repro_torch.serving import ModelRegistry, default_specs, serve_window
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", default="mnist@cuda",
-                    help=f"registry id ({', '.join(sorted(default_specs()))})")
+                    help=f"registry id ({', '.join(sorted(default_specs()))})"
+                    "; ignored when --capsbin is given")
+    ap.add_argument("--capsbin", metavar="PATH", default=None,
+                    help="serve an exported .capsbin artifact (imported "
+                    "via repro_torch.edge onto the device, installed "
+                    "under its program name)")
     ap.add_argument("--softmax", choices=REGISTRY.names("softmax"),
                     default=None,
                     help="softmax operator variant (repro_torch.nn."
-                    "variants); default: the spec's own")
+                    "variants); default: the spec's / artifact's own")
     ap.add_argument("--squash", choices=REGISTRY.names("squash"),
                     default=None,
-                    help="squash operator variant; default: the spec's own")
+                    help="squash operator variant; default: the spec's "
+                    "/ artifact's own")
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--buckets", default="1,4,16,64",
                     help="comma-separated micro-batch bucket sizes")
@@ -48,30 +68,71 @@ def main(argv=None):
     ap.add_argument("--compare-b1", action="store_true",
                     help="also serve via a batch-size-1 loop and report "
                     "the batched speedup")
+    ap.add_argument("--export", metavar="DIR", default=None,
+                    help="also dump the served model as an MCU artifact "
+                    "(.capsbin + manifest + .c/.h via repro_torch.edge) "
+                    "and print the flash/RAM report")
+    ap.add_argument("--check", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="statically verify imported --capsbin artifacts "
+                    "and --export programs (repro_torch.analysis)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
     registry = ModelRegistry(device=args.device)
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    model_id = args.model
-    if model_id not in registry.specs:
-        ap.error(f"unknown model {model_id!r}; have {sorted(registry.specs)}")
-    spec = registry.specs[model_id]
-    if args.softmax or args.squash:
-        spec = dataclasses.replace(
-            spec, **{f"{k}_impl": v for k, v in (("softmax", args.softmax),
-                                                 ("squash", args.squash))
-                     if v})
-        registry.register(spec)
-    images = spec.images(args.requests, args.seed)
-    print(f"[serve_caps] model={model_id} ({spec.config.name}, "
-          f"backend={spec.backend}, variants={spec.variants.tag}) "
-          f"buckets={buckets} device={registry.device}")
-    t0 = time.perf_counter()
-    qnet = registry.model(model_id)
-    print(f"[serve_caps] lazy PTQ build: {time.perf_counter() - t0:.2f} s "
-          f"({qnet.memory_bytes() / 1000:.1f} KB int8)")
+    if args.capsbin:
+        try:
+            qnet = registry.install_artifact(args.capsbin,
+                                             check=args.check)
+        except CheckError as e:      # refuse to serve a bad artifact
+            print(f"[serve_caps] STATIC CHECK FAILED for "
+                  f"{args.capsbin}:\n{e}", file=sys.stderr)
+            return 1
+        model_id = qnet.pipeline.cfg.name        # the program's name
+        if args.softmax or args.squash:          # plan edit on the artifact
+            vs = dataclasses.replace(
+                qnet.variants,
+                **{k: v for k, v in (("softmax", args.softmax),
+                                     ("squash", args.squash)) if v})
+            qnet = qnet.with_variants(vs)
+            registry.install(model_id, qnet)
+        rng = np.random.default_rng(args.seed)
+        images = rng.uniform(0, 1, (args.requests,)
+                             + registry.input_shape(model_id)) \
+            .astype(np.float32)
+        print(f"[serve_caps] imported {args.capsbin} as {model_id!r} "
+              f"({qnet.memory_bytes() / 1000:.1f} KB int8, "
+              f"backend={qnet.backend}) variants={qnet.variants.tag} "
+              f"buckets={buckets} device={registry.device}")
+    else:
+        model_id = args.model
+        if model_id not in registry.specs:
+            ap.error(f"unknown model {model_id!r}; have "
+                     f"{sorted(registry.specs)} (or pass --capsbin)")
+        spec = registry.specs[model_id]
+        if args.softmax or args.squash:
+            spec = dataclasses.replace(
+                spec,
+                **{f"{k}_impl": v for k, v in (("softmax", args.softmax),
+                                               ("squash", args.squash))
+                   if v})
+            registry.register(spec)
+        images = spec.images(args.requests, args.seed)
+        print(f"[serve_caps] model={model_id} ({spec.config.name}, "
+              f"backend={spec.backend}, variants={spec.variants.tag}) "
+              f"buckets={buckets} device={registry.device}")
+        t0 = time.perf_counter()
+        qnet = registry.model(model_id)
+        print(f"[serve_caps] lazy PTQ build: "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"({qnet.memory_bytes() / 1000:.1f} KB int8)")
+    if args.export:
+        from repro_torch.edge import format_export
+        result = registry.export(model_id, args.export, check=args.check)
+        print("[serve_caps] exported MCU artifact:")
+        print(format_export(result))
 
     engine, _, wall = serve_window(registry, buckets, images, model_id)
     print("[serve_caps]", engine.metrics.report())

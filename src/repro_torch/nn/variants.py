@@ -1,9 +1,11 @@
 """Operator variants: the typed registry of softmax / squash choices.
 
 A variant is one registration here; plans validate their variant fields
-against the registry, and the backends resolve the int8 face through
-it.  The port carries the `q7` face (the torch integer oracle) of each
-registered variant:
+against the registry, and the backends, the edge VM, the C emitter and
+the static checker resolve it through it.  The port carries two faces
+of each registered variant, `q7` (the torch integer oracle) and `np_q7`
+(the NumPy mirror the EdgeVM runs, copied from the reference), plus the
+C emitter's kernel symbols:
 
   softmax  "q7"       arm_softmax-style shift softmax (paper baseline)
            "precise"  dequantize -> fp32 softmax -> requant
@@ -19,18 +21,116 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
+
 from repro_torch.quant import int8_ops as q
 
 KINDS = ("softmax", "squash")
+PLAN_FIELDS = {"softmax": "softmax_impl", "squash": "squash_impl"}
+
+_INT8_MIN, _INT8_MAX = -128, 127
+_SQUASH_GUARD_BITS = 10             # must match quant.int8_ops
+_EXP_FLOOR = -20                    # exponent clamp shared by softmaxes
+
+
+# ---------------------------------------------------------------------------
+# NumPy faces (the EdgeVM semantics)
+# ---------------------------------------------------------------------------
+def _np_sat8(x):
+    return np.clip(x, _INT8_MIN, _INT8_MAX).astype(np.int8)
+
+
+def _np_ceil_log2(tot):
+    """ceil(log2(tot)) for positive int32 arrays, integer-only (bit
+    length of tot-1) so torch and NumPy cannot disagree on boundaries."""
+    t1 = tot.astype(np.int32) - 1
+    k = np.zeros_like(t1)
+    for j in range(31):
+        k = k + (np.right_shift(t1, j) > 0)
+    return k
+
+
+def _np_softmax_q7(x, in_frac: int):
+    x32 = x.astype(np.int32)
+    m = np.max(x32, axis=-1, keepdims=True)
+    e = np.maximum(np.right_shift(x32 - m, in_frac), _EXP_FLOOR)
+    p = np.left_shift(np.ones_like(e), 20 + e)
+    tot = np.sum(p, axis=-1, keepdims=True, dtype=np.int32)
+    c = np.left_shift(p, 7) // np.maximum(tot, 1)
+    return np.clip(c, 0, _INT8_MAX).astype(np.int8)
+
+
+def _np_softmax_q7_precise(x, in_frac: int):
+    xf = x.astype(np.float32) * np.float32(2.0 ** -in_frac)
+    xf = xf - xf.max(axis=-1, keepdims=True)
+    p = np.exp(xf)
+    p = p / p.sum(axis=-1, keepdims=True)
+    c = np.round(p.astype(np.float32) * 128.0)
+    return np.clip(c, 0, _INT8_MAX).astype(np.int8)
+
+
+def _np_softmax_q7_approx(x, in_frac: int):
+    """ISLPED'22 shift softmax: 2^floor(x-max) probabilities normalized
+    by 2^ceil(log2(sum)) — division-free (one shift per element)."""
+    x32 = x.astype(np.int32)
+    m = np.max(x32, axis=-1, keepdims=True)
+    e = np.maximum(np.right_shift(x32 - m, in_frac), _EXP_FLOOR)
+    p = np.left_shift(np.ones_like(e), 20 + e)
+    tot = np.sum(p, axis=-1, keepdims=True, dtype=np.int32)
+    k = _np_ceil_log2(tot)                   # >= 20: the max term is 2^20
+    c = np.right_shift(p, k - 7)
+    return np.clip(c, 0, _INT8_MAX).astype(np.int8)
+
+
+def _np_isqrt_newton(n):
+    n = n.astype(np.int32)
+    x = np.maximum(n // 2, 1)
+    for _ in range(32):
+        nxt = (x + n // np.maximum(x, 1)) // 2
+        x = np.where(nxt < x, nxt, x)
+    return np.where(n <= 1, n, x)
+
+
+def _np_squash_factor(S, Q, in_frac: int, out_frac: int):
+    """Eq. 8 ratio on a (norm, norm^2) pair; shared by both variants."""
+    P = _SQUASH_GUARD_BITS
+    shift = out_frac - in_frac + P
+    num = np.left_shift(S, shift) if shift >= 0 \
+        else np.right_shift(S, -shift)
+    den = (1 << in_frac) + np.right_shift(Q, in_frac)
+    return num // np.maximum(den, 1)
+
+
+def _np_squash_q7(s, in_frac: int, out_frac: int = 7):
+    s32 = s.astype(np.int32)
+    Q = np.sum(s32 * s32, axis=-1, keepdims=True, dtype=np.int32)
+    ratio = _np_squash_factor(_np_isqrt_newton(Q), Q, in_frac, out_frac)
+    return _np_sat8(np.right_shift(ratio * s32, _SQUASH_GUARD_BITS))
+
+
+def _np_squash_q7_approx(s, in_frac: int, out_frac: int = 7):
+    """ISLPED'22 approximate squash: the L2 norm (32-iteration Newton
+    isqrt, Alg. 4) is replaced by the L-inf norm max|s_i| — no sqrt."""
+    s32 = s.astype(np.int32)
+    M = np.max(np.abs(s32), axis=-1, keepdims=True)
+    ratio = _np_squash_factor(M, M * M, in_frac, out_frac)
+    return _np_sat8(np.right_shift(ratio * s32, _SQUASH_GUARD_BITS))
 
 
 @dataclasses.dataclass(frozen=True)
 class OpVariant:
-    """One operator variant and its int8 face."""
+    """One operator variant: its int8 faces and its C kernel symbols."""
     name: str                       # registry key within its kind
     kind: str                       # "softmax" | "squash"
     description: str
     q7: Callable                    # torch int8 oracle
+    np_q7: Callable                 # NumPy mirror (EdgeVM / MCU contract)
+    c_symbol: str                   # standalone kernel symbol (emit_c)
+    c_suffix: str = ""              # routing-kernel symbol suffix
+
+    @property
+    def plan_field(self) -> str:
+        return PLAN_FIELDS[self.kind]
 
 
 class VariantRegistry:
@@ -70,6 +170,18 @@ class VariantRegistry:
         self.get(kind, name)
         return name
 
+    def is_registered(self, kind: str, name: str) -> bool:
+        """Non-raising membership test (the static checker reports
+        unknown references as diagnostics instead of exceptions)."""
+        return (kind, name) in self._variants
+
+    def from_attrs(self, kind: str, attrs: dict) -> OpVariant:
+        """Resolve an EdgeOp attr dict's variant reference (the kind's
+        plan-field key), defaulting for pre-variant artifacts — the
+        accessor every edge consumer (VM, importer, C emitter) shares."""
+        return self.get(kind, attrs.get(PLAN_FIELDS[kind],
+                                        self.default(kind)))
+
 
 REGISTRY = VariantRegistry()
 
@@ -78,27 +190,32 @@ REGISTRY.register(OpVariant(
     description="arm_softmax-style shift softmax (paper baseline): "
                 "powers of two of floor(x - max), integer-divided by "
                 "their sum",
-    q7=q.softmax_q7), default=True)
+    q7=q.softmax_q7, np_q7=_np_softmax_q7, c_symbol="arm_softmax_q7"),
+    default=True)
 REGISTRY.register(OpVariant(
     name="precise", kind="softmax",
     description="dequantize -> fp32 softmax -> requant Q0.7 "
                 "(beyond-paper accuracy reference)",
-    q7=q.softmax_q7_precise))
+    q7=q.softmax_q7_precise, np_q7=_np_softmax_q7_precise,
+    c_symbol="capsnet_softmax_q7_precise", c_suffix="_softmax_precise"))
 REGISTRY.register(OpVariant(
     name="approx", kind="softmax",
     description="ISLPED'22 approximate softmax: shift-based exp with "
                 "power-of-two normalization — no integer division",
-    q7=q.softmax_q7_approx))
+    q7=q.softmax_q7_approx, np_q7=_np_softmax_q7_approx,
+    c_symbol="capsnet_softmax_q7_approx", c_suffix="_softmax_approx"))
 REGISTRY.register(OpVariant(
     name="exact", kind="squash",
     description="Eq. 8 squash with Alg. 4 Newton-Raphson integer sqrt "
                 "(paper baseline)",
-    q7=q.squash_q7), default=True)
+    q7=q.squash_q7, np_q7=_np_squash_q7, c_symbol="capsnet_squash_q7"),
+    default=True)
 REGISTRY.register(OpVariant(
     name="approx", kind="squash",
     description="ISLPED'22 approximate squash: L-inf norm instead of "
                 "the L2 norm — no square root",
-    q7=q.squash_q7_approx))
+    q7=q.squash_q7_approx, np_q7=_np_squash_q7_approx,
+    c_symbol="capsnet_squash_q7_approx", c_suffix="_squash_approx"))
 
 DEFAULT_SOFTMAX = REGISTRY.default("softmax")
 DEFAULT_SQUASH = REGISTRY.default("squash")

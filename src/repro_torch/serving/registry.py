@@ -5,7 +5,9 @@ Two caches with different lifetimes:
   * model cache — `model(id)` builds a `QuantCapsNet` lazily on first
     request (init -> calibrate -> PTQ, paper Alg. 6/7) on the registry's
     device; externally quantized models are `install()`ed under an id
-    and skip the lazy path.
+    and skip the lazy path, and an exported `.capsbin` artifact is
+    `install_artifact()`ed onto the registry's device.  `export(id)`
+    writes a served model out as that artifact.
   * wave cache — `executable(id, bucket)` binds `wave_fn` to (model,
     bucket) once and reuses it for every later wave.
 
@@ -136,6 +138,42 @@ class ModelRegistry:
         self._models[model_id] = qnet
         self._drop_waves(model_id)
         self._note_variant_fallback(model_id, qnet)
+
+    def install_artifact(self, capsbin_path, *, model_id: str | None = None,
+                         check: bool = True) -> QuantCapsNet:
+        """Serve exactly the artifact `export_caps` shipped: load the
+        `.capsbin`, rebuild a QuantCapsNet from its ops on the registry's
+        device (repro_torch.edge importer: the `cuda` backend on the
+        card, bit-identical to the EdgeVM), and install it under
+        `model_id` (default: the program's own name).  The static
+        verifier vets the program first unless check=False (a tampered
+        artifact is rejected with a CheckError, not served)."""
+        from repro_torch.edge import load_qnet
+        qnet = load_qnet(capsbin_path, check=check, device=self.device)
+        self.install(model_id or qnet.pipeline.cfg.name, qnet)
+        return qnet
+
+    def export(self, model_id: str, out_dir, *, stem: str | None = None,
+               verify_n: int = 4, check: bool = True) -> dict:
+        """Dump a served model as an MCU artifact (repro_torch.edge):
+        lower it to an EdgeProgram, statically check it (unless
+        check=False), write `.capsbin` + manifest + CMSIS-NN-style
+        `.c/.h`, and re-verify the reloaded binary in the NumPy VM
+        against the live model on `verify_n` images."""
+        from repro_torch.edge import export_artifacts
+        qnet = self.model(model_id)
+        images = None
+        if verify_n > 0:
+            spec = self.specs.get(model_id)
+            if spec is not None:
+                images = spec.images(verify_n, seed=99)
+            else:                    # install()ed model: synthetic probes
+                rng = np.random.default_rng(99)
+                shape = (verify_n,) + self.input_shape(model_id)
+                images = rng.uniform(0, 1, shape).astype(np.float32)
+        stem = stem or model_id.replace("@", "_")
+        return export_artifacts(qnet, out_dir, stem=stem,
+                                verify_images=images, check=check)
 
     def _note_variant_fallback(self, model_id: str,
                                qnet: QuantCapsNet) -> None:

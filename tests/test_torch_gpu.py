@@ -185,6 +185,57 @@ def test_cuda_squash_float_matches_plain(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=str)
+@pytest.mark.parametrize("shape,cut", [((4096, 4), 0), ((4097, 8), 0),
+                                       ((4096, 16), 0), ((999, 160), 0),
+                                       ((64, 6), 0), ((4099, 5), 1),
+                                       ((7, 1000), 0), ((37, 2), 0),
+                                       ((2, 33, 5), 1)], ids=str)
+def test_cuda_squash_float_every_path_is_one_launch(cuda, dtype, shape, cut):
+    """Each path of csrc/squash_float.cu (packed words, lane groups,
+    element loads, a view whose rows are misaligned) in one launch at
+    every dtype, within 1e-6 (float32) or one ulp of its plain version."""
+    s = torch.from_numpy(np.random.default_rng(shape[-1]).normal(
+        0, 2, shape).astype(np.float32)).to(dtype).to(cuda)[..., cut:]
+    n0 = ks.squash_float.launches
+    got = ops.squash_float(s)
+    torch.cuda.synchronize()
+    assert ks.squash_float.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == s.shape
+    want = ks.squash_float_plain(s)
+    tol = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_installed_artifact_serves_its_source_models_bits(cuda,
+                                                               tmp_path):
+    from repro_torch.edge import EdgeProgram, EdgeVM
+    from repro_torch.serving import CapsServeEngine
+    reg = ModelRegistry({"edge_tiny@cuda": default_specs()["edge_tiny@cuda"]},
+                        device=cuda)
+    path = reg.export("edge_tiny@cuda", tmp_path)["paths"]["capsbin"]
+    other = ModelRegistry({}, device=cuda)
+    q2 = other.install_artifact(path, model_id="shipped")
+    assert q2.backend == "cuda" and q2.device.type == "cuda"
+    images = default_specs()["edge_tiny@cuda"].images(21, seed=6)
+    outs = []
+    n0 = (kr.routing_q7.launches, ks.squash_q7.launches)
+    for r, mid in ((reg, "edge_tiny@cuda"), (other, "shipped")):
+        engine = CapsServeEngine(r, buckets=(1, 4, 16))
+        engine.submit_many(images, mid)
+        outs.append(np.stack([c.v_q for c in engine.drain()]))
+    assert kr.routing_q7.launches > n0[0] and ks.squash_q7.launches > n0[1]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    x_q = q2.quantize_input(torch.from_numpy(images).to(cuda)).cpu().numpy()
+    np.testing.assert_array_equal(outs[1],
+                                  EdgeVM(EdgeProgram.load(path)).run(x_q))
+
+
+@pytest.mark.gpu
 def test_cuda_backend_serves_a_variant_plan_through_the_oracle(cuda):
     spec = dataclasses.replace(default_specs()["edge_tiny@cuda"],
                                softmax_impl="approx")

@@ -82,6 +82,22 @@ def test_default_device_without_a_gpu_raises(no_gpu):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_the_artifact_entry_points_default_to_the_card(no_gpu, tmp_path):
+    from repro_torch.edge import load_qnet, lower, to_qnet
+    from repro_torch.launch import export_caps
+    reg = ModelRegistry({"e": default_specs()["edge_tiny@torch"]},
+                        device="cpu")
+    program = lower(reg.model("e"))
+    path = program.save(tmp_path / "e")["capsbin"]
+    for call in (lambda: to_qnet(program), lambda: load_qnet(path),
+                 lambda: ModelRegistry(specs={}).install_artifact(path),
+                 lambda: export_caps.main(["--out", str(tmp_path / "o")]),
+                 lambda: serve_caps.main(["--capsbin", str(path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert to_qnet(program, device="cpu").backend == "torch"
+
+
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
     (tmp_path / "chip_smoke.py").write_bytes(
         (ROOT / "chip_smoke.py").read_bytes())

@@ -164,6 +164,69 @@ def test_squash_float_keeps_bfloat16():
                                rtol=2 ** -7, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", [
+    ((4, 4, 4, 0), ("packed", 1, 1)),      # [R, 4] f32: a float4 a row
+    ((4, 2, 4, 16), ("packed", 1, 2)),     # [R, 4] bf16: two rows a word
+    ((8, 2, 8, 0), ("packed", 1, 1)),      # [R, 8] bf16/f16: a word a row
+    ((1, 4, 1, 0), ("packed", 1, 4)),
+    ((8, 4, 8, 0), ("lanes", 2, 1)),
+    ((16, 4, 16, 0), ("lanes", 4, 1)),     # [R, 16] f32: 4 lanes a row
+    ((160, 4, 160, 0), ("lanes", 32, 4)),
+    ((4, 4, 5, 4), ("element", 4, 1)),     # s[:, 1:] of a [R, 5] tensor
+    ((4, 4, 4, 8), ("element", 4, 1)),     # 8 bytes past a boundary
+    ((16, 4, 17, 0), ("element", 16, 1)),  # rows 68 bytes apart
+    ((6, 4, 6, 0), ("element", 8, 1)),     # [64, 6]: 24-byte rows
+    ((1000, 4, 1000, 0), ("element", 32, 32)),
+], ids=str)
+def test_squash_float_plan(case):
+    (D, itemsize, row_stride, ptr), want = case
+    assert tuple(ks.squash_float_plan(D, itemsize, row_stride, ptr)) == want
+
+
+def squash_float_visits(R, D, itemsize, plan, grid, threads=256):
+    """How often csrc/squash_float.cu reads each (row, element) of an
+    [R, D] input on `grid` blocks of `threads`, by the kernels' own index
+    arithmetic (packed words with their leftover rows; lane groups whose
+    loop bound is shared by a warp)."""
+    seen = np.zeros((R, D), np.int64)
+    if plan.path == "packed":
+        rpv = plan.chunks
+        nvec = R // rpv
+        for i in range(nvec):
+            seen[i * rpv:(i + 1) * rpv] += 1
+        seen[nvec * rpv:] += 1
+        return seen
+    v = 16 // itemsize if plan.path == "lanes" else 1
+    G, groups = plan.lanes, threads // plan.lanes
+    for b in range(grid):
+        for t in range(threads):
+            lane, in_warp = t & (G - 1), (t & 31) // G
+            for r0 in range(b * groups + (t & ~31) // G, R, grid * groups):
+                row = r0 + in_warp
+                for c in range(plan.chunks):
+                    j = lane + c * G
+                    if row < R and j < D // v:
+                        seen[row, j * v:(j + 1) * v] += 1
+    return seen
+
+
+@pytest.mark.parametrize("shape", [(37, 4, 4), (37, 4, 2), (13, 8, 2),
+                                   (29, 16, 4), (9, 160, 4), (33, 6, 4),
+                                   (5, 1000, 4)], ids=str)
+def test_squash_float_paths_read_every_element_once(shape):
+    R, D, itemsize = shape
+    plan = ks.squash_float_plan(D, itemsize, D, 0)
+    for grid in (1, 3):
+        assert (squash_float_visits(R, D, itemsize, plan, grid) == 1).all()
+
+
+def test_squash_float_reads_a_strided_view_where_it_lies():
+    s = np.random.default_rng(7).normal(0, 2, (50, 5)).astype(np.float32)
+    got = ops.squash_float(torch.from_numpy(s)[:, 1:])
+    np.testing.assert_allclose(got.numpy(), r_ops.squash_float(
+        jnp.asarray(s[:, 1:])), atol=1e-5)
+
+
 @pytest.mark.parametrize("softmax_impl", ["q7", "approx"])
 def test_routing_ref_matches_the_reference_oracle(softmax_impl):
     u = i8(np.random.default_rng(8), (2, 5, 24, 6))

@@ -10,7 +10,11 @@ Pinned guarantees, as tests/test_serving.py pins them for the reference:
     (model, bucket), and its counters show it;
   * a reference-built QuantCapsNet carried across with
     `repro_torch.convert` and served by the port gives the reference
-    engine's v_q and pred.
+    engine's v_q and pred;
+  * a served model exported with `ModelRegistry.export` and installed
+    back with `install_artifact` serves the same bits through the
+    engine, and a reference-exported artifact installed in the port
+    serves the reference engine's bits.
 
 Everything runs on the EDGE_TINY geometry with the `torch` backend.
 """
@@ -258,3 +262,44 @@ def test_cli_variant_flags(capsys):
     assert "variants=approx+approx" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve_caps.main(["--model", MID, "--softmax", "nope"])
+
+
+def test_an_exported_model_installed_back_serves_the_same_bits(served,
+                                                              tmp_path):
+    reg, qnet, images = served
+    result = reg.export(MID, tmp_path)
+    assert result["verified"] == 4 and result["checked"]
+    assert result["paths"]["capsbin"].name == "edge_tiny_torch.capsbin"
+    other = ModelRegistry({}, device="cpu")
+    q2 = other.install_artifact(result["paths"]["capsbin"])
+    assert other.has("edge_tiny_torch") and q2.plan == qnet.plan
+    outs = []
+    for r, mid in ((reg, MID), (other, "edge_tiny_torch")):
+        engine = CapsServeEngine(r, buckets=BUCKETS)
+        engine.submit_many(images[:9], mid)
+        outs.append(engine.drain())
+    assert [c.bucket for c in outs[0]] == [c.bucket for c in outs[1]]
+    np.testing.assert_array_equal(np.stack([c.v_q for c in outs[0]]),
+                                  np.stack([c.v_q for c in outs[1]]))
+    assert [c.pred for c in outs[0]] == [c.pred for c in outs[1]]
+
+
+def test_a_reference_artifact_serves_the_reference_engines_bits(tmp_path):
+    rspec = RModelSpec("edge_tiny@jnp", R_EDGE_TINY, backend="jnp",
+                       dataset="uniform")
+    rreg = RModelRegistry({rspec.model_id: rspec})
+    path = rreg.export(rspec.model_id, tmp_path)["paths"]["capsbin"]
+    rreg.install_artifact(path, model_id="shipped")
+    images = rspec.images(7, seed=4)
+    rengine = RCapsServeEngine(rreg, buckets=BUCKETS)
+    rengine.submit_many(images, "shipped")
+    rdone = rengine.drain()
+
+    reg = ModelRegistry({}, device="cpu")
+    reg.install_artifact(path, model_id="shipped")
+    engine = CapsServeEngine(reg, buckets=BUCKETS)
+    engine.submit_many(images, "shipped")
+    done = engine.drain()
+    np.testing.assert_array_equal(np.stack([c.v_q for c in done]),
+                                  np.stack([c.v_q for c in rdone]))
+    assert [c.pred for c in done] == [c.pred for c in rdone]
