@@ -3,9 +3,16 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --device-times   # phase 1 and phase 8's times
+    python3 chip_smoke.py --forward-pairs PARENT_TREE
 
 (`--device-times` runs on an older tree too: copy this script into a
-`git archive` of it to time its kernels in the same call.)
+`git archive` of it to time its kernels in the same call.
+`--forward-pairs` copies this script into PARENT_TREE, an unpacked
+`git archive` of another commit, starts two `--forward-worker`
+processes in each tree, and times the untraced B=64 forward_q7 of all
+four in 40 rounds of 50 calls each, printing each side's median and the
+median per-round difference beside its quartiles and beside the
+difference between the two workers of one side.)
 
 Phases, each raising on failure:
 
@@ -18,7 +25,10 @@ Phases, each raising on failure:
    [B, 10, 1024, 6] for every bucket B at the wrapper's cluster size and
    at every size a caller may force, and on a sweep of 40 shift tables
    over [-31, 31] at the wrapper's cluster size and at a forced one (most
-   not dividing I), both roundings;
+   not dividing I), both roundings; squash_q7 at D up to 32 and routing_q7
+   at capsule dims 18, 20 and 32 and at 9 and 16 iterations, every
+   cluster size, u_hat staged in shared memory and read from global
+   memory, and on [2, 10, 40000, 6], whose slices no CTA can stage;
 3. the main path: `ModelRegistry` builds `mnist@cuda` by lazy PTQ on the
    card (its calibration stats held within rtol 1e-4 of the same params'
    CPU stats), serves 128 requests in one burst and 128 more in groups
@@ -81,7 +91,32 @@ Phases, each raising on failure:
    the call launches (transpose, product, split-K reduction), beside
    torch._int_mm's device time at the same shapes; squash_float at every
    phase-6 shape, summed the same way, beside its bound and the device
-   time of an empty kernel (the launch floor).
+   time of an empty kernel (the launch floor);
+9. (run between phases 7 and 8, since a torch.profiler session slows
+   the later launches of its process) observability (repro_torch.obs):
+   phase 3's request stream of
+   `mnist@cuda` again through one engine under a tracer and a numerics
+   probe, every completion equal to phase 3's, one `serve.wave` span per
+   wave with `serve.bucket`, `serve.compile`, `serve.execute` and
+   `serve.complete` under it, one `serve.enqueue` per request, every
+   request's timeline rebuilt by `obs.analyze`, 0 int32 clips, and the
+   wave breakdown (queue, compile, execute ms per bucket) printed;
+   `serve_caps --model mnist@cuda --trace --trace-summary --metrics-out
+   --numerics-out --profile` into build/obs_smoke/ with kernel launches
+   > 0, its trace, metrics and numerics doc read back by
+   `python -m repro_torch.obs.analyze` (`--gate-clips`), the doc holding
+   0 int32 clips and contained in the static bounds; `export_caps
+   --model mnist@cuda --numerics --drift` exits 0 and `costmodel_drift`
+   joins every op; 16 requests each of `edge_tiny@cuda` with
+   pcap_dim=18, caps_dim=20 and routings=9 (past the kernels' former
+   limits of capsule dim 16 and 8 iterations) bit-identical to the
+   `torch` backend, both kernels launched for each and no fallback
+   counted; the untraced, unprobed B=64 forward_q7 (7 x 50 calls)
+   beside a probed one, and untraced beside traced serving img/s in
+   turns; and the card's busy share of an untraced 128-request window
+   over 5 pairs of windows, one unprofiled and one under torch.profiler:
+   the union of the profiled window's CUDA kernel intervals over the
+   paired unprofiled window's wall and over its own.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -94,6 +129,7 @@ import dataclasses
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -146,6 +182,7 @@ SQUASH_FLOAT_VIEW = ((64 * 1024, 5), "float32")
 # whole call is timed; its first rows are checked)
 SQUASH_FLOAT_CHECK_ROWS = 4096
 EDGE_DIR = ROOT / "build" / "edge_smoke"
+OBS_DIR = ROOT / "build" / "obs_smoke"
 
 
 def log(*a):
@@ -223,6 +260,11 @@ def device_ms(fn, kernel: str | None, calls: int = 50, warmup: int = 5,
 MNIST_LIKE = dict(num_iters=3, caps_out_shifts=(8, 8, 9),
                   caps_out_fracs=(7, 7, 6), agree_shifts=(8, 8), logit_frac=7)
 MNIST_ROUTING = (10, 1024, 6)              # (J, I, O) of mnist@cuda
+SQUASH_DIMS = (1, 6, 16, 17, 18, 20, 32)   # squash_q7 widths checked
+# ((B, J, I, O), iterations): past the former limits of 16 and 8
+WIDE_ROUTING = (((3, 7, 33, 32), 16), ((2, 5, 64, 20), 9),
+                ((4, 10, 72, 18), 3), ((4, 4, 16, 4), 16))
+UNSTAGED_ROUTING = (2, 10, 40_000, 6)      # no slice fits shared memory
 # kernel name (as the profiler shows it) of each main-path wrapper; the
 # library kernels are timed over every kernel their call launches
 KERNEL_NAMES = {"routing_q7": "routing_q7", "squash_q7": "squash_q7"}
@@ -391,15 +433,16 @@ def check_kernels(dev) -> dict:
             ks.squash_q7_plain(s_dev, in_frac=in_frac)))
         require_equal(f"squash_q7 in_frac={in_frac} vs plain on cpu", got,
                       ks.squash_q7_plain(s, in_frac=in_frac))
-    for D in (1, 6, 16):
+    for D in SQUASH_DIMS:
         s16 = i8((4096, D))
         got = ks.squash_q7(s16.to(dev), in_frac=5, out_frac=6)
         require_equal(f"squash_q7 D={D}", got,
                       ks.squash_q7_plain(s16, in_frac=5, out_frac=6))
     n_neg = check_isqrt(dev, g)
     log(f"[kernels] squash_q7 bit-exact for in_frac 0..12 on "
-        f"{tuple(s.shape)}, D 1/6/16; device isqrt equal to isqrt_newton "
-        f"on every n in [0, 2^31 - 1] and on {n_neg} negative n")
+        f"{tuple(s.shape)}, D {SQUASH_DIMS}; device isqrt equal to "
+        f"isqrt_newton on every n in [0, 2^31 - 1] and on {n_neg} "
+        f"negative n")
 
     u = i8((B_TIMED,) + MNIST_ROUTING)
     u_dev = u.to(dev)
@@ -458,6 +501,42 @@ def check_kernels(dev) -> dict:
         f"and on {sweep} random shift tables over [-31, 31], each at the "
         f"wrapper's cluster size and a forced one ((I, cs): "
         f"{sorted(forced)})")
+
+    # capsule dims above 16 and more than 8 iterations (up to the kernel's
+    # 32 and 16), each slice staged and read from global memory, every
+    # cluster size; then a slice too large to stage at 8 CTAs
+    for (B, J, I, O), r in WIDE_ROUTING:
+        u = i8((B, J, I, O))
+        kw = dict(num_iters=r,
+                  caps_out_shifts=tuple(torch.randint(
+                      -31, 32, (r,), generator=g).tolist()),
+                  caps_out_fracs=tuple(torch.randint(
+                      0, 13, (r,), generator=g).tolist()),
+                  agree_shifts=tuple(torch.randint(
+                      -31, 32, (r - 1,), generator=g).tolist()),
+                  logit_frac=int(torch.randint(-3, 8, (1,), generator=g)))
+        for rounding in ROUNDINGS:
+            want = kr.routing_q7_plain(u, rounding=rounding, **kw)
+            for cs in (None,) + tuple(range(1, min(I, kr.MAX_CLUSTER) + 1)):
+                for stage in (None, True, False):
+                    err["routing_q7"] = max(err["routing_q7"], require_equal(
+                        f"routing_q7 {(B, J, I, O)} r={r} cs={cs} "
+                        f"stage={stage} {rounding}",
+                        kr.routing_q7(u.to(dev), rounding=rounding, cs=cs,
+                                      stage=stage, **kw), want))
+    B, J, I, O = UNSTAGED_ROUTING
+    if kr.stages(J, I, O, kr.cluster_size(B, J, I, O)):
+        raise AssertionError(f"{UNSTAGED_ROUTING} was expected unstaged")
+    u = i8(UNSTAGED_ROUTING)
+    for rounding in ROUNDINGS:
+        err["routing_q7"] = max(err["routing_q7"], require_equal(
+            f"routing_q7 {UNSTAGED_ROUTING} unstaged {rounding}",
+            kr.routing_q7(u.to(dev), rounding=rounding, **MNIST_LIKE),
+            kr.routing_q7_plain(u, rounding=rounding, **MNIST_LIKE)))
+    log(f"[kernels] routing_q7 bit-exact on {WIDE_ROUTING} ((B, J, I, O), "
+        f"iterations) at every cluster size, u_hat staged and unstaged, "
+        f"and on {UNSTAGED_ROUTING} (cluster size "
+        f"{kr.cluster_size(B, J, I, O)}, u_hat unstaged), both roundings")
     return err
 
 
@@ -641,6 +720,384 @@ def serve_artifact(run, dev) -> dict:
         f"a copy with conv0's out_shift at 45: exit 1 (refused)")
     return dict(engine=engine, launches=launches, registry=reg,
                 model_id=program.name)
+
+
+
+# ---------------------------------------------------------------------------
+# phase 9: observability (repro_torch.obs) on the main path
+# ---------------------------------------------------------------------------
+WAVE_CHILDREN = ["serve.bucket", "serve.compile", "serve.execute",
+                 "serve.complete"]
+GEOMETRY_EDITS = (dict(pcap_dim=18), dict(caps_dim=20), dict(routings=9))
+FORWARD_REPEATS = 7                # forward_q7 timings of 50 calls each
+FORWARD_ROUNDS = 40                # --forward-pairs rounds, 50 calls a side
+SERVE_PAIRS = 8                    # untraced / traced serving windows
+BUSY_WINDOWS = 5                   # window pairs (unprofiled, profiled)
+
+
+def serve_stream(reg, mid: str, images) -> tuple:
+    """Phase 3's request stream (a burst of N_REQUESTS, then the groups
+    that fill every bucket) through ONE engine, so request ids run over
+    the whole stream.  Returns (engine, completions)."""
+    from repro_torch.serving import CapsServeEngine
+    engine = CapsServeEngine(reg, buckets=BUCKETS)
+    engine.submit_many(images[:N_REQUESTS], mid)
+    done = engine.drain()
+    start = N_REQUESTS
+    for n in (1, 3, 4, 13, 16, 40, 51):
+        engine.submit_many(images[start:start + n], mid)
+        done.extend(engine.drain())
+        start += n
+    return engine, done
+
+
+def traced_serving(run, card: str) -> dict:
+    """The main path's stream again under a tracer and a numerics probe:
+    the same completions, the reference's span tree, every request's
+    timeline rebuilt by the analyzer."""
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.obs import analyze
+    from repro_torch.obs import numerics as nh
+    reg, mid = run["registry"], run["spec"].model_id
+    tracer, probe = obs.Tracer(), nh.NumericsProbe()
+    with obs.tracing(tracer), nh.probing(probe):
+        _, done = serve_stream(reg, mid, run["images"])
+    want = {c.rid: c for c in run["completions"]}
+    if sorted(c.rid for c in done) != sorted(want):
+        raise AssertionError("the traced stream served other requests")
+    for c in done:
+        w = want[c.rid]
+        if not np.array_equal(c.v_q, w.v_q) or c.pred != w.pred \
+                or c.bucket != w.bucket:
+            raise AssertionError(f"traced request {c.rid} differs from "
+                                 f"phase 3's")
+    waves = tracer.find("serve.wave")
+    n_waves = len({c.wave for c in done})
+    if len(waves) != n_waves or any(
+            [k.name for k in w.children] != WAVE_CHILDREN for w in waves):
+        raise AssertionError(f"{len(waves)} serve.wave spans for {n_waves} "
+                             f"waves, or a wave without {WAVE_CHILDREN}")
+    if len(tracer.find("serve.enqueue")) != len(done):
+        raise AssertionError("not one serve.enqueue per request")
+    report = analyze.analyze(tracer)
+    rebuilt = [r for r in report["requests"] if "e2e_s" in r]
+    if sorted(r["req_id"] for r in rebuilt) != sorted(want):
+        raise AssertionError(f"the analyzer rebuilt {len(rebuilt)} of "
+                             f"{len(done)} request timelines")
+    rows = probe.rows()
+    clips = sum(r.get("int32_clip", 0) for r in rows)
+    if clips or {r["op"] for r in rows} != {"conv0", "pcap", "caps"}:
+        raise AssertionError(f"probe rows: {len(rows)}, int32 clips {clips}")
+    log(f"[obs] {card} | {mid}: {len(done)} requests traced and probed, "
+        f"bit-identical to phase 3; {len(waves)} serve.wave spans with "
+        f"{WAVE_CHILDREN} under each, {len(done)} serve.enqueue; the "
+        f"analyzer rebuilt {len(rebuilt)} timelines; {len(rows)} probe "
+        f"rows, 0 int32 clips")
+    for b in report["breakdown"]:
+        log(f"[obs] {card} | wave breakdown {b['model']} bucket "
+            f"{b['bucket']}: {b['waves']} waves, {b['images']} images, "
+            f"queue {b['queue_s'] * 1e3:.3f} ms (summed over the "
+            f"requests), compile {b['compile_s'] * 1e3:.3f} ms, execute "
+            f"{b['execute_s'] * 1e3:.3f} ms (summed over the waves)")
+    return report
+
+
+def obs_clis(run, dev, card: str) -> None:
+    """serve_caps and export_caps with every observability flag, into
+    build/obs_smoke/, read back by the analyzer."""
+    from repro_torch.edge import EdgeProgram, EdgeVM, lower
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.launch import export_caps, serve_caps
+    from repro_torch.obs import analyze
+    from repro_torch.obs import numerics as nh
+    shutil.rmtree(OBS_DIR, ignore_errors=True)
+    out = {k: OBS_DIR / f"{k}.json" for k in ("trace", "metrics",
+                                             "numerics")}
+    ks.squash_q7.launches = 0
+    kr.routing_q7.launches = 0
+    rc = serve_caps.main(["--model", "mnist@cuda", "--requests",
+                          str(N_REQUESTS), "--trace", str(out["trace"]),
+                          "--trace-summary", "--metrics-out",
+                          str(out["metrics"]), "--numerics-out",
+                          str(out["numerics"]), "--profile"])
+    launches = {"squash_q7": ks.squash_q7.launches,
+                "routing_q7": kr.routing_q7.launches}
+    if rc != 0 or min(launches.values()) == 0:
+        raise AssertionError(f"serve_caps with the obs flags: exit {rc}, "
+                             f"launches {launches}")
+    if analyze.main([str(out["trace"]), "--metrics",
+                     str(out["metrics"])]) != 0 or \
+            analyze.main([str(out["numerics"]), "--gate-clips"]) != 0:
+        raise AssertionError("repro_torch.obs.analyze refused the run's "
+                             "trace, metrics or numerics doc")
+    report = nh.NumericsReport.from_doc(json.loads(
+        out["numerics"].read_text()))
+    findings = nh.check_containment(lower(run["qnet"]), report)
+    if report.total_int32_clip() or findings:
+        raise AssertionError(f"numerics: {report.total_int32_clip()} int32 "
+                             f"clips, findings {findings}")
+    log(f"[obs] {card} | serve_caps --model mnist@cuda --requests "
+        f"{N_REQUESTS} --trace --trace-summary --metrics-out --numerics-out "
+        f"--profile: exit 0, launches {launches}; obs.analyze read the "
+        f"trace, the metrics and the numerics doc (0 int32 clips, "
+        f"contained, min SNR {report.min_snr_db():.2f} dB)")
+
+    rc = export_caps.main(["--model", "mnist@cuda", "--out",
+                           str(OBS_DIR / "export"), "--numerics",
+                           "--drift"])
+    if rc != 0:
+        raise AssertionError(f"export_caps --numerics --drift: exit {rc}")
+    program = EdgeProgram.load(OBS_DIR / "export" / "mnist_cuda.capsbin")
+    vm = EdgeVM(program)
+    x_q = vm.quantize_input(run["spec"].images(8, seed=0))
+    rows: list = []
+    vm.run(x_q, profile=rows)
+    drift = analyze.costmodel_drift(program, rows, batch=8)
+    if drift["coverage"] != 1.0 or drift["unmatched"]:
+        raise AssertionError(f"costmodel_drift joined {drift['n_joined']} "
+                             f"of {drift['n_ops']} ops")
+    log(f"[obs] export_caps --model mnist@cuda --numerics --drift: exit 0; "
+        f"costmodel_drift joins {drift['n_joined']} of {drift['n_ops']} ops")
+
+
+def serve_widened_geometries(dev, card: str) -> dict:
+    """edge_tiny@cuda at the geometries the kernels took only once widened
+    (capsule dim above 16, more than 8 iterations), each against the
+    torch backend, through both kernels and with no fallback counted."""
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.nn.config import EDGE_TINY
+    fallbacks = dict(get_backend("cuda").fallbacks)
+    counts = {}
+    for edit in GEOMETRY_EDITS:
+        ks.squash_q7.launches = 0
+        kr.routing_q7.launches = 0
+        serve_other(dev, "edge_tiny@cuda",
+                    config=dataclasses.replace(EDGE_TINY, **edit))
+        counts[str(edit)] = {"squash_q7": ks.squash_q7.launches,
+                             "routing_q7": kr.routing_q7.launches}
+        if min(counts[str(edit)].values()) == 0:
+            raise AssertionError(f"edge_tiny@cuda {edit}: a kernel was not "
+                                 f"launched: {counts[str(edit)]}")
+    if dict(get_backend("cuda").fallbacks) != fallbacks:
+        raise AssertionError(f"the widened geometries fell back: "
+                             f"{dict(get_backend('cuda').fallbacks)}")
+    log(f"[obs] {card} | edge_tiny@cuda at {GEOMETRY_EDITS}: {N_OTHER} "
+        f"requests each bit-identical to the torch backend, through the "
+        f"kernels (launches {counts}), no fallback counted")
+    return counts
+
+
+def forward_ms(qnet, xq) -> list:
+    """FORWARD_REPEATS timings of the untraced, unprobed forward_q7 (mean
+    of 50 calls each, CUDA events), as phase 7 times it."""
+    import torch
+    with torch.inference_mode():
+        return [cuda_ms(lambda: qnet.forward(xq), iters=50)
+                for _ in range(FORWARD_REPEATS)]
+
+
+def forward_worker(dev) -> None:
+    """`--forward-worker`: build mnist@cuda and its B=64 input with only
+    the API every tree of the port has (so a parent's tree runs this
+    script copied into it), print "[worker] ready", then answer each
+    line of standard input with one timing of 50 untraced, unprobed
+    forward_q7 calls ("[worker] ms T") until the input ends."""
+    import torch
+    from repro_torch.serving import ModelRegistry
+    reg = ModelRegistry(device=dev)
+    spec = reg.specs["mnist@cuda"]
+    qnet = reg.model("mnist@cuda")
+    x = torch.as_tensor(spec.images(2 * N_REQUESTS, SEED)[:B_TIMED]).to(dev)
+    with torch.inference_mode():
+        xq = qnet.quantize_input(x)
+        cuda_ms(lambda: qnet.forward(xq), iters=50)
+    log("[worker] ready")
+    for _ in sys.stdin:
+        with torch.inference_mode():
+            log(f"[worker] ms {cuda_ms(lambda: qnet.forward(xq), iters=50)!r}")
+
+
+def forward_pairs(parent: Path, card: str) -> dict:
+    """`--forward-pairs PARENT`: this tree's and PARENT's B=64 forward_q7
+    in four live worker processes, started in the order parent, change,
+    change, parent (so neither side owns the first process), each timed
+    once a round for FORWARD_ROUNDS rounds, the order rotating by round.
+    Reports each side's median, the median per-round difference (mean
+    of the change's two workers less the parent's) beside its quartiles,
+    and the same for the two workers of each side, the noise between
+    processes that run the same code.  Every worker is stopped before it
+    returns."""
+    shutil.copy(Path(__file__), parent / "chip_smoke.py")
+    order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+             ("parent", parent)]
+    procs = []
+
+    def start(side: str, tree: Path):
+        p = subprocess.Popen(
+            [sys.executable, str(tree / "chip_smoke.py"), "--forward-worker"],
+            cwd=tree, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            text=True, bufsize=1)
+        procs.append((side, p))
+        for line in p.stdout:
+            if line.startswith("[worker] ready"):
+                return
+        raise AssertionError(f"a {side} worker ended before it was ready "
+                             f"(exit {p.wait()})")
+
+    ms = [[] for _ in order]
+    try:
+        for side, tree in order:        # one at a time: one build a tree
+            start(side, tree)
+        for rnd in range(FORWARD_ROUNDS):
+            for k in range(len(order)):
+                w = (k + rnd) % len(order)
+                side, p = procs[w]
+                p.stdin.write("time\n")
+                line = p.stdout.readline()
+                if not line.startswith("[worker] ms "):
+                    raise AssertionError(f"a {side} worker answered {line!r}")
+                ms[w].append(float(line.split()[-1]))
+    finally:
+        for _, p in procs:
+            p.stdin.close()
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    def spread(name: str, d: list) -> str:
+        q = statistics.quantiles(d, n=4)
+        return (f"{name}: median {statistics.median(d):+.4f} ms, quartiles "
+                f"{q[0]:+.4f} to {q[2]:+.4f}, negative in "
+                f"{sum(x < 0 for x in d)} of {len(d)} rounds")
+
+    diff = [(c1 + c2 - p1 - p2) / 2
+            for p1, c1, c2, p2 in zip(*ms)]
+    within = {"parent 1st - 4th": [a - b for a, b in zip(ms[0], ms[3])],
+              "change 2nd - 3rd": [a - b for a, b in zip(ms[1], ms[2])]}
+    sides = {s: statistics.median(ms[0] + ms[3] if s == "parent"
+                                  else ms[1] + ms[2])
+             for s in ("parent", "change")}
+    for w, (side, _) in enumerate(procs):
+        log(f"[forward] {card} | worker {w + 1} ({side}): "
+            + ", ".join(f"{t:.4f}" for t in ms[w]) + " ms")
+    log(f"[forward] {card} | mnist@cuda B={B_TIMED} forward_q7, untraced and "
+        f"unprobed, 50 calls a timing, {FORWARD_ROUNDS} rounds: medians "
+        f"parent {sides['parent']:.4f} ms, change {sides['change']:.4f} ms; "
+        + spread("change - parent", diff) + "; "
+        + "; ".join(spread(k, d) for k, d in within.items()))
+    return dict(ms=ms, diff=diff, within=within)
+
+
+def probes_off_times(run, dev, card: str) -> dict:
+    """The untraced forward_q7 beside a probed one, and the untraced
+    serving window's img/s beside a traced one's, in turns."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.obs import numerics as nh
+    from repro_torch.serving import serve_window
+    qnet, mid = run["qnet"], run["spec"].model_id
+    x = torch.as_tensor(run["images"][:B_TIMED]).to(dev)
+    with torch.inference_mode():
+        xq = qnet.quantize_input(x)
+    off = forward_ms(qnet, xq)
+    with nh.probing(nh.NumericsProbe()), torch.inference_mode():
+        probed = cuda_ms(lambda: qnet.forward(xq), iters=5)
+    log(f"[obs] {card} | mnist@cuda B={B_TIMED} forward_q7 with probes and "
+        f"tracer off, {FORWARD_REPEATS} x 50 calls: "
+        + ", ".join(f"{t:.4f}" for t in off)
+        + f" ms; with a numerics probe on: {probed:.4f} ms")
+    rates = {"untraced": [], "traced": []}
+    for _ in range(SERVE_PAIRS):
+        for what in rates:
+            tracer = obs.Tracer() if what == "traced" else None
+            with obs.tracing(tracer):
+                eng, _, _ = serve_window(run["registry"], BUCKETS,
+                                         run["images"][:N_REQUESTS], mid)
+            rates[what].append(eng.metrics.summary()["images_per_s"])
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"[obs] {card} | {mid} serving {N_REQUESTS} requests, img/s in "
+        f"{SERVE_PAIRS} turns: untraced "
+        + ", ".join(f"{r:.1f}" for r in rates["untraced"])
+        + "; traced " + ", ".join(f"{r:.1f}" for r in rates["traced"])
+        + f"; medians {med['untraced']:.1f} and {med['traced']:.1f}")
+    return dict(forward_ms=off, probed_ms=probed, rates=rates)
+
+
+def busy_share(run, card: str) -> dict:
+    """The card's busy share of an untraced serving window (submit ->
+    drained, on a warm engine), from BUSY_WINDOWS pairs of windows: an
+    unprofiled one, then one under torch.profiler (CUDA activity only).
+    The union of the profiled window's kernel intervals is taken over
+    its own wall ("same window": the profiler slows the host, so this
+    understates the share) and over the wall of the unprofiled window
+    just before it ("paired"): the kernels run on one stream, so the
+    union is the sum of their durations, which the host's speed does
+    not change; the unions' spread across the pairs checks that."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import CapsServeEngine
+    reg, mid = run["registry"], run["spec"].model_id
+    images = run["images"][:N_REQUESTS]
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    path = OBS_DIR / "serve_window_profile.json"
+
+    def warm_engine():
+        engine = CapsServeEngine(reg, buckets=BUCKETS)
+        engine.warmup(mid)
+        torch.cuda.synchronize()
+        return engine
+
+    def window(engine) -> float:
+        t0 = time.perf_counter()
+        engine.submit_many(images, mid)
+        if len(engine.drain()) != N_REQUESTS:
+            raise AssertionError(f"a window served fewer than {N_REQUESTS}")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6
+
+    def union(trace: Path) -> tuple:
+        kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in
+                         json.loads(trace.read_text())["traceEvents"]
+                         if e.get("cat") == "kernel")
+        if not kernels:
+            raise AssertionError("the profiler saw no kernel in the window")
+        busy, end = 0.0, kernels[0][0]
+        for a, b in kernels:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy, len(kernels)
+
+    pairs = []
+    for _ in range(BUSY_WINDOWS):
+        plain_us = window(warm_engine())
+        engine = warm_engine()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            profiled_us = window(engine)
+        prof.export_chrome_trace(str(path))
+        busy, n = union(path)
+        pairs.append(dict(plain_us=plain_us, profiled_us=profiled_us,
+                          busy_us=busy, kernels=n))
+    same = statistics.median(p["busy_us"] / p["profiled_us"] for p in pairs)
+    paired = statistics.median(p["busy_us"] / p["plain_us"] for p in pairs)
+    unions = [p["busy_us"] / 1e3 for p in pairs]
+    log(f"[obs] {card} | busy share of an untraced {N_REQUESTS}-request "
+        f"{mid} window (submit -> drained, warm engine), {BUSY_WINDOWS} "
+        f"pairs (unprofiled wall ms, profiled wall ms, kernel union ms, "
+        f"kernels): " + "; ".join(
+            f"{p['plain_us'] / 1e3:.3f}, {p['profiled_us'] / 1e3:.3f}, "
+            f"{p['busy_us'] / 1e3:.3f}, {p['kernels']}" for p in pairs)
+        + f"; union spread {min(unions):.3f}-{max(unions):.3f} ms; median "
+        f"share paired {paired * 100:.2f} % busy "
+        f"({(1 - paired) * 100:.2f} % idle), same window "
+        f"{same * 100:.2f} % busy")
+    return dict(paired=paired, same_window=same, pairs=pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -1094,8 +1551,10 @@ def log_device_times(card: str, dt: dict) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--device-times"]):
-        print("usage: chip_smoke.py [--device-times]", file=sys.stderr)
+    if argv not in ([], ["--device-times"], ["--forward-worker"]) and (
+            len(argv) != 2 or argv[0] != "--forward-pairs"):
+        print("usage: chip_smoke.py [--device-times | --forward-pairs "
+              "PARENT_TREE]", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not next to this script "
@@ -1109,6 +1568,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--forward-pairs"]:
+        card = card_line()
+        forward_pairs(Path(argv[1]).resolve(), card)
+        log(card)
+        return 0
     from repro_torch.kernels import build
     from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import routing as kr
@@ -1141,6 +1605,9 @@ def main(argv=None) -> int:
         log_device_times(card, dt)
         log(card)
         log(json.dumps({"device_times": dt}))
+        return 0
+    if argv == ["--forward-worker"]:
+        forward_worker(dev)
         return 0
 
     for name in ("q7_matmul", "w8a8_matmul"):
@@ -1265,6 +1732,14 @@ def main(argv=None) -> int:
             f"library_ms is null")
 
     times.update(time_library(dev, card))
+
+    # phase 9, before phase 8: a torch.profiler session leaves the later
+    # launches of the process slower, and phase 9 times the host's path
+    traced_serving(run, card)
+    obs_clis(run, dev, card)
+    serve_widened_geometries(dev, card)
+    probes_off_times(run, dev, card)
+    busy_share(run, card)
 
     # phase 8: device times from the profiler, and each cluster size
     dt = device_times(dev)

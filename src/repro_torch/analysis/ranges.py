@@ -20,8 +20,9 @@ attr `edge.lower` records and the EdgeVM asserts: `analyze()` returns
 (bounds, diagnostics) and `annotate_acc_bounds()` stamps the bounds
 onto a program.  The module deliberately imports nothing from
 `repro_torch.edge` — it walks any program-shaped object — so `lower()`
-can call it without an import cycle.  The reference's `requant_bounds`,
-which only its numerics probe reads, waits for that probe's port.
+can call it without an import cycle.  `requant_bounds` gives the numerics
+probe (`repro_torch.obs.numerics.check_containment`) the static bound of
+every requantization point it observes.
 
 The "precise" softmax variant is float by design (see nn.variants);
 its integer-softmax checks are skipped, as for unregistered variant
@@ -300,6 +301,46 @@ def analyze(program):
             continue                # program; stay total regardless
         iv[op.output] = out_iv
     return bounds, diags
+
+
+def requant_bounds(program):
+    """-> (sites, out_ivs): the static bound for every requantization
+    point the EdgeVM has, keyed exactly like the runtime numerics probe
+    labels them (`repro_torch.obs.numerics`), so observed and proven can be
+    joined row-for-row.
+
+    `sites` maps (op_index, site) -> worst-case |int32 accumulator|
+    entering that requantization (pre-half-add, like the probe's
+    `acc_peak`): conv/primary-caps `"out"` is `max(conv_acc_bounds)`
+    (== the `acc_bound` attr), routing has `"uhat"`, per-iteration
+    `"s[r]"`, and `"agree[r]"` for all but the last iteration.
+    `out_ivs` maps op_index -> the op's static int8 output interval.
+    Walks the same interval chain as `analyze()`."""
+    iv = {0: _INT8}
+    sites: dict = {}
+    out_ivs: dict = {}
+    for i, op in enumerate(program.ops):
+        x_iv = iv[op.inputs[0]]
+        a = op.attrs
+        if op.kind in ("CONV_Q7", "PRIMARY_CAPS_Q7"):
+            sites[(i, "out")] = max(conv_acc_bounds(op, x_iv))
+            out_iv = (0, 127) if op.kind == "CONV_Q7" and a.get("relu") \
+                else _INT8
+        elif op.kind == "CAPS_ROUTING_Q7":
+            wsum = np.abs(op.weights["W"].astype(np.int64)).sum(axis=3)
+            sites[(i, "uhat")] = int(wsum.max()) * _xmax(x_iv)
+            uhat_max = 128          # |sat8| after the u_hat requant
+            for r in range(a["routings"]):
+                sites[(i, f"s[{r}]")] = a["num_in"] * 127 * uhat_max
+                if r < a["routings"] - 1:
+                    sites[(i, f"agree[{r}]")] = \
+                        a["out_dim"] * uhat_max * 128
+            out_iv = _INT8
+        else:
+            continue
+        out_ivs[i] = out_iv
+        iv[op.output] = out_iv
+    return sites, out_ivs
 
 
 def check_ranges(program) -> list:

@@ -17,15 +17,23 @@ beyond-paper "precise" softmax variant, which uses float32 like its
 torch counterpart and is therefore matched in value but not guaranteed
 to the last bit.
 
-The reference's numerics-probe hooks, its tracer spans and its per-op
-`profile` rows are not carried: they come with the port of its
-observability layer.
+With a numerics probe installed (repro_torch.obs.numerics) each op
+reports its requantizations (`out`, `uhat`, `s[r]`, `agree[r]`, the
+sites `analysis.ranges.requant_bounds` names) and its output; with a
+tracer installed the run is one `edgevm.run` span over an
+`edgevm.<op>` span per op; `run(profile=rows)` records each op's host
+wall time.  All of it observes only, and with none of it the plain loop
+runs.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.edge.program import EdgeOp, EdgeProgram
+from repro_torch.obs import numerics as _health
 from repro_torch.nn.variants import REGISTRY as _VARIANTS
 
 INT8_MIN, INT8_MAX = -128, 127
@@ -102,6 +110,10 @@ def _run_conv(op: EdgeOp, x, rounding: str, relu_override=None):
             else np.right_shift(bias, -bs)
     acc = acc + bias
     _assert_acc_bound(op, acc)
+    if _health._PROBE is not None:     # pure observer — never alters acc
+        _health._PROBE.observe_requant(
+            acc, a.get("out_shift_per_channel") or a["out_shift"],
+            rounding, site="out", bound=a.get("acc_bound"))
     if a.get("out_shift_per_channel"):
         y = _rshift_sat8_vec(acc, a["out_shift_per_channel"], rounding)
     else:
@@ -145,8 +157,13 @@ def _run_routing(op: EdgeOp, u, rounding: str):
         # [B,J,I,O], so the length-J table must broadcast on axis 1
         sh = np.asarray(a["uhat_shift_per_out"], np.int32)[None, :, None,
                                                            None]
+        if _health._PROBE is not None:
+            _health._PROBE.observe_requant(acc, sh, rounding, site="uhat")
         u_hat = _rshift_sat8_vec(acc, sh, rounding)
     else:
+        if _health._PROBE is not None:
+            _health._PROBE.observe_requant(acc, a["uhat_shift"], rounding,
+                                           site="uhat")
         u_hat = _rshift_sat8(acc, a["uhat_shift"], rounding)
 
     out_frac = a["squash_out_frac"]
@@ -158,6 +175,9 @@ def _run_routing(op: EdgeOp, u, rounding: str):
         c = softmax(b.swapaxes(1, 2), a["logit_frac"]).swapaxes(1, 2)
         acc = np.einsum("bji,bjio->bjo", c.astype(np.int32),
                         u_hat.astype(np.int32), dtype=np.int32)
+        if _health._PROBE is not None:
+            _health._PROBE.observe_requant(acc, a["caps_out_shifts"][r],
+                                           rounding, site=f"s[{r}]")
         s_q = _rshift_sat8(acc, a["caps_out_shifts"][r], rounding)
         v = squash(s_q, a["caps_out_fracs"][r], out_frac)
         if r < a["routings"] - 1:
@@ -165,6 +185,10 @@ def _run_routing(op: EdgeOp, u, rounding: str):
                             v.astype(np.int32), dtype=np.int32)
             # agree_shifts assume a Q0.7 squash; compensate plan edits
             # exactly like the torch backend does
+            if _health._PROBE is not None:
+                _health._PROBE.observe_requant(
+                    acc, a["agree_shifts"][r] + out_frac - 7, rounding,
+                    site=f"agree[{r}]")
             agr = _rshift_sat8(acc, a["agree_shifts"][r] + out_frac - 7,
                                rounding)
             b = _add_q7(b, agr)
@@ -186,7 +210,11 @@ class EdgeVM:
 
     `run` accepts a single sample (the program's per-sample input shape)
     or a batch with a leading axis, always as int8 already quantized to
-    the program's input format (use `quantize_input` for floats)."""
+    the program's input format (use `quantize_input` for floats).
+
+    Profile rows carry `op_index` (schedule position) next to name/kind
+    — the join key `repro_torch.obs.analyze.costmodel_drift` uses to line
+    measured rows up against `costmodel.estimate_program` rows."""
 
     def __init__(self, program: EdgeProgram):
         self.program = program
@@ -196,9 +224,16 @@ class EdgeVM:
                      * (2.0 ** self.program.input_frac))
         return np.clip(q, INT8_MIN, INT8_MAX).astype(np.int8)
 
-    def run(self, x_q: np.ndarray, *, trace: dict | None = None):
+    def run(self, x_q: np.ndarray, *, trace: dict | None = None,
+            profile: list | None = None):
         """Execute the schedule.  `trace` captures every intermediate
-        activation by op name (tests use it to pin per-layer bits)."""
+        activation by op name (tests use it to pin per-layer bits).
+        `profile` appends one {"op_index", "name", "kind", "wall_s"} row
+        per op — the measured host-side counterpart of the static
+        `costmodel` estimate.  Both are pure observation: the op loop
+        computes identical bits with or without them, and when neither
+        is requested (and no probe or tracer is installed) the plain
+        loop runs untouched."""
         p = self.program
         x_q = np.asarray(x_q)
         if x_q.dtype != np.int8:
@@ -209,8 +244,25 @@ class EdgeVM:
         if h.shape[1:] != p.input_tensor.shape:
             raise ValueError(f"input shape {x_q.shape} does not match "
                              f"program input {p.input_tensor.shape}")
-        for op in p.ops:
-            h = _RUNNERS[op.kind](op, h, p.rounding)
-            if trace is not None:
-                trace[op.name] = h
+        probe = _health._PROBE
+        if trace is None and profile is None and probe is None \
+                and obs.get_tracer() is None:
+            for op in p.ops:                     # hot path: zero obs cost
+                h = _RUNNERS[op.kind](op, h, p.rounding)
+            return h[0] if squeeze else h
+        with obs.span("edgevm.run", program=p.name, batch=h.shape[0]):
+            for i, op in enumerate(p.ops):
+                if probe is not None:
+                    probe.begin_op(i, op.name, op.kind)
+                with obs.span(f"edgevm.{op.name}", kind=op.kind):
+                    t0 = time.perf_counter()
+                    h = _RUNNERS[op.kind](op, h, p.rounding)
+                    wall = time.perf_counter() - t0
+                if probe is not None:
+                    probe.observe_output(h, frac=p.tensor(op.output).frac)
+                if profile is not None:
+                    profile.append({"op_index": i, "name": op.name,
+                                    "kind": op.kind, "wall_s": wall})
+                if trace is not None:
+                    trace[op.name] = h
         return h[0] if squeeze else h

@@ -23,7 +23,7 @@ constexpr int kInt8Min = -128;
 constexpr int kInt8Max = 127;
 constexpr int kSquashGuardBits = 10;   // int8_ops.SQUASH_GUARD_BITS
 constexpr int kExpFloor = -20;         // int8_ops.EXP_FLOOR
-constexpr int kMaxDim = 16;            // capsule dims the kernels take
+constexpr int kMaxDim = 32;            // capsule dims the kernels take
 
 __host__ __device__ __forceinline__ int32_t shl(int32_t a, int32_t s) {
   return static_cast<uint32_t>(s) >= 32u
@@ -80,7 +80,7 @@ __host__ __device__ __forceinline__ int32_t rshift_sat8(int32_t acc,
 // then a correctly rounded sqrt) is within 0.01 of sqrt(n) for n < 2^31,
 // so its truncation is floor(sqrt(n)) or one off where sqrt(n) lies that
 // close to an integer; one step down and one step up, with the squares
-// in 64 bits, make it exact.  On the squash's domain, [0, 16 * 128^2],
+// in 64 bits, make it exact.  On the squash's domain, [0, 32 * 128^2],
 // the truncation alone is already exact.
 __device__ __forceinline__ int32_t isqrt(int32_t n) {
   if (n <= 1) return n;

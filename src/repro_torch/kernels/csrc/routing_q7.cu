@@ -23,7 +23,11 @@
 // once with cp.async (16-byte chunks where the slice allows) while the
 // first softmax runs, and its logits b and couplings c [J, I_k].  The
 // served (J, O) get their own instance, with the loops over j and o
-// unrolled at compile time.
+// unrolled at compile time.  Where a slice of u_hat would not fit in
+// shared memory even at 8 CTAs (a very large I), the general instance
+// reads it from global memory, through L2, on every pass instead of
+// staging it (kStaged = false); only b, c, the partials and v stay in
+// shared memory.
 //
 //   * softmax and agreement are local to the column i, so one thread owns
 //     each column: it adds the agreement of the last v into b[:, i] and
@@ -52,7 +56,7 @@
 
 namespace cg = cooperative_groups;
 
-constexpr int kMaxIters = 8;
+constexpr int kMaxIters = 16;
 
 // The shift tables, passed by pointer to the C entry (routing.py
 // RoutingArgs mirrors it).  At namespace scope: a type of the unnamed
@@ -84,18 +88,18 @@ __host__ __device__ __forceinline__ int slice_begin(int k, int I, int cs) {
 }
 
 // Shared memory of one CTA, sized for the largest slice I_k = ceil(I/cs):
-// u [J][align16(I_k*O)] | b [J*I_k] | c [J*I_k] | 2 partials s [J*O] int32
-// | v [J*O] int32.  Mirrors routing.py routing_smem_bytes.
+// u [J][align16(I_k*O)] (staged only) | b [J*I_k] | c [J*I_k] | 2 partials
+// s [J*O] int32 | v [J*O] int32.  Mirrors routing.py routing_smem_bytes.
 struct Layout {
   size_t u_row, b, c, part, part_stride, v, total;
 };
 
 __host__ __device__ __forceinline__ Layout layout(int J, int I, int O,
-                                                  int cs) {
+                                                  int cs, bool staged) {
   const size_t ik = (static_cast<size_t>(I) + cs - 1) / cs;
   const size_t jo4 = align16(static_cast<size_t>(J) * O * sizeof(int32_t));
   Layout L;
-  L.u_row = align16(ik * O);
+  L.u_row = staged ? align16(ik * O) : 0;
   L.b = J * L.u_row;
   L.c = L.b + align16(J * ik);
   L.part = L.c + align16(J * ik);
@@ -204,8 +208,9 @@ __device__ __forceinline__ void column_step(
 
 // kJ, kO > 0 fix J and O at compile time (the served geometries), so the
 // loops over j and o unroll with no predicated slots; 0 takes them at run
-// time (O <= 16).
-template <int kJ, int kO>
+// time (O <= kMaxDim).  kStaged copies the CTA's u_hat slice into shared
+// memory; otherwise it is read where it lies.
+template <int kJ, int kO, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     routing_q7_kernel(const int8_t* __restrict__ u_hat,
                       int8_t* __restrict__ v_out, int J_arg, int I, int O_arg,
@@ -220,8 +225,7 @@ __global__ void __launch_bounds__(kThreads)
   const int sample = blockIdx.x / cs;
   const int i0 = slice_begin(rank, I, cs);
   const int ik = slice_begin(rank + 1, I, cs) - i0;
-  const Layout L = layout(J, I, O, cs);
-  int8_t* u = reinterpret_cast<int8_t*>(smem);
+  const Layout L = layout(J, I, O, cs, kStaged);
   int8_t* b = reinterpret_cast<int8_t*>(smem + L.b);
   int8_t* c = reinterpret_cast<int8_t*>(smem + L.c);
   int32_t* part = reinterpret_cast<int32_t*>(smem + L.part);
@@ -233,10 +237,18 @@ __global__ void __launch_bounds__(kThreads)
   const bool nearest = args.nearest != 0;
 
   // u_hat slice in flight while the first softmax runs (b = 0 needs no
-  // u_hat); the first partial buffer starts at 0.
+  // u_hat); the first partial buffer starts at 0.  u points at row j = 0
+  // of the slice, u_row bytes a row, in shared or global memory.
   const size_t src_row = static_cast<size_t>(I) * O;
-  stage_slice(u_hat + (static_cast<size_t>(sample) * J * I + i0) * O,
-              src_row, u, L.u_row, J, ik * O, vec);
+  const int8_t* src = u_hat + (static_cast<size_t>(sample) * J * I + i0) * O;
+  const int8_t* u = src;
+  size_t u_row = src_row;
+  if (kStaged) {
+    int8_t* u_s = reinterpret_cast<int8_t*>(smem);
+    stage_slice(src, src_row, u_s, L.u_row, J, ik * O, vec);
+    u = u_s;
+    u_row = L.u_row;
+  }
   for (int k = tid; k < JO; k += kThreads) part[k] = 0;
 
   // (j, part of I_k) units of the partial sum, a multiple of kWarps
@@ -252,9 +264,9 @@ __global__ void __launch_bounds__(kThreads)
     // 1. per column i: agreement into b[:, i], softmax into c[:, i]
     const int agree_shift = r > 0 ? args.agree_shifts[r - 1] : 0;
     for (int i = tid; i < ik; i += kThreads)
-      column_step<kJ, kO>(i, r, J, O, ik, u, L.u_row, b, c, v, agree_shift,
+      column_step<kJ, kO>(i, r, J, O, ik, u, u_row, b, c, v, agree_shift,
                           args.logit_frac, nearest);
-    if (r == 0) cp_async_wait_all();
+    if (kStaged && r == 0) cp_async_wait_all();
     __syncthreads();
 
     // 2. partial s[j, :] += sum over this slice of c[j, i] * u[j, i, :]
@@ -269,7 +281,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int o = 0; o < kSlots; ++o) acc[o] = 0;
       for (int i = lo + lane; i < hi; i += 32) {
         const int32_t cji = c[j * ik + i];
-        const int8_t* ur = u + j * L.u_row + static_cast<size_t>(i) * O;
+        const int8_t* ur = u + j * u_row + static_cast<size_t>(i) * O;
 #pragma unroll
         for (int o = 0; o < kSlots; ++o)
           if (o < O) acc[o] = q7::wadd(acc[o], q7::wmul(cji, ur[o]));
@@ -327,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // Launch one instance: raise its dynamic shared memory limit once per
 // device, then a cs-CTA cluster per sample.
-template <int kJ, int kO>
+template <int kJ, int kO, bool kStaged = true>
 cudaError_t launch(const cudaLaunchConfig_t& cfg, const void* u_hat,
                    void* v, int J, int I, int O, int vec,
                    const RoutingArgs& args) {
@@ -341,13 +353,13 @@ cudaError_t launch(const cudaLaunchConfig_t& cfg, const void* u_hat,
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(routing_q7_kernel<kJ, kO>,
+      err = cudaFuncSetAttribute(routing_q7_kernel<kJ, kO, kStaged>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin);
     if (err != cudaSuccess) return err;
     smem_raised[dev] = true;
   }
-  return cudaLaunchKernelEx(&cfg, routing_q7_kernel<kJ, kO>,
+  return cudaLaunchKernelEx(&cfg, routing_q7_kernel<kJ, kO, kStaged>,
                             static_cast<const int8_t*>(u_hat),
                             static_cast<int8_t*>(v), J, I, O, vec, args);
 }
@@ -355,13 +367,15 @@ cudaError_t launch(const cudaLaunchConfig_t& cfg, const void* u_hat,
 }  // namespace
 
 // C entry point (loaded with ctypes).  `args` holds the shift tables
-// (num_iters entries each, agree_shifts num_iters - 1; num_iters <= 8);
-// cs is the cluster size, 1..8 and at most I.  The kernel's dynamic
-// shared memory limit is raised once per device.  Returns the error of
-// that, of the launch or cudaGetLastError() after it; 0 means the launch
-// was accepted.
+// (num_iters entries each, agree_shifts num_iters - 1; num_iters <=
+// kMaxIters); O is 1..kMaxDim; cs is the cluster size, 1..8 and at most
+// I; staged != 0 copies each CTA's u_hat slice into shared memory (the
+// wrapper decides, from routing_smem_bytes).  The kernel's dynamic shared
+// memory limit is raised once per device.  Returns the error of that, of
+// the launch or cudaGetLastError() after it; 0 means the launch was
+// accepted.
 extern "C" int routing_q7_launch(const void* u_hat, void* v, int B, int J,
-                                 int I, int O, int cs,
+                                 int I, int O, int cs, int staged,
                                  const RoutingArgs* args, void* stream) {
   if (args->num_iters < 1 || args->num_iters > kMaxIters || O < 1 ||
       O > q7::kMaxDim || J < 1 || cs < 1 || cs > kMaxCluster || cs > I)
@@ -371,7 +385,7 @@ extern "C" int routing_q7_launch(const void* u_hat, void* v, int B, int J,
   const uintptr_t base = reinterpret_cast<uintptr_t>(u_hat);
   const size_t row = static_cast<size_t>(I) * O;
   int vec = 16;
-  for (int k = 0; k < cs && vec > 1; ++k) {
+  for (int k = 0; k < cs && vec > 1 && staged; ++k) {
     const size_t start = static_cast<size_t>(slice_begin(k, I, cs)) * O;
     while (vec > 1 && ((base | row | start) & (vec - 1)) != 0)
       vec = vec == 16 ? 4 : 1;
@@ -379,7 +393,7 @@ extern "C" int routing_q7_launch(const void* u_hat, void* v, int B, int J,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B) * cs);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = layout(J, I, O, cs).total;
+  cfg.dynamicSmemBytes = layout(J, I, O, cs, staged != 0).total;
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -389,9 +403,12 @@ extern "C" int routing_q7_launch(const void* u_hat, void* v, int B, int J,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   // the served geometries (MNIST, smallNORB, CIFAR-10, EDGE_TINY) get
-  // their own instance; any other (J, O) the general one
+  // their own instance; any other (J, O), or an unstaged slice, the
+  // general one
   cudaError_t err;
-  if (J == 10 && O == 6)
+  if (!staged)
+    err = launch<0, 0, false>(cfg, u_hat, v, J, I, O, vec, *args);
+  else if (J == 10 && O == 6)
     err = launch<10, 6>(cfg, u_hat, v, J, I, O, vec, *args);
   else if (J == 5 && O == 6)
     err = launch<5, 6>(cfg, u_hat, v, J, I, O, vec, *args);

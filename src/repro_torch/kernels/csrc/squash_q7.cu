@@ -1,5 +1,5 @@
 // Integer squash (paper Eq. 8) over the rows of an int8 [R, D] tensor,
-// D <= 16, into int8 [R, D].
+// D <= 32, into int8 [R, D].
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/squash.py,
 // squash_q7_pallas (body _squash_kernel, isqrt _isqrt), and is bit-exact
@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
     out[k] = squash_word(s[k], in_frac, out_frac);
 }
 
-// Any D <= 16: four rows a thread, a grid's width apart.
+// Any D <= 32 (q7::kMaxDim): four rows a thread, a grid's width apart.
 __global__ void __launch_bounds__(kThreads)
     squash_q7_kernel(const int8_t* __restrict__ s, int8_t* __restrict__ out,
                      int R, int D, int in_frac, int out_frac) {
@@ -104,10 +104,12 @@ extern "C" int isqrt_launch(const void* n, void* out, int N, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry point (loaded with ctypes).  Returns cudaGetLastError() after
-// the launch; 0 means the launch was accepted.
+// C entry point (loaded with ctypes); D is 1..kMaxDim.  Returns
+// cudaGetLastError() after the launch; 0 means the launch was accepted.
 extern "C" int squash_q7_launch(const void* s, void* out, int R, int D,
                                 int in_frac, int out_frac, void* stream) {
+  if (D < 1 || D > q7::kMaxDim)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R <= 0) return static_cast<int>(cudaSuccess);
   const int threads = (R + kRowsPerThread - 1) / kRowsPerThread;
   const int blocks = (threads + kThreads - 1) / kThreads;

@@ -1,7 +1,7 @@
 """Integer squash (paper Eq. 8) and float squash (Eq. 1): the CUDA
 kernels' wrappers and their plain versions.
 
-`squash_q7` takes int8 [..., D] (D <= 16).  A tensor on the CPU goes to
+`squash_q7` takes int8 [..., D] (D <= 32).  A tensor on the CPU goes to
 the plain version (`repro_torch.quant.int8_ops.squash_q7`, the torch
 oracle); a CUDA tensor goes to `csrc/squash_q7.cu` or raises.  The
 kernel replaces the Pallas TPU kernel `repro.kernels.squash
@@ -20,7 +20,7 @@ from repro_torch.core.routing import squash
 from repro_torch.kernels import build
 from repro_torch.quant import int8_ops as q
 
-MAX_DIM = 16                           # csrc/q7.cuh kMaxDim
+MAX_DIM = 32                           # csrc/q7.cuh kMaxDim
 
 squash_q7_plain = q.squash_q7
 

@@ -22,16 +22,25 @@ registry (unknown names fail with the registered ones listed) — the
 variant references ride the `.capsbin` attrs and pick the matching C
 kernel symbols.  The static verifier (repro_torch.analysis) vets the
 lowered program before anything is written; `--no-check` skips it.
-`--profile` prints the static MCU cycle/latency estimate.
+`--profile` prints the static MCU cycle/latency estimate; `--drift`
+runs the program through the VM with per-op profiling and prints the
+cost-model drift report (repro_torch.obs.analyze.costmodel_drift);
+`--numerics` runs it with numeric-health probes and prints the report
+(exit 1 on an int32 clip or an observed value outside its static
+bound), and `--numerics-out PATH` also writes it as a
+`repro.numerics/v1` doc.
 
-The reference's `--drift`, `--numerics*` and `--from-search` wait for
-the port of its observability layer and of its search.
+The reference's `--from-search` waits for the port of its search.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import pathlib
 import sys
+
+import torch
 
 from repro_torch.analysis import CheckError
 from repro_torch.edge import describe, format_estimates, format_export
@@ -71,6 +80,27 @@ def main(argv=None) -> int:
                     help="print the static per-op cycle/latency estimate "
                     "of the exported program on every calibrated MCU "
                     "profile (repro_torch.edge.costmodel: cortex-m7, gap8)")
+    ap.add_argument("--drift", action="store_true",
+                    help="run the exported program through the NumPy q7 "
+                    "VM with per-op profiling and print the cost-model "
+                    "drift report (repro_torch.obs.analyze.costmodel_drift:"
+                    " measured wall-time shares vs static cycle shares, "
+                    "per calibrated MCU profile)")
+    ap.add_argument("--drift-n", type=int, default=8,
+                    help="images for the --drift measurement batch")
+    ap.add_argument("--numerics", action="store_true",
+                    help="run the exported program through the VM with "
+                    "numeric-health probes (repro_torch.obs.numerics) and "
+                    "print the report: saturation, int32 clips, bound "
+                    "tightness vs the static proofs, per-layer q7-vs-"
+                    "f32 SNR; exits 1 on any int32-clip event or any "
+                    "observed value outside its static bound")
+    ap.add_argument("--numerics-out", metavar="PATH", default=None,
+                    help="also write the report as a repro.numerics/v1 "
+                    "JSON doc (repro_torch.obs.analyze accepts it); "
+                    "implies --numerics")
+    ap.add_argument("--numerics-n", type=int, default=8,
+                    help="images for the --numerics probe batch")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
@@ -110,6 +140,44 @@ def main(argv=None) -> int:
     print(format_export(result))
     if args.profile:
         print(format_estimates(result["program"]))
+    if args.drift:
+        from repro_torch.edge.vm import EdgeVM
+        from repro_torch.obs.analyze import costmodel_drift, format_drift
+        program = result["program"]
+        vm = EdgeVM(program)
+        n = max(args.drift_n, 1)
+        x_q = vm.quantize_input(spec.images(n, seed=0))
+        rows: list = []
+        vm.run(x_q, profile=rows)
+        print(format_drift(costmodel_drift(program, rows, batch=n)))
+    if args.numerics or args.numerics_out:
+        from repro_torch.obs import numerics as health
+        qnet = registry.model(model_id)
+        # the float weights the model was quantized from (ModelSpec.build
+        # inits from the spec seed) — the SNR oracle
+        params = qnet.pipeline.init(
+            torch.Generator().manual_seed(spec.seed), registry.device)
+        n = max(args.numerics_n, 1)
+        report = health.run_numerics(qnet, spec.images(n, seed=0),
+                                     params=params,
+                                     program=result["program"])
+        print(report.format())
+        if args.numerics_out:
+            path = pathlib.Path(args.numerics_out)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(report.to_doc(), indent=1,
+                                       sort_keys=True))
+            print(f"[export_caps] wrote numerics report to {path}")
+        findings = health.check_containment(result["program"], report)
+        clips = report.total_int32_clip()
+        if clips:
+            findings.append(f"{clips} int32-clip event(s) observed — "
+                            "statically proven impossible on a "
+                            "verifier-clean program")
+        if findings:
+            for f in findings:
+                print(f"[export_caps] NUMERICS: {f}", file=sys.stderr)
+            return 1
     return 0
 
 

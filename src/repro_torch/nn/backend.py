@@ -22,7 +22,6 @@ both backends (float64 im2col products, see int8_ops).
 """
 from __future__ import annotations
 
-import collections
 import warnings
 
 import torch
@@ -30,6 +29,7 @@ import torch
 from repro_torch.kernels import routing as kroute
 from repro_torch.kernels import squash as ksquash
 from repro_torch.nn.variants import REGISTRY
+from repro_torch.obs import METRICS, MetricsRegistry
 from repro_torch.quant import int8_ops as q
 
 
@@ -91,10 +91,22 @@ class CudaBackend(TorchBackend):
 
     name = "cuda"
 
-    def __init__(self):
-        # fallback DECISIONS (one per call, not per image), by (op, variant)
-        self.fallbacks = collections.Counter()
+    def __init__(self, metrics: MetricsRegistry | None = None):
+        # fallback DECISIONS (one per call, not per image) are counted in
+        # a metrics registry, labeled (op, variant): a bare CudaBackend()
+        # gets a private registry, the shared BACKENDS["cuda"] records
+        # into the process-default obs.METRICS
+        self.metrics = MetricsRegistry("cuda") if metrics is None \
+            else metrics
+        self._fallback_counter = self.metrics.counter(
+            "cuda.fallback_decisions",
+            help="cuda->torch-oracle fallback decisions by (op, variant)")
         self._warned: set = set()
+
+    @property
+    def fallbacks(self):
+        """Counter-shaped view keyed by (op, variant)."""
+        return self._fallback_counter.view("op", "variant")
 
     def _require_cuda(self, op: str, t) -> None:
         if t.device.type != "cuda":
@@ -104,7 +116,7 @@ class CudaBackend(TorchBackend):
                 "CPU)")
 
     def _fallback(self, op: str, variant: str) -> None:
-        self.fallbacks[(op, variant)] += 1
+        self._fallback_counter.inc(op=op, variant=variant)
         if (op, variant) not in self._warned:
             self._warned.add((op, variant))
             warnings.warn(
@@ -141,7 +153,7 @@ class CudaBackend(TorchBackend):
             logit_frac=plan.logit_frac, rounding=rounding)
 
 
-BACKENDS = {"torch": TorchBackend(), "cuda": CudaBackend()}
+BACKENDS = {"torch": TorchBackend(), "cuda": CudaBackend(metrics=METRICS)}
 
 
 def get_backend(backend):

@@ -10,6 +10,11 @@ The float face runs in full float32: TF32 is switched off for its
 matmuls and convolutions while it runs (`_full_fp32`), since a
 calibration max that drifts by TF32's rounding can move `frac_bits`
 across a power-of-two boundary and change the plan.
+
+PTQ runs under the spans `ptq.calibrate`, `ptq.plan` and
+`ptq.quantize_weights`; with a numerics probe installed, `forward_q7`
+attributes each layer's requantizations to that layer and observes its
+int8 output (repro_torch.obs), and without one it is the plain loop.
 """
 from __future__ import annotations
 
@@ -18,11 +23,13 @@ import dataclasses
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import CapsNetConfig
 from repro_torch.nn.layers import CapsuleRouting, PrimaryCaps, QuantConv2D
 from repro_torch.nn.plans import PipelinePlan, TapStats, plan_scalars
 from repro_torch.nn.variants import VariantSet
+from repro_torch.obs import numerics as _health
 from repro_torch.quant import qformat as qf
 
 
@@ -146,10 +153,13 @@ class CapsPipeline:
 
     def quantize(self, params, calib_images, *, rounding: str = "floor",
                  backend: str = "torch", batch: int = 64) -> "QuantCapsNet":
-        stats = self.calibrate(params, calib_images, batch=batch)
-        plan = self.plan(params, stats)
-        qweights = {l.name: l.quantize(params[l.name], plan[l.name])
-                    for l in self.layers}
+        with obs.span("ptq.calibrate", config=self.cfg.name):
+            stats = self.calibrate(params, calib_images, batch=batch)
+        with obs.span("ptq.plan", config=self.cfg.name):
+            plan = self.plan(params, stats)
+        with obs.span("ptq.quantize_weights", config=self.cfg.name):
+            qweights = {l.name: l.quantize(params[l.name], plan[l.name])
+                        for l in self.layers}
         return QuantCapsNet(pipeline=self, plan=plan, qweights=qweights,
                             rounding=rounding, backend=backend)
 
@@ -159,10 +169,19 @@ class CapsPipeline:
     def forward_q7(self, qweights, plan: PipelinePlan, x_q, *,
                    backend: str = "torch", rounding: str = "floor"):
         """x_q int8 image in the plan's input format -> v int8 [B,J,O]."""
+        if _health._PROBE is None:                 # hot path untouched
+            h = x_q
+            for l in self.layers:
+                h = l.fwd_q7(qweights[l.name], plan[l.name], h,
+                             backend=backend, rounding=rounding)
+            return h
         h = x_q
-        for l in self.layers:
-            h = l.fwd_q7(qweights[l.name], plan[l.name], h,
-                         backend=backend, rounding=rounding)
+        for i, l in enumerate(self.layers):
+            with _health.scope(l.name, index=i, kind=type(l).__name__):
+                h = l.fwd_q7(qweights[l.name], plan[l.name], h,
+                             backend=backend, rounding=rounding)
+                _health._PROBE.observe_output(
+                    h, frac=plan[l.name].out_frac)
         return h
 
     def quantize_input(self, x, plan: PipelinePlan):

@@ -22,11 +22,17 @@ algorithms are not exact.
 
 `rounding="floor"` matches the paper/CMSIS `__SSAT(sum >> shift, 8)`
 truncation; `rounding="nearest"` adds the half-LSB before shifting.
+
+`rshift_sat8` and `rshift_sat8_vec` are numerics-probe sites
+(`repro_torch.obs.numerics`): with a probe installed they report the
+accumulator as passed; without one the hook is a single `None` check.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.obs import numerics as _health
 
 INT8_MIN, INT8_MAX = -128, 127
 SQUASH_GUARD_BITS = 10
@@ -58,6 +64,8 @@ def einsum_i32(eq: str, *operands):
 
 def rshift_sat8(acc, shift: int, rounding: str = "floor"):
     """int32 accumulator -> int8 via arithmetic shift + saturate."""
+    if _health._PROBE is not None:     # observer only
+        _health.observe_requant(acc, shift, rounding)
     acc = _i32(acc)
     if shift > 0:
         if rounding == "nearest":
@@ -134,6 +142,8 @@ def conv2d_q7(x, w, bias, out_shift: int, bias_shift: int,
 def rshift_sat8_vec(acc, shifts, rounding: str = "floor"):
     """rshift_sat8 with a per-lane shift array broadcast against the
     accumulator's trailing axes (the per-channel requantization step)."""
+    if _health._PROBE is not None:     # observer only
+        _health.observe_requant(acc, shifts, rounding)
     acc = _i32(acc)
     shifts = torch.as_tensor(shifts, dtype=torch.int32, device=acc.device)
     if rounding == "nearest":

@@ -13,6 +13,14 @@ bit-identical to calling `QuantCapsNet.forward` directly.  Scheduling is
 deterministic: same submission order -> same waves, same buckets, same
 bits.  The queue is popped only after a wave succeeds, so a failing
 wave leaves its requests queued for a retry.
+
+Spans (repro_torch.obs; free when no tracer is installed): one
+`serve.enqueue` per request (arg `req_id`), and per wave a `serve.wave`
+(args `model`, `wave`, then `bucket`, `n_real`, `req_ids`) over
+`serve.bucket`, `serve.compile`, `serve.execute` (which ends with the
+copy to the host, the wave's device sync) and `serve.complete`: the
+reference engine's tree, from which `obs.analyze` rebuilds every
+request's timeline.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.serving.metrics import ServeMetrics
 from repro_torch.serving.registry import ModelRegistry
 
@@ -51,7 +60,8 @@ class Completion:
 class CapsServeEngine:
     def __init__(self, registry: ModelRegistry, buckets=DEFAULT_BUCKETS,
                  metrics: ServeMetrics | None = None,
-                 clock=time.perf_counter):
+                 clock=time.perf_counter,
+                 tracer: obs.Tracer | None = None):
         buckets = tuple(sorted({int(b) for b in buckets}))
         if not buckets or buckets[0] < 1:
             raise ValueError(f"need positive bucket sizes, got {buckets}")
@@ -59,9 +69,17 @@ class CapsServeEngine:
         self.buckets = buckets
         self.metrics = ServeMetrics() if metrics is None else metrics
         self.clock = clock
+        # an explicit tracer wins; otherwise the ambient obs tracer (if
+        # installed) takes the spans; NULL_SPAN when neither
+        self.tracer = tracer
         self._queue: collections.deque = collections.deque()
         self._next_rid = 0
         self._next_wave = 0
+
+    def _span(self, name: str, **args):
+        if self.tracer is not None:
+            return self.tracer.span(name, **args)
+        return obs.span(name, **args)
 
     # ------------------------------------------------------------------
     # queue side
@@ -91,9 +109,10 @@ class CapsServeEngine:
                 f"{model_id} expects image shape {shape}, got {image.shape}")
         rid = self._next_rid
         self._next_rid += 1
-        t = self.clock()
-        self._queue.append(Request(rid, model_id, image, t))
-        self.metrics.record_submit(t, len(self._queue))
+        with self._span("serve.enqueue", model=model_id, req_id=rid):
+            t = self.clock()
+            self._queue.append(Request(rid, model_id, image, t))
+            self.metrics.record_submit(t, len(self._queue))
         return rid
 
     def submit_many(self, images, model_id: str) -> list:
@@ -109,37 +128,56 @@ class CapsServeEngine:
         if not self._queue:
             return []
         model_id = self._queue[0].model_id
-        wave: list = []
-        for r in self._queue:                # peek, don't pop yet
-            if r.model_id != model_id or len(wave) == self.max_bucket:
-                break
-            wave.append(r)
-        bucket = self.bucket_for(len(wave))
-        x = np.zeros((bucket,) + self.registry.input_shape(model_id),
-                     np.float32)
-        for i, r in enumerate(wave):
-            x[i] = r.image
+        with self._span("serve.wave", model=model_id,
+                        wave=self._next_wave) as wave_span:
+            with self._span("serve.bucket"):
+                wave: list = []
+                for r in self._queue:            # peek, don't pop yet
+                    if (r.model_id != model_id
+                            or len(wave) == self.max_bucket):
+                        break
+                    wave.append(r)
+                bucket = self.bucket_for(len(wave))
+                x = np.zeros(
+                    (bucket,) + self.registry.input_shape(model_id),
+                    np.float32)
+                for i, r in enumerate(wave):
+                    x[i] = r.image
+            # the analyzer rebuilds per-request timelines by joining
+            # enqueue req_id against this membership (comma-joined: span
+            # args are scalar-or-string in the Chrome export)
+            req_ids = ",".join(str(r.rid) for r in wave)
+            wave_span.note(bucket=bucket, n_real=len(wave),
+                           req_ids=req_ids)
 
-        exe = self.registry.executable(model_id, bucket)
-        t0 = self.clock()
-        # the host copies wait for the device, so t_done ends the work
-        v_q, lengths, pred = (t.cpu().numpy() for t in exe(x))
-        t_done = self.clock()
-
-        # only now is the wave irrevocably served: a raising wave leaves
-        # the queue intact so the requests can be retried
-        for _ in wave:
-            self._queue.popleft()
-        wave_idx = self._next_wave
-        self._next_wave += 1
-        done = [Completion(rid=r.rid, model_id=model_id, v_q=v_q[i],
-                           lengths=lengths[i], pred=int(pred[i]),
-                           wave=wave_idx, bucket=bucket,
-                           latency_s=t_done - r.t_enq)
-                for i, r in enumerate(wave)]
-        self.metrics.record_wave(
-            bucket=bucket, n_real=len(wave), exec_s=t_done - t0,
-            t_done=t_done, latencies_s=[c.latency_s for c in done])
+            # the registry adds serving.compile_wave / serving.ptq_build
+            # child spans on a cache miss; a hit is just the lookup
+            with self._span("serve.compile", bucket=bucket):
+                exe = self.registry.executable(model_id, bucket)
+            with self._span("serve.execute", bucket=bucket,
+                            n_real=len(wave)):
+                t0 = self.clock()
+                # the host copies wait for the device, so t_done ends the
+                # work
+                v_q, lengths, pred = (t.cpu().numpy() for t in exe(x))
+                t_done = self.clock()
+            with self._span("serve.complete", req_ids=req_ids):
+                # only now is the wave irrevocably served: a raising wave
+                # leaves the queue intact so the requests can be retried
+                for _ in wave:
+                    self._queue.popleft()
+                wave_idx = self._next_wave
+                self._next_wave += 1
+                done = [Completion(rid=r.rid, model_id=model_id,
+                                   v_q=v_q[i], lengths=lengths[i],
+                                   pred=int(pred[i]), wave=wave_idx,
+                                   bucket=bucket,
+                                   latency_s=t_done - r.t_enq)
+                        for i, r in enumerate(wave)]
+                self.metrics.record_wave(
+                    bucket=bucket, n_real=len(wave), exec_s=t_done - t0,
+                    t_done=t_done,
+                    latencies_s=[c.latency_s for c in done])
         return done
 
     def drain(self) -> list:
@@ -161,10 +199,14 @@ class CapsServeEngine:
                 t.cpu()
 
 
-def serve_window(registry, buckets, images, model_id) -> tuple:
+def serve_window(registry, buckets, images, model_id, *,
+                 metrics_registry=None) -> tuple:
     """Serve every image through a fresh warmed engine, timing submit ->
-    drained.  Returns (engine, completions, wall_s)."""
-    engine = CapsServeEngine(registry, buckets=buckets)
+    drained.  Returns (engine, completions, wall_s).  `metrics_registry`
+    mirrors the window's ServeMetrics into an obs.MetricsRegistry."""
+    metrics = None if metrics_registry is None \
+        else ServeMetrics(registry=metrics_registry)
+    engine = CapsServeEngine(registry, buckets=buckets, metrics=metrics)
     engine.warmup(model_id)
     t0 = time.perf_counter()
     engine.submit_many(images, model_id)

@@ -7,19 +7,38 @@ Everything is recorded through the engine's injectable clock, so tests
 can drive a fake clock.  The low-level accessors return nan on an empty
 window; `summary()` carries an `empty` flag with None for every
 undefined figure, and `report()` says "no completed requests".
+
+An optional obs.MetricsRegistry mirrors every recording into labeled
+metrics (serve.requests_total, serve.latency_seconds, serve.queue_depth,
+serve.wave_occupancy), so one registry snapshot sees serving next to
+the cuda backend's and the model registry's counters.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch import obs
+
 
 class ServeMetrics:
-    def __init__(self):
+    def __init__(self, registry: obs.MetricsRegistry | None = None):
         self.latencies_s: list = []          # one per completed request
         self.waves: list = []                # dicts: bucket/n_real/exec_s
         self.queue_depths: list = []         # depth sampled at each submit
         self.t_first_submit: float | None = None
         self.t_last_done: float | None = None
+        self.registry = registry
+        if registry is not None:
+            self._c_requests = registry.counter(
+                "serve.requests_total", help="completed requests by bucket")
+            self._h_latency = registry.histogram(
+                "serve.latency_seconds",
+                help="enqueue->completion latency")
+            self._g_queue = registry.gauge(
+                "serve.queue_depth", help="queue depth at last submit")
+            self._g_occupancy = registry.gauge(
+                "serve.wave_occupancy", help="real rows / bucket of the "
+                "last wave")
 
     # ------------------------------------------------------------------
     # recording (called by the engine)
@@ -28,6 +47,8 @@ class ServeMetrics:
         if self.t_first_submit is None:
             self.t_first_submit = t
         self.queue_depths.append(queue_depth)
+        if self.registry is not None:
+            self._g_queue.set(queue_depth)
 
     def record_wave(self, *, bucket: int, n_real: int, exec_s: float,
                     t_done: float, latencies_s) -> None:
@@ -35,6 +56,11 @@ class ServeMetrics:
             {"bucket": bucket, "n_real": n_real, "exec_s": exec_s})
         self.latencies_s.extend(latencies_s)
         self.t_last_done = t_done
+        if self.registry is not None:
+            self._c_requests.inc(n_real, bucket=str(bucket))
+            for lat in latencies_s:
+                self._h_latency.observe(lat)
+            self._g_occupancy.set(n_real / bucket)
 
     # ------------------------------------------------------------------
     # derived figures

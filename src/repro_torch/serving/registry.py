@@ -12,20 +12,24 @@ Two caches with different lifetimes:
     bucket) once and reuses it for every later wave.
 
 `quantize_count` / `compile_count` / `exec_hits` count builds, wave
-bindings and wave-cache hits, so tests can pin reuse.  Models whose
-`cuda` backend falls back to the torch oracle on non-default operator
-variants are listed in `variant_fallbacks` and counted per (model,
-variant) in `fallback_counts`, with one warning each.
+bindings and wave-cache hits, so tests can pin reuse: they are views
+over the counters `serving.quantize_builds`, `serving.wave_compiles` and
+`serving.wave_cache_hits` of the registry's `obs.MetricsRegistry`.
+Models whose `cuda` backend falls back to the torch oracle on
+non-default operator variants are listed in `variant_fallbacks` and
+counted per (model, variant) in `serving.variant_fallbacks`
+(`fallback_counts`), with one warning each.  A lazy build runs under the
+span `serving.ptq_build`, a wave binding under `serving.compile_wave`.
 """
 from __future__ import annotations
 
-import collections
 import dataclasses
 import warnings
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
 from repro_torch.nn.config import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB,
@@ -106,20 +110,50 @@ def wave_fn(qnet: QuantCapsNet, bucket: int):
 
 
 class ModelRegistry:
-    def __init__(self, specs: dict | None = None, device=None):
+    def __init__(self, specs: dict | None = None, device=None,
+                 metrics: obs.MetricsRegistry | None = None):
         self.device = resolve_device(device)
         self.specs = dict(specs) if specs is not None else default_specs()
         self._models: dict = {}
         self._execs: dict = {}
-        self.quantize_count = 0
-        self.compile_count = 0
-        self.exec_hits = 0
+        # cache counts live in a metrics registry (labeled by model, and
+        # bucket); a fresh ModelRegistry defaults to its own, so counts
+        # stay per instance
+        self.metrics = obs.MetricsRegistry("serving") if metrics is None \
+            else metrics
+        self._c_quantize = self.metrics.counter(
+            "serving.quantize_builds", help="lazy PTQ builds by model")
+        self._c_compile = self.metrics.counter(
+            "serving.wave_compiles", help="wave function bindings by "
+            "(model, bucket)")
+        self._c_hits = self.metrics.counter(
+            "serving.wave_cache_hits", help="wave-function cache hits")
+        self._c_fallback = self.metrics.counter(
+            "serving.variant_fallbacks", help="models served through the "
+            "cuda->torch variant fallback")
         # model_id -> variant tag for models whose cuda backend falls back
         # to the torch oracle on non-default operator variants (the
         # engine-side view of CudaBackend.fallbacks; warned once each)
         self.variant_fallbacks: dict = {}
-        self.fallback_counts = collections.Counter()   # (model, tag) -> n
         self._warned_fallbacks: set = set()
+
+    # views over the metrics registry
+    @property
+    def quantize_count(self) -> int:
+        return int(self._c_quantize.total())
+
+    @property
+    def compile_count(self) -> int:
+        return int(self._c_compile.total())
+
+    @property
+    def exec_hits(self) -> int:
+        return int(self._c_hits.total())
+
+    @property
+    def fallback_counts(self):
+        """(model, variant tag) -> times noted."""
+        return self._c_fallback.view("model", "variant")
 
     # ------------------------------------------------------------------
     # models
@@ -185,7 +219,7 @@ class ModelRegistry:
             self.variant_fallbacks.pop(model_id, None)   # no longer stale
             return
         self.variant_fallbacks[model_id] = vs.tag
-        self.fallback_counts[(model_id, vs.tag)] += 1
+        self._c_fallback.inc(model=model_id, variant=vs.tag)
         if (model_id, vs.tag) not in self._warned_fallbacks:
             self._warned_fallbacks.add((model_id, vs.tag))
             warnings.warn(
@@ -211,8 +245,9 @@ class ModelRegistry:
             except KeyError:
                 raise KeyError(
                     f"unknown model {model_id!r}; have {self.model_ids()}")
-            self._models[model_id] = spec.build(self.device)
-            self.quantize_count += 1
+            with obs.span("serving.ptq_build", model=model_id):
+                self._models[model_id] = spec.build(self.device)
+            self._c_quantize.inc(model=model_id)
             self._note_variant_fallback(model_id, self._models[model_id])
         return self._models[model_id]
 
@@ -228,9 +263,10 @@ class ModelRegistry:
     def executable(self, model_id: str, bucket: int):
         key = (model_id, bucket)
         if key in self._execs:
-            self.exec_hits += 1
+            self._c_hits.inc(model=model_id, bucket=str(bucket))
             return self._execs[key]
-        exe = wave_fn(self.model(model_id), bucket)
+        with obs.span("serving.compile_wave", model=model_id, bucket=bucket):
+            exe = wave_fn(self.model(model_id), bucket)
         self._execs[key] = exe
-        self.compile_count += 1
+        self._c_compile.inc(model=model_id, bucket=str(bucket))
         return exe

@@ -245,7 +245,8 @@ def test_cuda_backend_serves_a_variant_plan_through_the_oracle(cuda):
         qnet = reg.model(spec.model_id)
         x_q = qnet.quantize_input(torch.from_numpy(spec.images(9, seed=3))
                                   .to(cuda))
-        n0 = get_backend("cuda").fallbacks[("routing.softmax", "approx")]
+        n0 = get_backend("cuda").fallbacks.get(("routing.softmax", "approx"),
+                                                0)
         v = qnet.forward(x_q)
     assert reg.variant_fallbacks == {spec.model_id: "approx+exact"}
     assert get_backend("cuda").fallbacks[("routing.softmax", "approx")] \
@@ -380,3 +381,99 @@ def test_cuda_bmm_q7_takes_the_3d_map_in_one_call(cuda):
     assert kq.bmm_q7.launches_by_route["wgmma"] == r0 + 2
     assert kq.transpose_kn.launches == t0 + 2      # one transpose a call
 
+
+# ---------------------------------------------------------------------------
+# the widened kernels, and the numerics probe on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [1, 5, 17, 18, 20, 32])
+def test_cuda_squash_every_width_up_to_32(cuda, D):
+    s = i8(np.random.default_rng(D), (3000, D))
+    for in_frac in (0, 5, 12):
+        got = ks.squash_q7(s.to(cuda), in_frac=in_frac)
+        assert torch.equal(got.cpu(), ks.squash_q7_plain(s, in_frac=in_frac))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geom,iters", [((3, 10, 64, 20), 3),
+                                        ((2, 7, 33, 32), 4),
+                                        ((4, 4, 16, 4), 16),
+                                        ((2, 5, 40, 17), 9)], ids=str)
+def test_cuda_routing_wide_capsules_and_many_iterations(cuda, geom, iters):
+    """O up to 32 and up to 16 iterations, staged and unstaged, at every
+    cluster size."""
+    g = np.random.default_rng(sum(geom) + iters)
+    u = i8(g, geom)
+    kw = dict(num_iters=iters,
+              caps_out_shifts=tuple(int(x) for x in g.integers(-31, 32, iters)),
+              caps_out_fracs=tuple(int(x) for x in g.integers(0, 13, iters)),
+              agree_shifts=tuple(int(x) for x in g.integers(-31, 32,
+                                                            iters - 1)),
+              logit_frac=int(g.integers(-3, 8)))
+    for rounding in ROUNDINGS:
+        want = kr.routing_q7_plain(u, rounding=rounding, **kw)
+        for cs in range(1, min(geom[2], kr.MAX_CLUSTER) + 1):
+            for stage in (True, False):
+                got = kr.routing_q7(u.to(cuda), rounding=rounding, cs=cs,
+                                    stage=stage, **kw)
+                assert torch.equal(got.cpu(), want), (cs, stage, rounding)
+
+
+@pytest.mark.gpu
+def test_cuda_routing_reads_u_hat_unstaged_where_it_does_not_fit(cuda):
+    J, I, O = 10, 40_000, 6
+    assert not kr.stages(J, I, O, kr.cluster_size(2, J, I, O))
+    u = i8(np.random.default_rng(9), (2, J, I, O))
+    for rounding in ROUNDINGS:
+        got = kr.routing_q7(u.to(cuda), rounding=rounding, **MNIST_LIKE)
+        assert torch.equal(got.cpu(), kr.routing_q7_plain(
+            u, rounding=rounding, **MNIST_LIKE))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edit", [dict(pcap_dim=18), dict(caps_dim=20),
+                                  dict(routings=9)],
+                         ids=["pcap_dim=18", "caps_dim=20", "routings=9"])
+def test_cuda_backend_serves_a_widened_geometry_like_the_torch_backend(
+        cuda, edit):
+    from repro_torch.serving import serve_window
+    base = default_specs()["edge_tiny@cuda"]
+    spec = dataclasses.replace(base, config=dataclasses.replace(
+        base.config, **edit))
+    reg = ModelRegistry({spec.model_id: spec}, device=cuda)
+    images = spec.images(16, seed=5)
+    fallbacks = dict(get_backend("cuda").fallbacks)
+    n0 = (ks.squash_q7.launches, kr.routing_q7.launches)
+    _, done, _ = serve_window(reg, (1, 4, 16), images, spec.model_id)
+    assert ks.squash_q7.launches > n0[0] and kr.routing_q7.launches > n0[1]
+    assert dict(get_backend("cuda").fallbacks) == fallbacks
+    qnet = reg.model(spec.model_id).with_backend("torch")
+    with torch.inference_mode():
+        want = qnet.forward(qnet.quantize_input(
+            torch.from_numpy(images).to(cuda))).cpu().numpy()
+    np.testing.assert_array_equal(np.stack([c.v_q for c in done]), want)
+
+
+@pytest.mark.gpu
+def test_cuda_probed_forward_is_bit_identical_to_unprobed(cuda):
+    from repro_torch.obs import numerics as nh
+    spec = default_specs()["mnist@cuda"]
+    qnet = ModelRegistry({spec.model_id: spec}, device=cuda) \
+        .model(spec.model_id)
+    x_q = qnet.quantize_input(torch.from_numpy(spec.images(16, seed=2))
+                              .to(cuda))
+    with torch.inference_mode():
+        base = qnet.forward(x_q)
+        probe = nh.NumericsProbe()
+        with nh.probing(probe):
+            probed = qnet.forward(x_q)
+    assert torch.equal(base, probed)
+    rows = probe.rows()
+    assert {r["op"] for r in rows} == {"conv0", "pcap", "caps"}
+    assert sum(r.get("int32_clip", 0) for r in rows) == 0
+    # the squash and the routing loop run inside the kernels: the probe
+    # sees conv0's and the primary caps' requants, u_hat's, and outputs
+    assert sorted((r["op"], r["site"]) for r in rows
+                  if r["family"] == "requant") == [
+        ("caps", "requant[0]"), ("conv0", "requant[0]"),
+        ("pcap", "requant[0]")]

@@ -136,12 +136,15 @@ def test_every_served_geometry_fits_the_routing_kernel():
     assert kr.routing_smem_bytes(10, 1024, 6, 8) == \
         10 * 768 + 2 * 1280 + 3 * 240
     kr.check_geometry(10, 4096, 6, 3)          # fits as 8 slices of 512
+    kr.check_geometry(10, 40_000, 6, 3)        # 8 slices, u_hat unstaged
+    assert not kr.stages(10, 40_000, 6, 8)
     with pytest.raises(ValueError, match="8-CTA cluster.*shared memory"):
-        kr.check_geometry(10, 40_000, 6, 3)
+        kr.check_geometry(10, 1_000_000, 6, 3)
+    kr.check_geometry(10, 64, 32, 16)
     with pytest.raises(ValueError):
-        kr.check_geometry(10, 64, 17, 3)
+        kr.check_geometry(10, 64, 33, 3)
     with pytest.raises(ValueError):
-        kr.check_geometry(10, 64, 6, 9)
+        kr.check_geometry(10, 64, 6, 17)
     with pytest.raises(ValueError):
         ks.check_in_frac(31)
 
@@ -179,12 +182,34 @@ def test_cluster_size_choice_at_the_mnist_geometry():
         assert all(hi > lo for lo, hi in kr.slice_bounds(I, min(I, 8)))
 
 
+def test_launch_plan_is_checked_once_per_geometry():
+    kr.launch_plan.cache_clear()
+    assert kr.launch_plan(64, 10, 1024, 6, 3) == (2, True)
+    assert kr.launch_plan(64, 10, 1024, 6, 3) == (2, True)
+    assert kr.launch_plan.cache_info().hits == 1
+    assert kr.launch_plan(2, 10, 40_000, 6, 3) == (8, False)
+    assert kr.launch_plan(4, 10, 1024, 6, 3, cs=8, stage=False) == (8, False)
+    with pytest.raises(ValueError, match="cluster size 9"):
+        kr.launch_plan(4, 10, 1024, 6, 3, cs=9)
+    with pytest.raises(ValueError, match="staged needs more"):
+        kr.launch_plan(2, 10, 40_000, 6, 3, stage=True)
+    with pytest.raises(ValueError, match="capsule dim"):
+        kr.launch_plan(2, 10, 64, 33, 3)
+
+
+def test_routing_args_check_their_tables_when_built():
+    with pytest.raises(ValueError, match="do not match"):
+        kr._routing_args(3, (8, 8), (7, 7, 6), (8, 8), 7, 0)
+    with pytest.raises(ValueError, match="in_frac 31"):
+        kr._routing_args(2, (8, 8), (7, 31), (8,), 7, 0)
+
+
 def test_routing_args_are_built_once_per_table():
     a = kr._routing_args(3, (8, 8, 9), (7, 7, 6), (8, 8), 7, 0)
     assert kr._routing_args(3, [8, 8, 9], [7, 7, 6], [8, 8, 99], 7, 0) is a
     assert kr._routing_args(3, (8, 8, 9), (7, 7, 6), (8, 8), 7, 1) is not a
     assert ctypes.sizeof(kr.RoutingArgs) == 4 * (3 + 3 * kr.MAX_ITERS)
-    assert list(a.caps_out_shifts) == [8, 8, 9, 0, 0, 0, 0, 0]
+    assert list(a.caps_out_shifts) == [8, 8, 9] + [0] * (kr.MAX_ITERS - 3)
     assert list(a.agree_shifts)[:3] == [8, 8, 0]
     assert (a.num_iters, a.logit_frac, a.nearest) == (3, 7, 0)
 

@@ -17,7 +17,7 @@ from `np.random.default_rng` or the shared synthetic dataset.
 * plans derived from the same stats are equal, and PTQ run by the port
   on the converted params gives the reference's plans and int8 weights.
 """
-import collections
+import collections.abc
 import dataclasses
 import warnings
 
@@ -44,6 +44,7 @@ from repro_torch.nn.backend import CudaBackend, TorchBackend, get_backend
 from repro_torch.nn.plans import (RoutingPlan, TapStats, plan_from_json,
                                   plan_scalars, plan_to_json)
 from repro_torch.nn.variants import REGISTRY, all_variant_sets
+from repro_torch.obs import METRICS
 
 ROUNDINGS = ("floor", "nearest")
 CPU = "cpu"
@@ -385,7 +386,9 @@ def test_cuda_backend_counts_every_decision_and_warns_once_per_label():
     assert len(msgs) == 2
     assert "squash kernel for variant 'approx'" in msgs[1]
     assert "routing.softmax kernel for variant 'approx'" in msgs[0]
-    assert isinstance(get_backend("cuda").fallbacks, collections.Counter)
+    # the counts are a Counter-shaped view over the process registry
+    assert isinstance(get_backend("cuda").fallbacks, collections.abc.Mapping)
+    assert "cuda.fallback_decisions" in METRICS.names()
 
 
 def test_torch_backend_keeps_logits_format_when_out_frac_is_edited(edge):
