@@ -116,7 +116,27 @@ Phases, each raising on failure:
    turns; and the card's busy share of an untraced 128-request window
    over 5 pairs of windows, one unprofiled and one under torch.profiler:
    the union of the profiled window's CUDA kernel intervals over the
-   paired unprofiled window's wall and over its own.
+   paired unprofiled window's wall and over its own;
+10. (run between phases 7 and 9) training, `repro_torch.captrain`:
+   MNIST "L" at full size, `TrainConfig(dataset="mnist", batch=64,
+   microbatches=8)`, 8 float steps (finite losses, the last below the
+   first) and 4 QAT steps on a derived plan, then each `train_step`
+   timed (median of 10, CUDA events: `[train] ... train_step_float_mnist`
+   and `train_step_qat_mnist`, in us a step and img/s); the steps must
+   launch none of the port's kernels; a checkpoint of that state, saved
+   and restored in a fresh trainer (`resume_or_init`), must give the
+   uninterrupted run's next step bit for bit, in loss and every leaf,
+   once in float and once in QAT with the plan side-car; the EDGE_TINY
+   Table-2 row, `table2_rows(EDGE_TINY, TrainConfig(dataset="edge_tiny",
+   batch=32, microbatches=8, calib_n=32, lr=3e-3, recalib_every=20),
+   float_steps=120, qat_steps=40, eval_n=256, roundings=("floor",))`,
+   printed, with acc_f32 > 0.8 and saving_pct >= 70 required and
+   delta_qat beside delta_ptq (not ordered); the same QAT model trained
+   again, quantized on the `cuda` backend, its `eval_q7` equal on `cuda`
+   and `torch`, 16 requests served bit-identical to the `torch` backend
+   with both kernels launched (counts from 0 just before) and no
+   fallback counted, and exported as a `.capsbin` into build/train_smoke/
+   with the export's re-verify passing.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -182,6 +202,10 @@ SQUASH_FLOAT_VIEW = ((64 * 1024, 5), "float32")
 # whole call is timed; its first rows are checked)
 SQUASH_FLOAT_CHECK_ROWS = 4096
 EDGE_DIR = ROOT / "build" / "edge_smoke"
+TRAIN_DIR = ROOT / "build" / "train_smoke"
+TRAIN_FLOAT_STEPS = 8              # phase 10's MNIST steps
+TRAIN_QAT_STEPS = 4
+TRAIN_TIMED_STEPS = 10
 OBS_DIR = ROOT / "build" / "obs_smoke"
 
 
@@ -1101,6 +1125,187 @@ def busy_share(run, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training (repro_torch.captrain) on the card
+# ---------------------------------------------------------------------------
+def median_step_us(step, n: int = TRAIN_TIMED_STEPS) -> float:
+    """Median of `n` calls of step(), each between two CUDA events on the
+    current stream (host work included: the events bracket the call and
+    the card waits on the host's launches), after 2 warm-up calls."""
+    import torch
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) * 1e3)
+    return statistics.median(times)
+
+
+def state_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    return [tree]
+
+
+def same_next_step(fresh, trainer, state, plan, x, y, what: str) -> None:
+    """Step k+1 of the uninterrupted run equals step k+1 of a fresh
+    trainer resumed from the checkpoint of step k, bit for bit, in loss
+    and in every leaf of the state (and the resumed plan is the saved
+    one)."""
+    import torch
+    k = trainer.step_index(state)
+    restored, rplan = fresh.resume_or_init()
+    if fresh.step_index(restored) != k or rplan != plan:
+        raise AssertionError(f"{what}: resumed at step "
+                             f"{fresh.step_index(restored)} with plan "
+                             f"{'equal' if rplan == plan else 'different'}")
+    a, ma = trainer.train_step(state, x, y, plan)
+    b, mb = fresh.train_step(restored, x, y, rplan)
+    bad = [i for i, (la, lb) in enumerate(zip(state_leaves(a),
+                                              state_leaves(b)))
+           if not torch.equal(la, lb)]
+    if float(ma["loss"]) != float(mb["loss"]) or bad:
+        raise AssertionError(f"{what}: step {k + 1} after a restore differs "
+                             f"(loss {float(ma['loss'])!r} vs "
+                             f"{float(mb['loss'])!r}; leaves {bad})")
+    log(f"[train] resume {what}: step {k + 1} from the restored step-{k} "
+        f"checkpoint equals the uninterrupted run bit for bit (loss "
+        f"{float(ma['loss'])!r}, {len(state_leaves(a))} leaves"
+        + (", plan from the side-car" if plan is not None else "") + ")")
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 10: MNIST "L" float and QAT steps at full size, timed; same-
+    step resume on the card; the EDGE_TINY Table-2 row; the QAT model
+    served on the `cuda` backend and exported.  Returns the kernels'
+    launches over the phase's int8 path (eval_q7 and serving)."""
+    import numpy as np
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.captrain import (CapsTrainer, TrainConfig, eval_q7,
+                                      format_rows, table2_rows)
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_matmul as kw
+    from repro_torch.nn import EDGE_TINY, MNIST
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.serving import ModelRegistry, serve_window
+    kernels = (ks.squash_q7, kr.routing_q7, ks.squash_float, kq.matmul_q7,
+               kq.bmm_q7, kw.w8a8_matmul)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kernels}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # 1. MNIST "L" at full size: float steps, QAT steps, step times
+    tc = TrainConfig(dataset="mnist", batch=64, microbatches=8)
+    trainer = CapsTrainer(MNIST, tc, device=dev)
+    before = counts()
+    t0 = time.perf_counter()
+    state, _, hist_f = trainer.fit(trainer.init_state(), TRAIN_FLOAT_STEPS)
+    state, plan, hist_q = trainer.fit(state, TRAIN_QAT_STEPS, qat=True)
+    fit_s = time.perf_counter() - t0
+    losses_f = [h["loss"] for h in hist_f]
+    losses_q = [h["loss"] for h in hist_q]
+    if not all(np.isfinite(losses_f + losses_q)) or \
+            losses_f[-1] >= losses_f[0]:
+        raise AssertionError(f"mnist training: float losses {losses_f}, "
+                             f"QAT losses {losses_q}")
+    log(f"[train] mnist (capsnet_mnist, batch 64, 8 microbatches): "
+        f"{TRAIN_FLOAT_STEPS} float steps, loss "
+        + " ".join(f"{v:.4f}" for v in losses_f)
+        + f"; {TRAIN_QAT_STEPS} QAT steps on a derived plan, loss "
+        + " ".join(f"{v:.4f}" for v in losses_q)
+        + f" ({fit_s:.2f} s with data and plan derivation)")
+    x, y = trainer.task.batch(trainer.step_index(state), tc.batch)
+    xd = torch.as_tensor(x, device=dev)
+    yd = torch.as_tensor(y.astype(np.int64), device=dev)
+    times = {}
+    for what, p in (("float", None), ("qat", plan)):
+        us = median_step_us(lambda: trainer.train_step(state, xd, yd, p))
+        times[what] = us
+        log(f"[train] {card} | train_step_{what}_mnist: {us:.1f} us a step "
+            f"(median of {TRAIN_TIMED_STEPS}, CUDA events), "
+            f"{tc.batch / (us * 1e-6):.1f} img/s")
+    steps_launched = {k: v - before[k] for k, v in counts().items()}
+    if any(steps_launched.values()):
+        raise AssertionError(f"the training steps launched a kernel: "
+                             f"{steps_launched}")
+
+    # 2. same-step resume on the card, float and QAT (plan side-car)
+    for what, p in (("float", None), ("qat", plan)):
+        rtc = dataclasses.replace(tc, ckpt_dir=str(TRAIN_DIR / what))
+        saver = CapsTrainer(MNIST, rtc, device=dev)
+        saver.save(state, p)
+        xk, yk = trainer.task.batch(trainer.step_index(state), tc.batch)
+        same_next_step(CapsTrainer(MNIST, rtc, device=dev), trainer, state,
+                       p, xk, yk, what)
+
+    # 3. the EDGE_TINY Table-2 row (the reference's acceptance call)
+    etc = TrainConfig(dataset="edge_tiny", batch=32, microbatches=8,
+                      calib_n=32, lr=3e-3, recalib_every=20)
+    t0 = time.perf_counter()
+    (row,) = table2_rows(EDGE_TINY, etc, float_steps=120, qat_steps=40,
+                         eval_n=256, roundings=("floor",), device=dev)
+    t2_s = time.perf_counter() - t0
+    log("[train] table2_rows(EDGE_TINY, float_steps=120, qat_steps=40, "
+        f"eval_n=256, roundings=('floor',)) on the card, {t2_s:.1f} s:")
+    log(format_rows([row]))
+    log(f"[train] {card} | edge_tiny Table 2: acc_f32 {row.acc_f32!r}, "
+        f"acc_ptq {row.acc_ptq!r}, acc_qat {row.acc_qat!r}, delta_qat "
+        f"{row.delta_qat!r} beside delta_ptq {row.delta_ptq!r}, saving "
+        f"{row.saving_pct!r} %")
+    if not (row.acc_f32 > 0.8 and row.saving_pct >= 70.0):
+        raise AssertionError(f"Table 2 row out of bounds: {row}")
+
+    # 4. the QAT model on the card: retrained with the same calls (each
+    # step is deterministic), quantized, served and exported
+    qtrainer = CapsTrainer(EDGE_TINY, etc, device=dev)
+    qstate, _, _ = qtrainer.fit(qtrainer.init_state(), 120)
+    qstate, _, _ = qtrainer.fit(qstate, 40, qat=True)
+    qnet = qtrainer.quantize(qstate, backend="cuda")
+    # the training path's int8 part: counts from 0 just before, read after
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    images, labels = make_image_dataset("edge_tiny", 256, seed=999_999)
+    acc = {be: eval_q7(qnet.with_backend(be), images, labels)
+           for be in ("cuda", "torch")}
+    if acc["cuda"] != acc["torch"]:
+        raise AssertionError(f"eval_q7 differs between backends: {acc}")
+    log(f"[train] the retrained QAT edge_tiny: eval_q7 {acc['cuda']!r} on "
+        f"cuda and on torch (the row's acc_qat: {row.acc_qat!r})")
+    fallbacks = get_backend("cuda").fallbacks
+    fb0 = dict(fallbacks)
+    reg = ModelRegistry(specs={}, device=dev)
+    mid = "edge_tiny_qat@cuda"
+    reg.install(mid, qnet)
+    served = make_image_dataset("edge_tiny", N_OTHER, seed=SEED)[0]
+    _, done, _ = serve_window(reg, BUCKETS, served, mid)
+    check_completions(dict(spec=SimpleNamespace(model_id=mid), qnet=qnet,
+                           images=served, completions=done))
+    launches = {"squash_q7": ks.squash_q7.launches,
+                "routing_q7": kr.routing_q7.launches}
+    if min(launches.values()) == 0 or dict(fallbacks) != fb0:
+        raise AssertionError(f"training path launches {launches}, cuda "
+                             f"fallbacks {dict(fallbacks)} (were {fb0})")
+    result = reg.export(mid, TRAIN_DIR / "export")
+    if result["verified"] != 4:
+        raise AssertionError(f"export of {mid} verified {result['verified']}")
+    log(f"[train] {mid}: {len(done)} requests bit-identical to the torch "
+        f"backend, no fallback; exported to "
+        f"{result['paths']['capsbin'].name}, re-verified on "
+        f"{result['verified']} images; launches over eval_q7 and serving "
+        f"{launches}")
+    return dict(launches=launches, step_us=times, row=row)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 def time_kernels(run, dev) -> dict:
@@ -1733,6 +1938,9 @@ def main(argv=None) -> int:
 
     times.update(time_library(dev, card))
 
+    # phase 10: training; its int8 path's counts from 0 inside, read after
+    train = train_phase(dev, card)
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -1787,7 +1995,8 @@ def main(argv=None) -> int:
         if name in artifact["launches"]:
             entry["launches_by_path"] = {
                 "main": launches[name],
-                "artifact": artifact["launches"][name]}
+                "artifact": artifact["launches"][name],
+                "train": train["launches"][name]}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (

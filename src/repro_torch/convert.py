@@ -1,9 +1,9 @@
-"""Carrying weights across from the reference package.
+"""Carrying weights and train states across from the reference package.
 
-Both functions take plain NumPy arrays and JSON (what the reference's
-arrays and `plan_to_json` give), so this module imports nothing of the
-reference.  Tests use them to make both packages compute on the same
-weights; the reference's init RNG is never imitated.
+The functions take and give plain NumPy arrays and JSON (what the
+reference's arrays and `plan_to_json` give), so this module imports
+nothing of the reference.  Tests use them to make both packages compute
+on the same weights; the reference's init RNG is never imitated.
 """
 from __future__ import annotations
 
@@ -24,6 +24,29 @@ def params_from_reference(np_params: dict, device=None) -> dict:
     return {layer: {k: torch.from_numpy(np.array(v, np.float32)).to(device)
                     for k, v in ws.items()}
             for layer, ws in np_params.items()}
+
+
+def state_from_reference(np_state: dict, device=None) -> dict:
+    """A reference train state ({"params": {"caps", "dec"}, "opt": {"m",
+    "v", "step"}}, NumPy leaves) -> the port's: float32 tensors, and
+    `opt/step` a 0-d int32 tensor, on `device`."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        a = np.asarray(tree)
+        dtype = np.int32 if a.dtype.kind in "iu" else np.float32
+        return torch.from_numpy(np.array(a, dtype)).to(device)
+    return conv(np_state)
+
+
+def state_to_reference(state: dict) -> dict:
+    """The port's train state -> NumPy leaves in the reference's layout
+    (what `state_from_reference` reads)."""
+    if isinstance(state, dict):
+        return {k: state_to_reference(v) for k, v in state.items()}
+    return state.detach().cpu().numpy()
 
 
 def qnet_from_reference(plan_json: dict, np_qweights: dict,

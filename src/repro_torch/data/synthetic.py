@@ -2,8 +2,8 @@
 
 MNIST/smallNORB/CIFAR *analogues*: class templates rendered with random
 affine pose + noise.  A copy of the reference package's
-`make_image_dataset`: the same seed gives the same images, so both
-packages calibrate and serve on identical inputs.
+`make_image_dataset` and `ImageTask`: the same seed gives the same
+images, so both packages calibrate, serve and train on identical inputs.
 """
 from __future__ import annotations
 
@@ -121,3 +121,17 @@ def make_image_dataset(kind: str, n: int, seed: int = 0):
         imgs[i] += rng.normal(0, 0.04, (H, W, C)).astype(np.float32)
     np.clip(imgs, 0.0, 1.0, out=imgs)
     return imgs, labels
+
+
+class ImageTask:
+    """Index-addressable image batches (for CapsNet training): batch i is
+    a pure function of (seed, i), so a resumed run replays the exact
+    sample stream."""
+
+    def __init__(self, kind: str, seed: int = 0):
+        self.kind = kind
+        self.seed = seed
+
+    def batch(self, index: int, batch_size: int):
+        return make_image_dataset(self.kind, batch_size,
+                                  seed=(self.seed * 100003 + index))

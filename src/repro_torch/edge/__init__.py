@@ -15,7 +15,7 @@ from repro_torch.edge.arena import (ArenaPlan, assign_offsets,
 from repro_torch.edge.costmodel import (MCU_PROFILES, McuProfile,
                                         estimate_all, estimate_program,
                                         format_estimate, format_estimates,
-                                        get_profile)
+                                        get_profile, total_latency_ms)
 from repro_torch.edge.emit_c import emit_c, save_c
 from repro_torch.edge.export import export_artifacts, format_export
 from repro_torch.edge.importer import load_qnet, program_config, to_qnet
@@ -29,4 +29,5 @@ __all__ = ["MCU_PROFILES", "ArenaPlan", "EdgeOp", "EdgeProgram", "EdgeVM",
            "export_artifacts", "format_estimate", "format_estimates",
            "format_export", "format_report", "get_profile", "lifetimes",
            "load_qnet", "lower", "memory_report", "op_scratch_bytes",
-           "plan_arena", "program_config", "save_c", "to_qnet"]
+           "plan_arena", "program_config", "save_c", "to_qnet",
+           "total_latency_ms"]

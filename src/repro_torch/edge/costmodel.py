@@ -204,6 +204,10 @@ def estimate_all(program: EdgeProgram) -> dict:
     return {name: estimate_program(program, name) for name in MCU_PROFILES}
 
 
+def total_latency_ms(program: EdgeProgram, profile) -> float:
+    return estimate_program(program, profile)["total_ms"]
+
+
 def format_estimate(est: dict) -> str:
     lines = [f"[{est['name']}] estimated cost on {est['part']} "
              f"({est['profile']}, {est['freq_mhz']:.0f} MHz):"]

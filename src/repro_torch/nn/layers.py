@@ -8,6 +8,14 @@
   quantize(params, plan)        -> int8 weight dict (Alg. 7).
   fwd_q7(qweights, plan, x, *, backend, rounding) -> y   int8 execution
                                    on a selectable op backend.
+  fwd_fq(params, plan, x, *, rounding) -> y   fake-quantized float
+                                   forward (QAT, `repro_torch.captrain`):
+                                   every tensor the int8 graph quantizes
+                                   is snapped onto the plan's Qm.n grid
+                                   with a straight-through gradient.
+                                   Weights and couplings quantize
+                                   nearest (Alg. 7); activations use the
+                                   net's rounding mode.
 
 Activations are NHWC and weights HWIO (convs) or [J, I, O, D] (routing)
 at this interface, as in the reference package; the float convs permute
@@ -25,7 +33,7 @@ from repro_torch.core.routing import squash
 from repro_torch.nn.backend import get_backend
 from repro_torch.nn.plans import (ConvPlan, PrimaryCapsPlan, RoutingPlan,
                                   TapStats)
-from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH
+from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH, REGISTRY
 from repro_torch.quant import qformat as qf
 
 
@@ -106,6 +114,20 @@ class QuantConv2D:
                              rounding=rounding)
         return be.relu_q7(y) if self.relu else y
 
+    def fwd_fq(self, params, plan: ConvPlan, x, *, rounding="floor"):
+        """Fake-quant forward at fwd_q7's requantization points: weights
+        and bias on their plan grids (nearest), the accumulator snapped
+        to out_frac with the net's rounding."""
+        if plan.per_channel:
+            w = qf.fake_quant_with_fracs(params["w"],
+                                         plan.w_frac_per_channel, axis=-1)
+        else:
+            w = qf.fake_quant(params["w"], plan.w_frac)
+        b = qf.fake_quant(params["b"], plan.b_frac)
+        y = qf.fake_quant(_conv(x, w, b, self.stride), plan.out_frac,
+                          rounding)
+        return torch.relu(y) if self.relu else y
+
 
 @dataclasses.dataclass(frozen=True)
 class PrimaryCaps:
@@ -158,6 +180,12 @@ class PrimaryCaps:
         return get_backend(backend).squash_q7(
             u, in_frac=plan.conv.out_frac, out_frac=plan.squash_out_frac,
             impl=plan.squash_impl)
+
+    def fwd_fq(self, params, plan: PrimaryCapsPlan, x, *, rounding="floor"):
+        y = self.conv.fwd_fq(params, plan.conv, x, rounding=rounding)
+        u = y.reshape(y.shape[0], -1, self.dim)
+        return REGISTRY.get("squash", plan.squash_impl).fq(
+            u, plan.squash_out_frac, rounding)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,3 +277,36 @@ class CapsuleRouting:
         u_hat = be.uhat_q7(qweights["W"], u, shift=shift,
                            rounding=rounding)
         return be.routing_q7(u_hat, plan, rounding=rounding)
+
+    @staticmethod
+    def _softmax_fq(b, impl: str):
+        """Couplings in Q0.7 as the int8 graph computes them: the
+        registered variant's fake-quant face, with the float softmax as
+        the straight-through surrogate."""
+        return REGISTRY.get("softmax", impl).fq(b)
+
+    def fwd_fq(self, params, plan: RoutingPlan, u, *, rounding="floor"):
+        """Fake-quant routing: u_hat, couplings, per-iteration s/v and
+        the accumulated logits snap to the grids routing_q7 uses (the
+        logit clamp models add_q7's int8 saturation)."""
+        sq = REGISTRY.get("squash", plan.squash_impl)
+        if plan.per_out:
+            W = qf.fake_quant_with_fracs(params["W"],
+                                         plan.W_frac_per_out, axis=0)
+        else:
+            W = qf.fake_quant(params["W"], plan.W_frac)
+        u_hat = qf.fake_quant(torch.einsum("jiod,bid->bjio", W, u),
+                              plan.uhat_frac, rounding)
+        b = torch.zeros(u_hat.shape[:3], dtype=torch.float32,
+                        device=u_hat.device)
+        v = None
+        for r in range(self.routings):
+            c = self._softmax_fq(b, plan.softmax_impl)
+            s = qf.fake_quant(torch.einsum("bji,bjio->bjo", c, u_hat),
+                              plan.caps_out_fracs[r], rounding)
+            v = sq.fq(s, plan.squash_out_frac, rounding)
+            if r < self.routings - 1:
+                a = qf.fake_quant(torch.einsum("bjio,bjo->bji", u_hat, v),
+                                  plan.logit_frac, rounding)
+                b = qf.fake_quant(b + a, plan.logit_frac, rounding)
+        return v

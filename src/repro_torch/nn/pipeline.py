@@ -5,11 +5,15 @@ int8 faces, and QuantCapsNet, the quantized model it produces.
   calibrate  — max|x| per tap over a reference dataset (Alg. 6 line 8)
   quantize   — per-layer plans + int8 weights -> a QuantCapsNet
   forward_q7 — int8 inference on a selectable op backend
+  forward_fq — fake-quant float forward on a plan's grids (QAT)
 
-The float face runs in full float32: TF32 is switched off for its
-matmuls and convolutions while it runs (`_full_fp32`), since a
-calibration max that drifts by TF32's rounding can move `frac_bits`
-across a power-of-two boundary and change the plan.
+The float and fake-quant faces run in full float32: TF32 is switched off
+for their matmuls and convolutions while they run (`_full_fp32`), since
+a calibration max that drifts by TF32's rounding can move `frac_bits`
+across a power-of-two boundary and change the plan, and a TF32 sum can
+cross a grid line that `forward_fq`'s `floor` snaps to.  Their backward
+runs after they return, so a train step enters the same scope itself
+(`repro_torch.captrain.steps`).
 
 PTQ runs under the spans `ptq.calibrate`, `ptq.plan` and
 `ptq.quantize_weights`; with a numerics probe installed, `forward_q7`
@@ -92,6 +96,14 @@ class CapsPipeline:
         return {l.name: {k: v.to(device) for k, v in l.init(generator).items()}
                 for l in self.layers}
 
+    @staticmethod
+    def param_bytes(params) -> int:
+        """fp32 footprint of a nested dict of params (Table 2's
+        numerator)."""
+        if isinstance(params, dict):
+            return sum(CapsPipeline.param_bytes(v) for v in params.values())
+        return 4 * params.numel()
+
     # ------------------------------------------------------------------
     # float face
     # ------------------------------------------------------------------
@@ -162,6 +174,31 @@ class CapsPipeline:
                         for l in self.layers}
         return QuantCapsNet(pipeline=self, plan=plan, qweights=qweights,
                             rounding=rounding, backend=backend)
+
+    # ------------------------------------------------------------------
+    # fake-quant face (QAT; see repro_torch.captrain)
+    # ------------------------------------------------------------------
+    def forward_fq(self, params, x, plan: PipelinePlan, *,
+                   rounding: str = "floor"):
+        """Float forward with every int8 quantization point fake-applied
+        on the plan's Qm.n grids (straight-through gradients).  The plan
+        comes from the same `plan()` machinery PTQ uses.  With a numerics
+        probe installed, each layer's fake-quant calls are attributed to
+        that layer (and the input's to "input")."""
+        with _full_fp32():
+            if _health._PROBE is None:             # hot path untouched
+                h = qf.fake_quant(x, plan.input_frac)
+                for l in self.layers:
+                    h = l.fwd_fq(params[l.name], plan[l.name], h,
+                                 rounding=rounding)
+                return h
+            with _health.scope("input"):
+                h = qf.fake_quant(x, plan.input_frac)
+            for i, l in enumerate(self.layers):
+                with _health.scope(l.name, index=i, kind=type(l).__name__):
+                    h = l.fwd_fq(params[l.name], plan[l.name], h,
+                                 rounding=rounding)
+            return h
 
     # ------------------------------------------------------------------
     # int8 face

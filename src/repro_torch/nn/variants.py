@@ -4,8 +4,9 @@ A variant is one registration here; plans validate their variant fields
 against the registry, and the backends, the edge VM, the C emitter and
 the static checker resolve it through it.  The port carries two faces
 of each registered variant, `q7` (the torch integer oracle) and `np_q7`
-(the NumPy mirror the EdgeVM runs, copied from the reference), plus the
-C emitter's kernel symbols:
+(the NumPy mirror the EdgeVM runs, copied from the reference), the
+training faces `fq` (fake-quant, for QAT) and `f32` (the variant's plain
+float math), plus the C emitter's kernel symbols:
 
   softmax  "q7"       arm_softmax-style shift softmax (paper baseline)
            "precise"  dequantize -> fp32 softmax -> requant
@@ -22,8 +23,11 @@ import dataclasses
 from typing import Callable
 
 import numpy as np
+import torch
 
+from repro_torch.core.routing import squash as _f32_squash_l2
 from repro_torch.quant import int8_ops as q
+from repro_torch.quant import qformat as qf
 
 KINDS = ("softmax", "squash")
 PLAN_FIELDS = {"softmax": "softmax_impl", "squash": "squash_impl"}
@@ -117,14 +121,98 @@ def _np_squash_q7_approx(s, in_frac: int, out_frac: int = 7):
     return _np_sat8(np.right_shift(ratio * s32, _SQUASH_GUARD_BITS))
 
 
+# ---------------------------------------------------------------------------
+# float and fake-quant faces (training)
+# ---------------------------------------------------------------------------
+def _f32_softmax(b, axis: int = -1):
+    return torch.softmax(b, dim=axis)
+
+
+def _f32_ceil_log2(t):
+    """ceil(log2(t)) on floats by counting powers of two strictly below
+    t (t in [2^-20, 2^30)).  The float face only: a float32 normalizer
+    sum can itself round across a power-of-two boundary, so the
+    fake-quant face mirrors the integer op's int32 sum instead."""
+    K = torch.full_like(t, float(_EXP_FLOOR - 1))
+    for j in range(_EXP_FLOOR - 1, 31):
+        K = K + (t > 2.0 ** j).to(t.dtype)
+    return K
+
+
+def _pow2_exponents(b, axis: int):
+    """floor(b - max) clamped at the shared exponent floor."""
+    return torch.clamp(torch.floor(b - b.amax(dim=axis, keepdim=True)),
+                       min=float(_EXP_FLOOR))
+
+
+def _f32_softmax_approx(b, axis: int = -1):
+    """Float math of the shift softmax (dequantized semantics)."""
+    p = torch.exp2(_pow2_exponents(b, axis))
+    t = p.sum(dim=axis, keepdim=True)
+    return p * torch.exp2(-_f32_ceil_log2(t))
+
+
+def _f32_squash(s):
+    return _f32_squash_l2(s, axis=-1)
+
+
+def _f32_squash_approx(s):
+    M = s.abs().amax(dim=-1, keepdim=True)
+    return s * M / (1.0 + M * M)
+
+
+# Softmax fq faces take the routing logits [B, J, I] and return couplings
+# over dim 1 (the routing loop's QAT convention); the float softmax is the
+# straight-through surrogate.  `sm + (c - sm).detach()` is kept as the
+# reference writes it: its value may sit one ulp off the Q0.7 grid.
+def _fq_softmax_q7(b):
+    sm = torch.softmax(b, dim=1)
+    p = torch.exp2(_pow2_exponents(b, 1))
+    c = torch.clamp(torch.floor(p * 128.0 / p.sum(dim=1, keepdim=True)),
+                    0.0, 127.0) / 128.0
+    return sm + (c - sm).detach()
+
+
+def _fq_softmax_precise(b):
+    return qf.fake_quant(torch.softmax(b, dim=1), 7)
+
+
+def _fq_softmax_approx(b):
+    sm = torch.softmax(b, dim=1)
+    e = _pow2_exponents(b, 1)
+    # the normalizer exponent is computed as the integer op computes it
+    # (int32 sum of powers of two + integer ceil-log2): a float32 sum of
+    # exp2(e) loses its tail once >= 16 logits tie at the max and would
+    # round K across a power-of-two boundary
+    p_int = torch.exp2(e - float(_EXP_FLOOR)).to(torch.int32)
+    k = q.ceil_log2_int(p_int.sum(dim=1, keepdim=True, dtype=torch.int32))
+    K = (k + _EXP_FLOOR).to(torch.float32)
+    c = torch.clamp(torch.floor(torch.exp2(e - K) * 128.0), 0.0,
+                    127.0) / 128.0
+    return sm + (c - sm).detach()
+
+
+# Squash fq faces: the variant's float math snapped onto the plan's
+# output grid.
+def _fq_squash(s, out_frac: int, rounding: str = "floor"):
+    return qf.fake_quant(_f32_squash(s), out_frac, rounding)
+
+
+def _fq_squash_approx(s, out_frac: int, rounding: str = "floor"):
+    return qf.fake_quant(_f32_squash_approx(s), out_frac, rounding)
+
+
 @dataclasses.dataclass(frozen=True)
 class OpVariant:
-    """One operator variant: its int8 faces and its C kernel symbols."""
+    """One operator variant: its int8, training and float faces and its
+    C kernel symbols."""
     name: str                       # registry key within its kind
     kind: str                       # "softmax" | "squash"
     description: str
     q7: Callable                    # torch int8 oracle
     np_q7: Callable                 # NumPy mirror (EdgeVM / MCU contract)
+    fq: Callable                    # fake-quant (QAT) face
+    f32: Callable                   # plain float math of the variant
     c_symbol: str                   # standalone kernel symbol (emit_c)
     c_suffix: str = ""              # routing-kernel symbol suffix
 
@@ -190,31 +278,36 @@ REGISTRY.register(OpVariant(
     description="arm_softmax-style shift softmax (paper baseline): "
                 "powers of two of floor(x - max), integer-divided by "
                 "their sum",
-    q7=q.softmax_q7, np_q7=_np_softmax_q7, c_symbol="arm_softmax_q7"),
+    q7=q.softmax_q7, np_q7=_np_softmax_q7, fq=_fq_softmax_q7,
+    f32=_f32_softmax, c_symbol="arm_softmax_q7"),
     default=True)
 REGISTRY.register(OpVariant(
     name="precise", kind="softmax",
     description="dequantize -> fp32 softmax -> requant Q0.7 "
                 "(beyond-paper accuracy reference)",
     q7=q.softmax_q7_precise, np_q7=_np_softmax_q7_precise,
+    fq=_fq_softmax_precise, f32=_f32_softmax,
     c_symbol="capsnet_softmax_q7_precise", c_suffix="_softmax_precise"))
 REGISTRY.register(OpVariant(
     name="approx", kind="softmax",
     description="ISLPED'22 approximate softmax: shift-based exp with "
                 "power-of-two normalization — no integer division",
     q7=q.softmax_q7_approx, np_q7=_np_softmax_q7_approx,
+    fq=_fq_softmax_approx, f32=_f32_softmax_approx,
     c_symbol="capsnet_softmax_q7_approx", c_suffix="_softmax_approx"))
 REGISTRY.register(OpVariant(
     name="exact", kind="squash",
     description="Eq. 8 squash with Alg. 4 Newton-Raphson integer sqrt "
                 "(paper baseline)",
-    q7=q.squash_q7, np_q7=_np_squash_q7, c_symbol="capsnet_squash_q7"),
+    q7=q.squash_q7, np_q7=_np_squash_q7, fq=_fq_squash,
+    f32=_f32_squash, c_symbol="capsnet_squash_q7"),
     default=True)
 REGISTRY.register(OpVariant(
     name="approx", kind="squash",
     description="ISLPED'22 approximate squash: L-inf norm instead of "
                 "the L2 norm — no square root",
     q7=q.squash_q7_approx, np_q7=_np_squash_q7_approx,
+    fq=_fq_squash_approx, f32=_f32_squash_approx,
     c_symbol="capsnet_squash_q7_approx", c_suffix="_squash_approx"))
 
 DEFAULT_SOFTMAX = REGISTRY.default("softmax")

@@ -35,10 +35,9 @@ Per requantization point the probe records, in exact integer arithmetic:
 
 Per op output it records the int8 range and its utilization of the Qm.n
 grid (optionally into a `MetricsRegistry` histogram); fake-quant sites
-count STE-clipped activations (`observe_fq`, which waits for the port's
-fake-quant face to call it).  `snr_rows` runs `fwd_q7` against the
-`fwd_f32` oracle layer by layer and reports signal-to-quantization-
-noise per layer.  Everything rolls up into a `NumericsReport`
+(`qformat.fake_quant*`) count STE-clipped activations (`observe_fq`).
+`snr_rows` runs `fwd_q7` against the `fwd_f32` oracle layer by layer
+and reports signal-to-quantization-noise per layer.  Everything rolls up into a `NumericsReport`
 (`repro.numerics/v1`), consumed by `export_caps --numerics`,
 `serve_caps --numerics-out` and `python -m repro_torch.obs.analyze`.
 """

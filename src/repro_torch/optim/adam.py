@@ -1,0 +1,144 @@
+"""Optimizers as plain functions over nested dicts of tensors: AdamW
+(default) and SGD-momentum, a cosine schedule, global-norm clipping.
+
+The update is the reference's (`repro.optim.adam`) formula, in float32:
+    m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+    delta = (m / bc1) / (sqrt(v / bc2) + eps) + wd p;  p = p - lr delta
+with b2 = 0.95 by default.  It is not `torch.optim.AdamW`, whose decay
+(applied to p before the step, scaled by lr) and eps placement differ.
+Moments are float32 whatever the parameter dtype; `step` is a 0-d int32
+tensor on the params' device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Union
+
+import torch
+
+from repro_torch.tree import leaves, tree_map
+
+Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
+
+
+def cosine_schedule(peak_lr: float, warmup: int, total: int,
+                    floor: float = 0.1):
+    def fn(step):
+        step = step.to(torch.float32)
+        warm = peak_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1),
+                           0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5 *
+                         (1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return fn
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (sorted key order) of sum(g^2)."""
+    total = 0
+    for g in leaves(tree):
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    tree), norm
+
+
+def _zeros(params):
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
+
+
+def _step0(params):
+    first = leaves(params)
+    device = first[0].device if first else None
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def _lr(lr: Schedule, step):
+    if callable(lr):
+        return lr(step)
+    return torch.as_tensor(lr, dtype=torch.float32, device=step.device)
+
+
+def _clip_or_norm(grads, clip_norm: float):
+    if clip_norm > 0:
+        return clip_by_global_norm(grads, clip_norm)
+    return grads, global_norm(grads)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Schedule = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    clip_norm: float = 1.0
+
+    def init(self, params) -> dict:
+        return {"m": _zeros(params), "v": _zeros(params),
+                "step": _step0(params)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        """(grads, state, params) -> (params, state, {"grad_norm", "lr"})."""
+        step = state["step"] + 1
+        grads, gnorm = _clip_or_norm(grads, self.clip_norm)
+        b1, b2 = self.b1, self.b2
+        lr = _lr(self.lr, step)
+        bc1 = 1 - b1 ** step.to(torch.float32)
+        bc2 = 1 - b2 ** step.to(torch.float32)
+
+        def upd(p, g, m, v):
+            g = g.to(torch.float32)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            mh = m / bc1
+            vh = v / bc2
+            delta = mh / (torch.sqrt(vh) + self.eps)
+            if self.weight_decay:
+                delta = delta + self.weight_decay * p.to(torch.float32)
+            new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+            return new_p, m, v
+
+        out = tree_map(upd, params, grads, state["m"], state["v"])
+        new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "step": step}
+        return _pick(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _pick(tree, i: int):
+    """The i-th member of every tuple leaf."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+@dataclasses.dataclass(frozen=True)
+class SGDM:
+    lr: Schedule = 1e-2
+    momentum: float = 0.9
+    clip_norm: float = 0.0
+
+    def init(self, params) -> dict:
+        return {"m": _zeros(params), "step": _step0(params)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params):
+        step = state["step"] + 1
+        grads, gnorm = _clip_or_norm(grads, self.clip_norm)
+        lr = _lr(self.lr, step)
+
+        def upd(p, g, m):
+            m = self.momentum * m + g.to(torch.float32)
+            return (p.to(torch.float32) - lr * m).to(p.dtype), m
+
+        out = tree_map(upd, params, grads, state["m"])
+        return _pick(out, 0), {"m": _pick(out, 1), "step": step}, \
+            {"grad_norm": gnorm, "lr": lr}

@@ -5,13 +5,19 @@ round(A * 2^n) in int8, where n is the number of (possibly virtual)
 fractional bits.  Every rescale in the int8 pass is then a bit shift:
     out_shift  = f_ia + f_ib - f_o      (right shift of the int32 accum)
     bias_shift = f_ia + f_ib - f_b      (left shift aligning the bias)
+
+The fake-quant faces (`fake_quant`, `fake_quant_with_fracs`) are the QAT
+counterparts: the same grid in float32, with a straight-through gradient.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
+
+from repro_torch.obs import numerics as _health
 
 INT8_MIN, INT8_MAX = -128, 127
 MAX_FRAC_BITS = 24
@@ -38,6 +44,10 @@ def quantize(x, n: int):
     return q.clamp(INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+def dequantize(q, n: int):
+    return torch.as_tensor(q).to(torch.float32) * (2.0 ** -n)
+
+
 def quantize_with_fracs(x, ns, axis: int):
     """float -> int8 with a per-slice fractional-bit table along `axis`
     (fracs already derived, e.g. carried by a ConvPlan).  Computed in
@@ -60,9 +70,76 @@ def quantize_per_channel(x, axis: int):
     return quantize_with_fracs(t, ns, axis), torch.from_numpy(ns)
 
 
+@dataclasses.dataclass(frozen=True)
+class QTensor:
+    """An int8 tensor + its Qm.n fractional-bit count."""
+    q: torch.Tensor       # int8
+    n: int                # fractional bits
+
+    @property
+    def float(self):
+        return dequantize(self.q, self.n)
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.q.numel())
+
+
+def qtensor(x, n: int | None = None) -> QTensor:
+    if n is None:
+        n = frac_bits(float(torch.as_tensor(x).abs().max()))
+    return QTensor(quantize(x, n), n)
+
+
 def out_shift(f_ia: int, f_ib: int, f_o: int) -> int:
     return f_ia + f_ib - f_o
 
 
 def bias_shift(f_ia: int, f_ib: int, f_b: int) -> int:
     return f_ia + f_ib - f_b
+
+
+# ---------------------------------------------------------------------------
+# fake quantization (QAT): the same Qm.n clamp, straight-through gradient
+# ---------------------------------------------------------------------------
+def _ste(x, q):
+    """Straight-through estimator: forward `x + (q - x)` (as the
+    reference computes it, which may sit one ulp off `q`), gradient of
+    the identity."""
+    return x + (q - x).detach()
+
+
+def _round(scaled, rounding: str):
+    return torch.round(scaled) if rounding == "nearest" \
+        else torch.floor(scaled)
+
+
+def fake_quant(x, n: int, rounding: str = "nearest"):
+    """quantize(x, n) -> dequantize, differentiably (STE).
+
+    The forward lands on the Qm.n grid `quantize` produces: the same
+    round/floor and the same [-128, 127] saturation.  "nearest" matches
+    the weight/input quantizer; "floor" matches the truncating
+    accumulator shift (`int8_ops.rshift_sat8`)."""
+    x = torch.as_tensor(x).to(torch.float32)
+    r = _round(x * (2.0 ** n), rounding)
+    if _health._PROBE is not None:     # count STE-clipped grid values
+        _health.observe_fq(r)
+    q = r.clamp(INT8_MIN, INT8_MAX) * (2.0 ** -n)
+    return _ste(x, q)
+
+
+def fake_quant_with_fracs(x, ns, axis: int, rounding: str = "nearest"):
+    """Per-slice fake quantization along `axis` (the QAT face of
+    `quantize_with_fracs`; `ns` comes from a plan, e.g.
+    `ConvPlan.w_frac_per_channel`).  Stays in torch, differentiable."""
+    x = torch.as_tensor(x).to(torch.float32)
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    scale = torch.exp2(torch.as_tensor(ns, dtype=torch.float32,
+                                       device=x.device).reshape(shape))
+    r = _round(x * scale, rounding)
+    if _health._PROBE is not None:     # count STE-clipped grid values
+        _health.observe_fq(r)
+    q = r.clamp(INT8_MIN, INT8_MAX) / scale
+    return _ste(x, q)

@@ -477,3 +477,72 @@ def test_cuda_probed_forward_is_bit_identical_to_unprobed(cuda):
                   if r["family"] == "requant") == [
         ("caps", "requant[0]"), ("conv0", "requant[0]"),
         ("pcap", "requant[0]")]
+
+
+# ---------------------------------------------------------------------------
+# training (repro_torch.captrain) on the card
+# ---------------------------------------------------------------------------
+def _edge_tiny_trainer(cuda, **edit):
+    from repro_torch.captrain import CapsTrainer, TrainConfig
+    from repro_torch.nn import EDGE_TINY
+    tc = TrainConfig(dataset="edge_tiny", batch=32, microbatches=8,
+                     calib_n=32, lr=3e-3, recalib_every=20, **edit)
+    return CapsTrainer(EDGE_TINY, tc, device=cuda)
+
+
+def _state_leaves(state):
+    if isinstance(state, dict):
+        return [x for k in sorted(state) for x in _state_leaves(state[k])]
+    return [state]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qat", [False, True])
+def test_cuda_train_step_repeats_its_bits_after_save_and_restore(
+        cuda, qat, tmp_path):
+    """A full-fp32, deterministic-cuDNN step on the card from a restored
+    checkpoint equals the same step of the uninterrupted run, in loss and
+    in every leaf of the state; the global flags are as before."""
+    from repro_torch import ckpt
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    trainer = _edge_tiny_trainer(cuda)
+    state, _, _ = trainer.fit(trainer.init_state(), 3)
+    plan = trainer.derive_plan(state) if qat else None
+    ckpt.save(tmp_path, 3, state)
+    x, y = trainer.task.batch(3, 32)
+    a, ma = trainer.train_step(state, x, y, plan)
+    fresh = _edge_tiny_trainer(cuda)
+    restored = ckpt.restore(tmp_path, 3, fresh.init_state())
+    b, mb = fresh.train_step(restored, x, y, plan)
+    assert float(ma["loss"]) == float(mb["loss"])
+    for la, lb in zip(_state_leaves(a), _state_leaves(b)):
+        assert torch.equal(la, lb)
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark) == flags
+
+
+@pytest.mark.gpu
+def test_cuda_qat_model_serves_like_the_torch_backend(cuda):
+    """A QAT-trained EDGE_TINY quantized on the card serves bit-identical
+    on the `cuda` and `torch` backends, through both kernels."""
+    from repro_torch.captrain import eval_q7
+    from repro_torch.data.synthetic import make_image_dataset
+    trainer = _edge_tiny_trainer(cuda)
+    state, _, _ = trainer.fit(trainer.init_state(), 4)
+    state, _, _ = trainer.fit(state, 2, qat=True)
+    qnet = trainer.quantize(state, backend="cuda")
+    images, labels = make_image_dataset("edge_tiny", 64, seed=3)
+    xq = qnet.quantize_input(torch.from_numpy(images).to(cuda))
+    n_sq, n_rt = ks.squash_q7.launches, kr.routing_q7.launches
+    fallbacks = sum(get_backend("cuda").fallbacks.values())
+    got = qnet.forward(xq)
+    assert ks.squash_q7.launches > n_sq and kr.routing_q7.launches > n_rt
+    assert sum(get_backend("cuda").fallbacks.values()) == fallbacks
+    assert torch.equal(got, qnet.with_backend("torch").forward(xq))
+    assert eval_q7(qnet, images, labels) == \
+        eval_q7(qnet.with_backend("torch"), images, labels)
