@@ -137,6 +137,41 @@ Phases, each raising on failure:
    with both kernels launched (counts from 0 just before) and no
    fallback counted, and exported as a `.capsbin` into build/train_smoke/
    with the export's re-verify passing.
+11. (run after phase 10, before phase 9) the search,
+   `repro_torch.search`: `run_search(SearchConfig(model="edge_tiny"))` at
+   the CLI's defaults (coordinate, budget 24, 60 float steps, 256 eval
+   images, seed 0) twice, and the random strategy at budget 12 twice,
+   each pair's saved docs byte-identical; then MNIST "L" at full width,
+   `SearchConfig(model="mnist")`, both kernels' launch counts from 0
+   just before and > 0 just after: a non-empty frontier, every point
+   verified and checked with no checker finding and a plan, no
+   dominated pair, no int32 clip in an accepted candidate; every
+   accepted default-variant candidate (the ones whose SNR pass and
+   eval_q7 launched the kernels in the search) rebuilt on the card with
+   its eval_q7 over the 256 eval images equal on `cuda` and `torch` and
+   to the doc's acc, and its v_q equal at B=64 and B=256, both kernels
+   counted from 0 over that comparison and no fallback; every frontier
+   point rebuilt (`rebuild_point`) with the doc's plan, a clean
+   plancheck and the doc's acc; the CLIs as subprocesses into
+   build/search_smoke/: `search_caps --model mnist` exits 0 with a doc
+   byte-identical to the in-process one, `export_caps --from-search ...
+   --point 0` (and `--point K` for the first default-variant point K
+   when it is another) exits 0 and exits 2 on a copy whose point-0 plan
+   has conv0's out_shift changed; the exported point 0 installed on the
+   card serves 64 requests on the `cuda` backend bit-identical to the
+   rebuilt point on the `torch` backend, its launches and fallbacks as
+   its variants promise; and a default-variant result (point K's
+   `.capsbin`, else the baseline spec exported in process) installed
+   and served the same way with both kernels launched and no fallback.
+   `[search]` lines print each search's setup seconds, candidates
+   evaluated and rejected by reason, the median and max
+   `search.evaluate`, the median `edgevm.run` (the EdgeVM on the host)
+   a candidate and its share of `search.evaluate` (spans), one
+   eval_q7 on each backend (CUDA events), `search.frontier` and the
+   total, the fallback decisions by (op, variant), the frontier's size,
+   the baseline's and best point's acc, packed flash and est. M7 ms,
+   and whether a point dominates the baseline's memory or latency
+   within 0.5 % accuracy (printed, not gated).
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -207,6 +242,10 @@ TRAIN_FLOAT_STEPS = 8              # phase 10's MNIST steps
 TRAIN_QAT_STEPS = 4
 TRAIN_TIMED_STEPS = 10
 OBS_DIR = ROOT / "build" / "obs_smoke"
+SEARCH_DIR = ROOT / "build" / "search_smoke"
+SEARCH_MNIST_BUDGET = 24           # phase 11: the CLI's default
+SEARCH_RANDOM_BUDGET = 12
+SEARCH_SERVED = 64                 # requests of the exported point
 
 
 def log(*a):
@@ -1306,6 +1345,358 @@ def train_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the search (repro_torch.search) on the card
+# ---------------------------------------------------------------------------
+def traced_search(cfg, dev) -> tuple:
+    """(doc, tracer, wall s) of one run_search on the card."""
+    from repro_torch import obs
+    from repro_torch.search import run_search
+    tr = obs.Tracer()
+    t = time.perf_counter()
+    with obs.tracing(tr):
+        doc = run_search(cfg, device=dev)
+    return doc, tr, time.perf_counter() - t
+
+
+def log_search(card: str, what: str, doc, tr, wall: float,
+               fallbacks: dict) -> None:
+    """The `[search]` lines of one run (printed, not gated)."""
+    import collections
+    cands = doc["evaluated"]
+    reasons = collections.Counter(c["reject_reason"].split(":")[0]
+                                  for c in cands if not c["ok"])
+    evals = tr.find("search.evaluate")
+    ev = [s.dur_s for s in evals]
+    # the EdgeVM's run inside each candidate: run_numerics on the host
+    vm = [sum(r.dur_s for r in s.find("edgevm.run")) for s in evals]
+    (setup,), (front,) = tr.find("search.setup"), tr.find("search.frontier")
+    base = doc["baseline"]["metrics"]
+    points = doc["frontier"]
+    best = max(points, key=lambda p: (p["metrics"]["acc"],
+                                      -p["metrics"]["flash_packed_bytes"]))
+    cheaper = any(
+        p["metrics"]["acc"] >= base["acc"] - 0.005
+        and (p["metrics"]["flash_packed_bytes"] < base["flash_packed_bytes"]
+             or p["metrics"]["est_ms_m7"] < base["est_ms_m7"])
+        for p in points)
+
+    def axes(m):
+        return (f"acc {m['acc']!r}, flash_packed_bytes "
+                f"{m['flash_packed_bytes']}, est_ms_m7 {m['est_ms_m7']!r}")
+    log(f"[search] {card} | {what}: total {wall:.2f} s; search.setup "
+        f"{setup.dur_s:.2f} s ({doc['config']['float_steps']} float steps + "
+        f"calibration draw, float acc {doc['float_acc']!r}); "
+        f"{len(cands)} candidates evaluated, "
+        f"{sum(not c['ok'] for c in cands)} rejected {dict(reasons)}; "
+        f"search.evaluate median {statistics.median(ev):.3f} s, max "
+        f"{max(ev):.3f} s; search.frontier {front.dur_s:.2f} s")
+    log(f"[search] {card} | {what}: per candidate, edgevm.run (the EdgeVM "
+        f"on the host, inside run_numerics) median "
+        f"{statistics.median(vm):.3f} s, {sum(vm) / sum(ev) * 100:.1f} % of "
+        f"search.evaluate over {len(ev)} candidates; fallback decisions "
+        f"{fallbacks}")
+    log(f"[search] {card} | {what}: frontier {len(points)} point(s); "
+        f"baseline {axes(base)}; best point {best['point']} "
+        f"{axes(best['metrics'])}; a point dominates the baseline's memory "
+        f"or latency within 0.5 % accuracy: {cheaper}")
+
+
+def check_search_kernels(doc, st, dev, card: str) -> None:
+    """Every accepted default-variant candidate of `doc` rebuilt on the
+    card (the candidates whose eval_q7 and SNR pass launched the kernels
+    during the search): eval_q7 over the eval set equal on the `cuda`
+    and `torch` backends and to the doc's acc, and `forward`'s v_q
+    equal at the SNR pass's batch and the eval set's, with both kernels
+    counted from 0 over the comparison and no fallback.  Times one
+    eval_q7 of the baseline on each backend (CUDA events)."""
+    import torch
+    from repro_torch.captrain import eval_q7
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.nn.variants import VariantSet
+    from repro_torch.search import CandidateSpec
+    cfg = st.cfg
+    nets = []
+    for c in doc["evaluated"]:
+        spec = CandidateSpec.from_json(c["spec"])
+        qnet = st.space.build_qnet(spec, rounding=cfg.rounding)
+        if c["ok"] and qnet.variants == VariantSet():
+            nets.append((c, spec, qnet))
+    if not nets:
+        raise AssertionError("mnist search: no accepted default-variant "
+                             "candidate")
+    fallbacks = get_backend("cuda").fallbacks
+    f0 = dict(fallbacks)
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    for c, spec, qnet in nets:
+        ref = qnet.with_backend("torch")
+        acc = {be: eval_q7(q, st.images, st.labels)
+               for be, q in (("cuda", qnet), ("torch", ref))}
+        if acc["cuda"] != acc["torch"] or acc["cuda"] != c["metrics"]["acc"]:
+            raise AssertionError(f"mnist candidate {spec.key}: eval_q7 "
+                                 f"{acc}, doc {c['metrics']['acc']}")
+        with torch.inference_mode():
+            for n in (cfg.numerics_n, cfg.eval_n):
+                x = qnet.quantize_input(torch.as_tensor(
+                    st.images[:n], dtype=torch.float32, device=dev))
+                got, want = qnet.forward(x), ref.forward(x)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"mnist candidate {spec.key}: v_q at B={n} differs "
+                        f"from the torch backend by "
+                        f"{max_abs_diff(got, want)}")
+    moved = {"squash_q7": ks.squash_q7.launches,
+             "routing_q7": kr.routing_q7.launches}
+    if min(moved.values()) == 0 or dict(fallbacks) != f0:
+        raise AssertionError(f"mnist candidates' kernel check: launches "
+                             f"{moved}, fallbacks {dict(fallbacks)} vs {f0}")
+    deepest = max(nets, key=lambda n: -sum(
+        d for _, d in n[1].w_frac_deltas + n[1].out_frac_deltas))[1]
+    first, base = nets[0][1], nets[0][2]
+    base_ref = base.with_backend("torch")
+    ms = {be: cuda_ms(lambda q=q: eval_q7(q, st.images, st.labels),
+                      iters=5, warmup=1)
+          for be, q in (("cuda", base), ("torch", base_ref))}
+    log(f"[search] mnist: {len(nets)} accepted default-variant candidates "
+        f"rebuilt on the card (the deepest frac reduction "
+        f"w {list(deepest.w_frac_deltas)}, out "
+        f"{list(deepest.out_frac_deltas)}): eval_q7 over {cfg.eval_n} "
+        f"images equal on cuda and torch and to the doc's acc, v_q equal "
+        f"at B={cfg.numerics_n} and B={cfg.eval_n}; launches over the "
+        f"comparison {moved}, no fallback")
+    log(f"[search] {card} | mnist eval_q7 of {first.key} over {cfg.eval_n} "
+        f"images (CUDA events, mean of 5): cuda {ms['cuda']:.4f} ms, torch "
+        f"backend {ms['torch']:.4f} ms")
+
+
+def serve_exported(dev, capsbin, ref, model_id: str, images) -> tuple:
+    """Install `capsbin` on the card and serve `images` through the
+    engine, bit-identical to `ref` on the torch backend (card and CPU).
+    Returns (installed net, launches, fallback decisions), counted from
+    0 over the serving window."""
+    from types import SimpleNamespace
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.serving import ModelRegistry, serve_window
+    fallbacks = get_backend("cuda").fallbacks
+    reg = ModelRegistry(specs={}, device=dev)
+    net = reg.install_artifact(capsbin, model_id=model_id)
+    f0 = dict(fallbacks)
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    _, done, _ = serve_window(reg, BUCKETS, images, model_id)
+    served = {"squash_q7": ks.squash_q7.launches,
+              "routing_q7": kr.routing_q7.launches}
+    check_completions(dict(spec=SimpleNamespace(model_id=model_id),
+                           qnet=ref, images=images, completions=done))
+    return net, served, {k: v - f0.get(k, 0) for k, v in
+                         dict(fallbacks).items() if v != f0.get(k, 0)}
+
+
+def search_phase(dev, card: str) -> dict:
+    """Phase 11: EDGE_TINY searches repeated byte for byte, the MNIST "L"
+    search at full width with the kernels counted, its default-variant
+    candidates held against the torch backend, its frontier points
+    rebuilt, the two CLIs as subprocesses, and the exported point and a
+    default-variant artifact served on the card.  Returns the kernels'
+    launches over the MNIST search."""
+    import os
+    import torch
+    from repro_torch.captrain import eval_q7
+    from repro_torch.edge import export_artifacts
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.nn.plans import plan_to_json
+    from repro_torch.nn.variants import VariantSet
+    from repro_torch.search import (CandidateSpec, SearchConfig,
+                                    dominated_pairs, rebuild_point, save_doc)
+    shutil.rmtree(SEARCH_DIR, ignore_errors=True)
+    SEARCH_DIR.mkdir(parents=True)
+    fallbacks = get_backend("cuda").fallbacks
+
+    def fallbacks_since(f0):
+        return {k: v - f0.get(k, 0) for k, v in dict(fallbacks).items()
+                if v != f0.get(k, 0)}
+
+    # 1. EDGE_TINY at the CLI's defaults, each strategy twice: same bytes
+    for cfg in (SearchConfig(model="edge_tiny"),
+                SearchConfig(model="edge_tiny", strategy="random",
+                             budget=SEARCH_RANDOM_BUDGET)):
+        paths = []
+        for i in range(2):
+            f0 = dict(fallbacks)
+            doc, tr, wall = traced_search(cfg, dev)
+            paths.append(SEARCH_DIR / f"edge_tiny_{cfg.strategy}_{i}.json")
+            save_doc(doc, paths[-1])
+            if i == 0:
+                log_search(card, f"edge_tiny {cfg.strategy} budget "
+                           f"{cfg.budget}", doc, tr, wall,
+                           fallbacks_since(f0))
+        if paths[0].read_bytes() != paths[1].read_bytes():
+            raise AssertionError(f"edge_tiny {cfg.strategy}: two runs of one "
+                                 f"seed wrote different docs")
+        log(f"[search] edge_tiny {cfg.strategy}: two runs, byte-identical "
+            f"docs ({paths[0].stat().st_size} bytes)")
+
+    # 2. MNIST "L" at full width: counts from 0 just before, read after
+    cfg = SearchConfig(model="mnist", budget=SEARCH_MNIST_BUDGET)
+    f0 = dict(fallbacks)
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    doc, tr, wall = traced_search(cfg, dev)
+    launches = {"squash_q7": ks.squash_q7.launches,
+                "routing_q7": kr.routing_q7.launches}
+    log_search(card, f"mnist coordinate budget {cfg.budget}", doc, tr,
+               wall, fallbacks_since(f0))
+    log(f"[search] mnist: launches over the search {launches}")
+    doc_path = SEARCH_DIR / "mnist_inproc.json"
+    save_doc(doc, doc_path)
+    points = doc["frontier"]
+    if not points or dominated_pairs(points) != 0 or min(
+            launches.values()) == 0:
+        raise AssertionError(f"mnist search: {len(points)} frontier points, "
+                             f"{dominated_pairs(points)} dominated pairs, "
+                             f"launches {launches}")
+    for p in points:
+        if not (p["verified"] and p["checked"] and p["plan"]
+                and p["metrics"]["checker_findings"] == 0):
+            raise AssertionError(f"mnist frontier point {p['point']}: {p}")
+    for c in doc["evaluated"]:
+        if c["ok"] and c["metrics"]["int32_clip"] != 0:
+            raise AssertionError(f"accepted candidate clipped: {c}")
+    qnet0, _, st = rebuild_point(doc, 0, device=dev)
+    check_search_kernels(doc, st, dev, card)
+    for p in points:
+        qnet = st.space.build_qnet(CandidateSpec.from_json(p["spec"]),
+                                   rounding=cfg.rounding)
+        if plan_to_json(qnet.plan) != p["plan"] or qnet.plan.check():
+            raise AssertionError(f"mnist point {p['point']}: rebuilt plan "
+                                 f"differs or fails plancheck")
+        acc = {be: eval_q7(qnet.with_backend(be), st.images, st.labels)
+               for be in ("cuda", "torch")}
+        if acc["cuda"] != acc["torch"] or acc["cuda"] != p["metrics"]["acc"]:
+            raise AssertionError(f"mnist point {p['point']}: eval_q7 {acc}, "
+                                 f"doc {p['metrics']['acc']}")
+    tags = [f"{p['spec']['softmax'] or '-'}+{p['spec']['squash'] or '-'}"
+            for p in points]
+    log(f"[search] mnist: {len(points)} frontier point(s) rebuilt on the "
+        f"card (softmax+squash {tags}, '-' the default), plans equal to "
+        f"the doc's and plancheck-clean, eval_q7 on cuda equal to torch "
+        f"and to the doc's acc (a variant point runs the torch fallback "
+        f"on both)")
+
+    # 3. the CLIs, as a user runs them
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def cli(module, *args) -> subprocess.Popen:
+        return subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.launch.{module}",
+             *map(str, args)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    cli_doc = SEARCH_DIR / "mnist.json"
+    t = time.perf_counter()
+    proc = cli("search_caps", "--model", "mnist", "--budget", cfg.budget,
+               "--out", cli_doc)
+    out, err = proc.communicate(timeout=600)
+    sec = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"search_caps --model mnist: exit "
+                             f"{proc.returncode}\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    same = cli_doc.read_bytes() == doc_path.read_bytes()
+    log(f"[search] {card} | search_caps --model mnist --budget {cfg.budget}: "
+        f"exit 0 in {sec:.1f} s (process included); its doc byte-identical "
+        f"to the in-process run's: {same}")
+    if not same:
+        raise AssertionError("search_caps wrote another doc than run_search "
+                             "for the same config on the same card")
+    # the exports side by side: point 0, the first default-variant point
+    # when it is another, and the tampered copy's refusal
+    dflt = next((p["point"] for p in points
+                 if not (p["spec"]["softmax"] or p["spec"]["squash"])), None)
+    bad = json.loads(cli_doc.read_text())
+    bad["frontier"][0]["plan"]["layers"]["conv0"]["out_shift"] += 1
+    bad_path = SEARCH_DIR / "mnist_tampered.json"
+    save_doc(bad, bad_path)
+    jobs = [(cli_doc, 0, SEARCH_DIR / "mnist_p0"),
+            (bad_path, 0, SEARCH_DIR / "tampered")]
+    if dflt not in (None, 0):
+        jobs.append((cli_doc, dflt, SEARCH_DIR / f"mnist_p{dflt}"))
+    t = time.perf_counter()
+    env["OMP_NUM_THREADS"] = str(max(1, (os.cpu_count() or 2) // len(jobs)))
+    procs = [cli("export_caps", "--from-search", path, "--point", k,
+                 "--out", out) for path, k, out in jobs]
+    outs = [p.communicate(timeout=600) for p in procs]
+    sec = time.perf_counter() - t
+    for (path, k, out_dir), p, (out, err) in zip(jobs, procs, outs):
+        if path == bad_path:
+            if p.returncode != 2 or out_dir.exists():
+                raise AssertionError(f"export_caps on a doc with conv0's "
+                                     f"out_shift changed: exit "
+                                     f"{p.returncode}\n{err[-2000:]}")
+            refusal = err.strip().splitlines()[-1][:100]
+        elif p.returncode != 0:
+            raise AssertionError(f"export_caps --from-search --point {k}: "
+                                 f"exit {p.returncode}\n{out[-3000:]}\n"
+                                 f"{err[-3000:]}")
+    log(f"[search] {card} | export_caps --from-search mnist.json --point "
+        f"{', '.join(str(k) for path, k, _ in jobs if path == cli_doc)}: "
+        f"exit 0; on a copy with point 0's conv0 out_shift + 1: exit 2 "
+        f"({refusal}); all side by side in {sec:.1f} s (process start and "
+        f"rebuild included)")
+
+    # 4. the exported point 0 on the card, counted from 0: a default-
+    # variant point launches both kernels and counts no fallback; a
+    # variant runs the counted fallback where the kernels lack it
+    # (nn/backend.py)
+    images = st.images[:SEARCH_SERVED]
+    (capsbin,) = (SEARCH_DIR / "mnist_p0").glob("*.capsbin")
+    net, served, fb = serve_exported(dev, capsbin, qnet0, "mnist_p0@cuda",
+                                     images)
+    v, dv = qnet0.variants, VariantSet()
+    want = {"squash_q7": v.squash == dv.squash, "routing_q7": v == dv}
+    if net.backend != "cuda" or want != {k: n > 0 for k, n in
+                                         served.items()} \
+            or bool(fb) != (v != dv):
+        raise AssertionError(f"exported point ({v.tag}) served on "
+                             f"{net.backend}, launches {served}, "
+                             f"fallbacks {fb}")
+    log(f"[search] {capsbin.name} ({v.tag}): installed on the card, "
+        f"{len(images)} requests on the cuda backend bit-identical to the "
+        f"rebuilt point on the torch backend; launches {served}, fallback "
+        f"decisions {fb}")
+
+    # 5. a default-variant result through the same install and serving
+    # path, both kernels launched and no fallback: the first default-
+    # variant frontier point's CLI export, else the baseline exported
+    spec = CandidateSpec() if dflt is None else \
+        CandidateSpec.from_json(points[dflt]["spec"])
+    ref = st.space.build_qnet(spec, rounding=cfg.rounding)
+    if dflt is None:
+        export_artifacts(ref, SEARCH_DIR / "mnist_baseline",
+                         stem="mnist_baseline",
+                         verify_images=st.images[:cfg.verify_n])
+        what = "the baseline (no frontier point has the default variants)"
+        (capsbin,) = (SEARCH_DIR / "mnist_baseline").glob("*.capsbin")
+    else:
+        what = f"frontier point {dflt}"
+        (capsbin,) = (SEARCH_DIR / f"mnist_p{dflt}").glob("*.capsbin")
+    net, served, fb = serve_exported(dev, capsbin, ref,
+                                     f"{capsbin.stem}@cuda", images)
+    if net.backend != "cuda" or min(served.values()) == 0 or fb:
+        raise AssertionError(f"default-variant artifact {capsbin.name} "
+                             f"served on {net.backend}, launches {served}, "
+                             f"fallbacks {fb}")
+    log(f"[search] {capsbin.name}, {what}: installed on the card, "
+        f"{len(images)} requests on the cuda backend bit-identical to the "
+        f"rebuilt spec on the torch backend; launches {served}, no "
+        f"fallback")
+    torch.cuda.synchronize()
+    return dict(launches=launches)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 def time_kernels(run, dev) -> dict:
@@ -1941,6 +2332,9 @@ def main(argv=None) -> int:
     # phase 10: training; its int8 path's counts from 0 inside, read after
     train = train_phase(dev, card)
 
+    # phase 11: the search; its counts from 0 inside, read after
+    search = search_phase(dev, card)
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -1996,7 +2390,8 @@ def main(argv=None) -> int:
             entry["launches_by_path"] = {
                 "main": launches[name],
                 "artifact": artifact["launches"][name],
-                "train": train["launches"][name]}
+                "train": train["launches"][name],
+                "search": search["launches"][name]}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (

@@ -28,9 +28,12 @@ cost-model drift report (repro_torch.obs.analyze.costmodel_drift);
 `--numerics` runs it with numeric-health probes and prints the report
 (exit 1 on an int32 clip or an observed value outside its static
 bound), and `--numerics-out PATH` also writes it as a
-`repro.numerics/v1` doc.
-
-The reference's `--from-search` waits for the port of its search.
+`repro.numerics/v1` doc.  `--from-search RESULT.json --point N` exports
+frontier point N of a `repro.search/v1` doc (`search_caps --out`): it
+replays the doc's seeded setup on the device, asserts the rebuilt plan
+equals the doc's bit for bit (exit 2 on a drift, a bad point index, a
+wrong schema or an unreadable file), re-runs the static checker before
+anything is written (exit 1 on a finding), then exports.
 """
 from __future__ import annotations
 
@@ -101,9 +104,22 @@ def main(argv=None) -> int:
                     "implies --numerics")
     ap.add_argument("--numerics-n", type=int, default=8,
                     help="images for the --numerics probe batch")
+    ap.add_argument("--from-search", metavar="RESULT.json", default=None,
+                    help="export a frontier point from a repro.search/v1 "
+                    "result doc (repro_torch.launch.search_caps --out): "
+                    "replays the doc's seeded setup, rebuilds the point's "
+                    "model, asserts its plan matches the doc bit-for-bit, "
+                    "re-runs the static checker, then exports.  Ignores "
+                    "--model/--rounding/--per-channel/--softmax/--squash "
+                    "(the doc's config governs)")
+    ap.add_argument("--point", type=int, default=0,
+                    help="frontier point index for --from-search")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
+
+    if args.from_search:
+        return _export_from_search(args)
 
     registry = ModelRegistry(device=args.device)
     backend = "cuda" if registry.device.type == "cuda" else "torch"
@@ -178,6 +194,49 @@ def main(argv=None) -> int:
             for f in findings:
                 print(f"[export_caps] NUMERICS: {f}", file=sys.stderr)
             return 1
+    return 0
+
+
+def _export_from_search(args) -> int:
+    """The --from-search path: result doc + point index -> artifact."""
+    from repro_torch.analysis import check_program
+    from repro_torch.device import resolve_device
+    from repro_torch.edge import export_artifacts, lower
+    from repro_torch.search import load_doc, rebuild_point
+
+    device = resolve_device(args.device)
+    try:
+        doc = load_doc(args.from_search)
+        qnet, entry, st = rebuild_point(doc, args.point, device=device)
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"[export_caps] --from-search: {e}", file=sys.stderr)
+        return 2
+    print(f"[export_caps] search point {args.point} of "
+          f"{args.from_search}: spec={entry['spec']} "
+          f"acc={entry['metrics'].get('acc'):.4f} device={device} "
+          f"-> {args.out}")
+
+    # re-run the static verifier on the rebuilt program BEFORE anything
+    # is written, even though export_artifacts would check again — a
+    # drifted checker must block the export here
+    result = check_program(lower(qnet))
+    if not result.ok:
+        print(f"[export_caps] STATIC CHECK FAILED:\n{result.format()}",
+              file=sys.stderr)
+        return 1
+    stem = args.stem or f"{doc['config']['model']}_p{args.point}"
+    verify = st.images[:args.verify_n] if args.verify_n > 0 else None
+    try:
+        out = export_artifacts(qnet, args.out, stem=stem,
+                               verify_images=verify, check=args.check)
+    except CheckError as e:
+        print(f"[export_caps] STATIC CHECK FAILED:\n{e}", file=sys.stderr)
+        return 1
+    except AssertionError as e:
+        print(f"[export_caps] VERIFY FAILED: {e}", file=sys.stderr)
+        return 1
+    print(describe(out["program"]))
+    print(format_export(out))
     return 0
 
 

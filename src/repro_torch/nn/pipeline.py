@@ -273,3 +273,13 @@ class QuantCapsNet:
         """A model running `variants`: a pure plan edit (weights and
         shifts untouched)."""
         return dataclasses.replace(self, plan=variants.apply(self.plan))
+
+    def with_softmax(self, impl: str) -> "QuantCapsNet":
+        """Softmax-only plan edit (see with_variants)."""
+        return self.with_variants(
+            dataclasses.replace(self.variants, softmax=impl))
+
+    def with_squash(self, impl: str) -> "QuantCapsNet":
+        """Squash-only plan edit (see with_variants)."""
+        return self.with_variants(
+            dataclasses.replace(self.variants, squash=impl))

@@ -114,6 +114,14 @@ class PipelinePlan:
     def variants(self) -> "_variants.VariantSet":
         return _variants.VariantSet.of_plan(self)
 
+    def check(self) -> list:
+        """Lint this plan's shift/frac algebra, per-channel tables,
+        variant references and layer chaining
+        (repro_torch.analysis.plancheck): the diagnostics, empty when
+        clean."""
+        from repro_torch.analysis.plancheck import check_pipeline_plan
+        return check_pipeline_plan(self)
+
 
 _PLAN_KINDS = {cls.__name__: cls
                for cls in (ConvPlan, PrimaryCapsPlan, RoutingPlan)}

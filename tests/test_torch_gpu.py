@@ -546,3 +546,36 @@ def test_cuda_qat_model_serves_like_the_torch_backend(cuda):
     assert torch.equal(got, qnet.with_backend("torch").forward(xq))
     assert eval_q7(qnet, images, labels) == \
         eval_q7(qnet.with_backend("torch"), images, labels)
+
+
+# ---------------------------------------------------------------------------
+# the search (repro_torch.search) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+def test_cuda_search_candidates_equal_the_torch_backends(cuda):
+    """The objective scores the default spec and an approx-softmax spec
+    the same on the `cuda` backend (the space's own on the card) and on
+    the `torch` backend over the same space; only the approx spec counts
+    a fallback, and the default spec launches both kernels."""
+    from repro_torch.search import (CandidateSpec, Objective, SearchConfig,
+                                    SearchSpace, setup_space)
+
+    class TorchOnCard(SearchSpace):
+        backend = "torch"
+
+    st = setup_space(SearchConfig(model="edge_tiny", float_steps=8,
+                                  eval_n=64), device=cuda)
+    assert st.space.backend == "cuda"
+    twin = TorchOnCard(st.space.cfg, st.space.params, st.space.calib_images)
+    fb = get_backend("cuda").fallbacks
+    for spec in (CandidateSpec(), CandidateSpec(softmax="approx")):
+        n = (ks.squash_q7.launches, kr.routing_q7.launches)
+        f0 = dict(fb)
+        got = Objective(st.space, st.images, st.labels).evaluate(spec)
+        moved = dict(fb) != f0
+        assert moved == bool(spec.softmax)
+        if not spec.softmax:
+            assert ks.squash_q7.launches > n[0]
+            assert kr.routing_q7.launches > n[1]
+        want = Objective(twin, st.images, st.labels).evaluate(spec)
+        assert got.to_json() == want.to_json()

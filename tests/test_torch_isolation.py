@@ -98,6 +98,25 @@ def test_the_artifact_entry_points_default_to_the_card(no_gpu, tmp_path):
     assert to_qnet(program, device="cpu").backend == "torch"
 
 
+def test_the_search_entry_points_default_to_the_card(no_gpu, tmp_path):
+    from repro_torch.launch import export_caps, search_caps
+    from repro_torch.search import SearchConfig, run_search, save_doc
+    doc = run_search(SearchConfig(budget=2, float_steps=1, eval_n=8,
+                                  calib_n=8, numerics_n=8, verify_n=1),
+                     device="cpu")
+    save_doc(doc, tmp_path / "doc.json")
+    for call in (
+            lambda: search_caps.main(["--out", str(tmp_path / "s.json")]),
+            lambda: run_search(SearchConfig(budget=2, float_steps=1)),
+            lambda: export_caps.main(["--from-search",
+                                      str(tmp_path / "doc.json"),
+                                      "--out", str(tmp_path / "o")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "s.json").exists()
+    assert not (tmp_path / "o").exists()
+
+
 def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
     (tmp_path / "chip_smoke.py").write_bytes(
         (ROOT / "chip_smoke.py").read_bytes())
