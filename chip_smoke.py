@@ -172,6 +172,42 @@ Phases, each raising on failure:
    the baseline's and best point's acc, packed flash and est. M7 ms,
    and whether a point dominates the baseline's memory or latency
    within 0.5 % accuracy (printed, not gated).
+12. (run after phase 11, before phase 9) the LM serving path,
+   `repro_torch.launch.serve` on `repro_torch.models`, with every earlier
+   phase's tensors freed first: `w8a8_dense` bit for bit against its
+   plain version (bf16 out) at every product (K, N) of the three W8A8
+   configs served below, read off their param trees (qwen3_14b: (5120,
+   6144), (5120, 1024), (6144, 5120), (5120, 17408), (17408, 5120),
+   (5120, 152064); gemma3_12b: d 3840, lm_head N 262144; stablelm_3b: d
+   2560, d_ff 6912, vocab 50432 padded), for M = 8 (a decode step) and
+   512 (a prefill of 8 x 64), a ragged (7, 100, 33) on mma.sync and a
+   split-K (4, 2048, 8), one `[lm]` line each with its configs, route,
+   tile and split; qwen3_14b at full width and
+   depth (40 layers, 15.19 B parameters) serving 8 requests x 64 prompt
+   tokens for 32 greedy tokens, float then W8A8, finite logits required,
+   `w8a8_dense` counted from 0 just before the W8A8 run and required to
+   launch exactly 281 x 32 = 8,992 times (7 products x 40 blocks +
+   lm_head, per forward, 1 prefill + 31 decode steps), the float run's
+   decode after prefill(64) held against prefill(65) within the CPU
+   tests' atol 0.15 + rtol 0.05, and the share of greedy tokens W8A8
+   and float agree on printed; gemma3_12b at full width, one pattern
+   cycle (5 SWA + 1 global layer, its SWA caches a ring of 512 slots),
+   float (consistency gated) and W8A8 (printed); paligemma_3b at full
+   width and depth with its 256 zero image embeds, float, its
+   consistency held to the same tolerance with at most 8 logits beyond
+   it and none more than 0.25 off, and a float32 copy of its params
+   (the witness) required to pass the tolerance with none beyond, each
+   bf16 path's distance from the witness printed;
+   `python -m repro_torch.launch.serve --arch stablelm_3b --no-reduce
+   --quant w8a8 --requests 8 --prompt-len 64 --gen 32` exits 0;
+   `serve_caps --model mnist@cuda --requests 128 --mesh host` exits 0
+   printing `mesh={'pod': 1, 'model': 1, 'data': 1}` with both kernels
+   launched, and waves bound under the host mesh equal waves without one
+   at every bucket; `[lm]` lines hold prefill ms, decode ms a step, tok/s,
+   parameter MiB and peak device GiB of each run beside the card's name
+   and power limit, and `[time]`/`[device]` lines `w8a8_dense` at (8,
+   17408, 5120) and (512, 5120, 17408) beside its plain version, its
+   bound and `torch._int_mm`.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -181,7 +217,9 @@ repository's `src/`.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -1697,6 +1735,426 @@ def search_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the LM serving path (repro_torch.models, launch.serve) and the
+# one-card sharded waves
+# ---------------------------------------------------------------------------
+# qwen3_14b's dense products (K, N): wq, wk/wv, wo, gate/up, down,
+# lm_head; what `dense_kn` must read off its param tree
+QWEN_DENSE_KN = ((5120, 1024), (5120, 6144), (5120, 17408), (5120, 152064),
+                 (6144, 5120), (17408, 5120))
+LM_DENSE_M = (8, 512)                  # a decode step, a prefill (8 x 64)
+LM_RAGGED = (7, 100, 33)               # K % 16 != 0: the mma.sync loop
+LM_SPLIT = (4, 2048, 8)                # one output tile: split K
+LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 64, 32
+# the timed shapes of the JSON record: a decode step's down projection
+# (the headline) and a prefill's gate/up projection
+LM_TIMED = ((8, 17408, 5120), (512, 5120, 17408))
+# decode/prefill consistency, the CPU tests' tolerance (the reference's
+# own for this check)
+CONSIST_ATOL, CONSIST_RTOL = 0.15, 0.05
+# paligemma_3b at full depth in bf16 on an H100: 4 of 2,057,728 logits
+# 0.1953 off (bound 0.15 + 0.05 |a|), the same in every run; its gate
+# bounds how many and how far, and a float32 run of the same params
+# must pass the tolerance with none beyond it
+CONSIST_OUTLIERS, CONSIST_MAX = 8, 0.25
+CONSIST_GATES = {
+    "tol": "the CPU tests' tolerance, no logit beyond it; argmax printed "
+    "(random weights leave near-ties among 152k-262k logits)",
+    "bounded": f"the CPU tests' tolerance with at most {CONSIST_OUTLIERS} "
+    f"logits beyond it, none more than {CONSIST_MAX} off; the float32 "
+    "witness with none beyond it",
+    "print": "none: W8A8 quantizes each activation tensor with one dynamic "
+    "exponent, so 8 x 65 rows and 8 rows quantize a row differently"}
+
+
+def dense_bound(M: int, K: int, N: int):
+    """w8a8_dense's bound: 2MKN int8 operations against MK + KN bytes of
+    int8 in, 2MN of bf16 out and 4N of exponents."""
+    return gemm_bound(M, K, N, M * N + 4 * N)
+
+
+def dense_operands(M: int, K: int, N: int, g, dev):
+    """Random int8 operands and exponents, drawn on the card from `g`."""
+    import torch
+    z = dict(generator=g, device=dev)
+    xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, **z)
+    wq = torch.randint(-128, 128, (K, N), dtype=torch.int8, **z)
+    xe = torch.randint(-24, 25, (), **z).float()
+    n = torch.randint(-24, 25, (N,), dtype=torch.int32, **z)
+    return xq, wq, xe, n
+
+
+def dense_kn(cfg) -> list:
+    """(K, N) of every W8A8 dense product of `cfg`, read off the
+    quantized param tree of one pattern cycle (depth changes no shape)
+    built on the meta device (no memory, no data)."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import is_qweight, quantize_lm_params
+    cycle = dataclasses.replace(cfg, num_layers=len(cfg.blocks))
+    tree = quantize_lm_params(build_model(cycle).init(torch.Generator(),
+                                                      "meta"))
+    out = set()
+
+    def walk(t):
+        if is_qweight(t):
+            out.add(tuple(t["q"].shape[-2:]))
+        elif isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (tuple, list)):
+            for v in t:
+                walk(v)
+    walk(tree)
+    return sorted(out)
+
+
+def check_dense(dev, cfgs) -> float:
+    """w8a8_dense against its plain version on the card, bit for bit, at
+    every product of the W8A8 configs phase 12 serves (M 8 and 512: a
+    decode step and a prefill of 8 x 64), a ragged shape and a split-K
+    one; returns the largest |difference| (0)."""
+    import torch
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import w8a8_dense as kd
+    users = {}
+    for cfg in cfgs:
+        kn = dense_kn(cfg)
+        if cfg.name == "qwen3_14b" and kn != sorted(QWEN_DENSE_KN):
+            raise AssertionError(f"qwen3_14b's products read {kn}")
+        for k in kn:
+            users.setdefault(k, []).append(cfg.name)
+    g = torch.Generator(dev).manual_seed(SEED + 12)
+    cases = [(M, K, N, "/".join(names)) for (K, N), names in users.items()
+             for M in LM_DENSE_M]
+    cases += [(*LM_RAGGED, "ragged"), (*LM_SPLIT, "split K")]
+    worst = 0.0
+    for M, K, N, who in cases:
+        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
+        plan = kq.plan_for(xq, wq)
+        got = kd.w8a8_dense(xq, wq, xe, n)
+        want = kd.w8a8_dense_plain(xq, wq, xe, n)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+            raise AssertionError(f"w8a8_dense {(M, K, N)} ({plan}) differs "
+                                 "from its plain version")
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        log(f"[lm] w8a8_dense {(M, K, N)} ({who}): route {plan.route}, "
+            f"tile {plan.tile}, split {plan.split}: bit-exact against the "
+            f"plain version (bf16 out)")
+        del xq, wq, got, want
+    if not {"wgmma", "mma.sync"} <= {
+            r for r, c in kd.w8a8_dense.launches_by_route.items() if c}:
+        raise AssertionError(f"w8a8_dense left a route unused: "
+                             f"{kd.w8a8_dense.launches_by_route}")
+    return worst
+
+
+def decode_vs_prefill(model, params, cfg, dev) -> tuple:
+    """(prefill(t[:65]) logits, decode_step(t[64]) logits after
+    prefill(t[:64])), float32, for 8 TokenTask rows (zero image embeds
+    for a VLM)."""
+    import torch
+    from repro_torch.data.synthetic import TokenTask
+    toks = torch.as_tensor(TokenTask(cfg.vocab_size, LM_PROMPT + 1, seed=5)
+                           .batch(0, LM_REQUESTS)["inputs"], device=dev)
+    batch = {}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.zeros(
+            (LM_REQUESTS, cfg.num_prefix_embeds, cfg.d_model), device=dev)
+    pos = LM_PROMPT + (cfg.num_prefix_embeds if cfg.family == "vlm" else 0)
+    with torch.inference_mode():
+        full, _ = model.prefill(params, dict(batch, inputs=toks), alloc=512)
+        _, cache = model.prefill(params, dict(batch,
+                                              inputs=toks[:, :LM_PROMPT]),
+                                 alloc=512)
+        dec, _ = model.decode_step(params, cache, toks[:, LM_PROMPT:], pos)
+    a, b = full.float(), dec.float()
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError(f"{cfg.name}: non-finite logits")
+    return a, b
+
+
+def tree_float32(tree):
+    """A float32 copy of a param tree (nested dicts and tuples)."""
+    if isinstance(tree, dict):
+        return {k: tree_float32(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_float32(v) for v in tree)
+    return tree.float()
+
+
+def lm_consistency(model, params, cfg, dev, quant: str, gate: str) -> str:
+    """prefill(t[:64]) then decode_step(t[64]) against prefill(t[:65]);
+    returns the lines.  `gate` "tol" raises on any logit past the CPU
+    tests' tolerance; "bounded" on more than CONSIST_OUTLIERS of them or
+    one more than CONSIST_MAX off, and runs the same check on a float32
+    copy of the params (a witness that rounds neither path to bf16),
+    which must have none; "print" never raises."""
+    import torch
+    a, b = decode_vs_prefill(model, params, cfg, dev)
+    err = (a - b).abs()
+    beyond = err > CONSIST_ATOL + CONSIST_RTOL * a.abs()
+    over, worst = int(beyond.sum()), float(err.max())
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    line = (f"{cfg.name} {quant}: decode after prefill({LM_PROMPT}) vs "
+            f"prefill({LM_PROMPT + 1}): "
+            f"max |diff| {worst:.4f} over logits up to "
+            f"{float(a.abs().max()):.3f}, {over} beyond atol "
+            f"{CONSIST_ATOL} + rtol {CONSIST_RTOL}, argmax equal on "
+            f"{agree}/{LM_REQUESTS} rows")
+    if (gate == "tol" and over) or (gate == "bounded" and (
+            over > CONSIST_OUTLIERS or worst > CONSIST_MAX)):
+        raise AssertionError(line)
+    if gate != "bounded":
+        return line
+    # the float32 witness: which bf16 path lies off the unrounded logits
+    p32 = tree_float32(params)
+    wa, wb = decode_vs_prefill(model, p32, cfg, dev)
+    del p32
+    werr = (wa - wb).abs()
+    wover = int((werr > CONSIST_ATOL + CONSIST_RTOL * wa.abs()).sum())
+    fa, fb = (a - wa).abs(), (b - wb).abs()
+    at = (f"at the {over} logits beyond: prefill off float32 by up to "
+          f"{float(fa[beyond].max()):.4f}, decode by up to "
+          f"{float(fb[beyond].max()):.4f}" if over else "none beyond")
+    line += (f"\n[lm] {cfg.name} float32 witness (the same params in "
+             f"float32): decode vs prefill max |diff| "
+             f"{float(werr.max()):.6f}, {wover} beyond the tolerance; bf16 "
+             f"prefill({LM_PROMPT + 1}) off it by up to "
+             f"{float(fa.max()):.4f}, bf16 decode by up to "
+             f"{float(fb.max()):.4f}; {at}")
+    if wover:
+        raise AssertionError(line)
+    return line
+
+
+def warm_times(res, cfg, dev, steps: int = 8) -> tuple:
+    """One more prefill of the served prompts and `steps` decode steps on
+    the served params, the kernels and cuBLAS warm: (prefill ms, decode
+    ms a step), host clock around work ending in a synchronize."""
+    import torch
+    from repro_torch.models.transformer import decode_alloc
+    model, params = res["model"], res["params"]
+    batch = {"inputs": res["prompts"]}
+    if cfg.family == "vlm":
+        batch["prefix_embeds"] = torch.zeros(
+            (LM_REQUESTS, cfg.num_prefix_embeds, cfg.d_model), device=dev)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch,
+                                      alloc=decode_alloc(LM_PROMPT + LM_GEN))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for i in range(steps):
+            logits, cache = model.decode_step(params, cache, tok,
+                                              res["pos0"] + i)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps
+
+
+def serve_lm(cfg, dev, card: str, quant: str, consist: str):
+    """launch.serve.serve of `cfg` (8 x 64 prompts, 32 greedy tokens),
+    finite logits required, the numbers logged (the serve call's, its
+    first calls included, and a warm prefill and 8 decode steps after
+    it); then the consistency check (`consist`: a `lm_consistency` gate,
+    or "none").  Returns the tokens, the numbers and the serve call's
+    w8a8_dense launches, with the model and params dropped."""
+    import torch
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.launch.serve import serve
+    torch.cuda.reset_peak_memory_stats()
+    n0 = kd.w8a8_dense.launches
+    res = serve(cfg, LM_REQUESTS, LM_PROMPT, LM_GEN, quant, dev, seed=SEED,
+                log=lambda *a: log("[lm]", *a))
+    launches = kd.w8a8_dense.launches - n0
+    if not torch.isfinite(res["logits"].float()).all():
+        raise AssertionError(f"{cfg.name} {quant}: non-finite logits")
+    steps = LM_GEN - 1
+    out = dict(tokens=res["tokens"], launches=launches,
+               prefill_ms=res["prefill_s"] * 1e3,
+               decode_ms_step=res["decode_s"] * 1e3 / steps,
+               tok_per_s=res["tok_per_s"],
+               param_mib=res["param_bytes"] / 2**20,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["warm_prefill_ms"], out["warm_decode_ms_step"] = \
+        warm_times(res, cfg, dev)
+    out["warm_tok_per_s"] = LM_REQUESTS / out["warm_decode_ms_step"] * 1e3
+    log(f"[lm] {card} | {cfg.name} {quant} ({cfg.num_layers} layers, d "
+        f"{cfg.d_model}): serve: prefill {out['prefill_ms']:.2f} ms for "
+        f"{LM_REQUESTS}x{LM_PROMPT} tokens (first call), decode "
+        f"{out['decode_ms_step']:.3f} ms a step over {steps} steps "
+        f"({out['tok_per_s']:.1f} tok/s aggregate); warm: prefill "
+        f"{out['warm_prefill_ms']:.2f} ms, decode "
+        f"{out['warm_decode_ms_step']:.3f} ms a step "
+        f"({out['warm_tok_per_s']:.1f} tok/s); params "
+        f"{out['param_mib']:.1f} MiB, peak {out['peak_gib']:.2f} GiB, "
+        f"w8a8_dense launches {launches}")
+    if consist != "none":
+        line = lm_consistency(res["model"], res["params"], cfg, dev, quant,
+                              gate=consist)
+        log(f"[lm] {line} (gate: {CONSIST_GATES[consist]})")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_phase(dev, card: str, run) -> dict:
+    """Phase 12; returns the w8a8_dense record's pieces."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[lm] device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls")
+    # the W8A8 configs served below: qwen3_14b in full, gemma3_12b one
+    # pattern cycle, stablelm_3b in full through the CLI
+    qwen = get_config("qwen3_14b")
+    gemma = dataclasses.replace(get_config("gemma3_12b"),
+                                num_layers=len(get_config("gemma3_12b")
+                                               .blocks))
+    err = check_dense(dev, (qwen, gemma, get_config("stablelm_3b")))
+
+    # qwen3_14b at full width and depth: float, then W8A8 counted from 0
+    f = serve_lm(qwen, dev, card, "none", "tol")
+    kd.w8a8_dense.launches = 0
+    q = serve_lm(qwen, dev, card, "w8a8", "none")
+    launches = q["launches"]
+    want = (7 * qwen.num_layers + 1) * LM_GEN
+    log(f"[lm] qwen3_14b w8a8: w8a8_dense launched {launches} times "
+        f"over the serve call; expected {want} (7 "
+        f"dense products x {qwen.num_layers} blocks + lm_head, per forward, "
+        f"1 prefill + {LM_GEN - 1} decode steps)")
+    if launches != want:
+        raise AssertionError(f"w8a8_dense launched {launches} times on the "
+                             f"qwen3_14b W8A8 run, not {want}")
+    agree = float((q["tokens"] == f["tokens"]).mean())
+    log(f"[lm] qwen3_14b: W8A8 and float greedy tokens agree on "
+        f"{agree:.1%} of {f['tokens'].size} (not gated)")
+
+    # gemma3_12b at full width, one pattern cycle; paligemma_3b in full
+    g_f = serve_lm(gemma, dev, card, "none", "tol")
+    g_q = serve_lm(gemma, dev, card, "w8a8", "print")
+    gemma_launches = g_q["launches"]
+    if gemma_launches != (7 * gemma.num_layers + 1) * LM_GEN:
+        raise AssertionError(f"gemma3_12b: w8a8_dense launched "
+                             f"{gemma_launches} times")
+    p_f = serve_lm(get_config("paligemma_3b"), dev, card, "none",
+                   "bounded")
+
+    # the CLI, at its default arch and full size
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = ["--arch", "stablelm_3b", "--no-reduce", "--quant", "w8a8",
+            "--requests", LM_REQUESTS, "--prompt-len", LM_PROMPT, "--gen",
+            LM_GEN]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *map(str, args)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.serve {args}: exit {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[lm] {card} | python -m repro_torch.launch.serve "
+        f"{' '.join(map(str, args))}: exit 0 in "
+        f"{time.perf_counter() - t:.1f} s (process included):")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[lm]   {line}")
+
+    # serve_caps --mesh host, and waves with and without the host mesh
+    import contextlib
+    import io
+    from repro_torch.launch import serve_caps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving.sharded import compile_wave
+    buf = io.StringIO()
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = serve_caps.main(["--model", "mnist@cuda", "--requests",
+                              str(N_REQUESTS), "--mesh", "host"])
+    text = buf.getvalue()
+    mesh_line = "mesh={'pod': 1, 'model': 1, 'data': 1}"
+    if rc != 0 or mesh_line not in text or min(
+            ks.squash_q7.launches, kr.routing_q7.launches) == 0:
+        raise AssertionError(f"serve_caps --mesh host: exit {rc}\n{text}")
+    log(f"[lm] serve_caps --model mnist@cuda --requests {N_REQUESTS} --mesh "
+        f"host: exit 0, {mesh_line}, kernels launched "
+        f"(squash_q7 {ks.squash_q7.launches}, routing_q7 "
+        f"{kr.routing_q7.launches})")
+    mesh = make_host_mesh(("pod", "model", "data"))
+    qnet = run["qnet"]
+    for b in BUCKETS:
+        x = run["images"][:b]
+        plain, meshed = compile_wave(qnet, b), compile_wave(qnet, b, mesh)
+        for u, v in zip(plain(x), meshed(x)):
+            if not torch.equal(u, v):
+                raise AssertionError(f"bucket {b}: the host-mesh wave "
+                                     "differs from the plain one")
+    log(f"[lm] waves under the host mesh {mesh.shape} bit-identical to "
+        f"waves without one at buckets {BUCKETS}")
+    return dict(launches=launches, launches_by_path={
+        "lm": launches, "lm_gemma3_12b": gemma_launches},
+        max_abs_err=err, qwen_float=f, qwen_w8a8=q, gemma_float=g_f,
+        gemma_w8a8=g_q, paligemma_float=p_f, token_agreement=agree)
+
+
+def time_dense(dev, card: str) -> dict:
+    """w8a8_dense at LM_TIMED: the wrapper's wall time, its plain
+    version's, the bound and torch._int_mm (where it takes the shape)."""
+    import torch
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import w8a8_dense as kd
+    g = torch.Generator(dev).manual_seed(SEED + 13)
+    rows = []
+    for M, K, N in LM_TIMED:
+        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
+        bound, by = dense_bound(M, K, N)
+        rows.append(dict(
+            shape=[M, K, N], ms=cuda_ms(lambda: kd.w8a8_dense(xq, wq, xe, n)),
+            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wq, xe, n),
+                             iters=5),
+            bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms(xq, wq),
+            plan=str(tuple(kq.plan_for(xq, wq)))))
+        yard = "n/a (M <= 16)" if rows[-1]["int_mm_ms"] is None \
+            else f"{rows[-1]['int_mm_ms']:.4f} ms"
+        log(f"[time] {card} | w8a8_dense {[M, K, N]} ({rows[-1]['plan']}): "
+            f"kernel {rows[-1]['ms']:.4f} ms, plain "
+            f"{rows[-1]['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by}), "
+            f"torch._int_mm yardstick {yard}")
+    return dict(rows[0], shapes=rows)
+
+
+def dense_device_times(dev, card: str, rows: list) -> None:
+    """Profiler device time of w8a8_dense at each LM_TIMED shape, summed
+    over every kernel of the call (the transpose of W, the product, a
+    split-K reduction), into `rows`."""
+    import torch
+    from repro_torch.kernels import w8a8_dense as kd
+    g = torch.Generator(dev).manual_seed(SEED + 13)
+    for row in rows:
+        M, K, N = row["shape"]
+        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
+        parts = {}
+        row["device_ms"] = device_ms(lambda: kd.w8a8_dense(xq, wq, xe, n),
+                                     None, calls=20, parts=parts)
+        row["int_mm_device_ms"] = int_mm_device_ms(xq, wq)
+        split = ", ".join(f"{k.split('(')[0].split('<')[0].split('::')[-1]}"
+                          f" {v:.5f}" for k, v in parts.items())
+        log(f"[device] {card} | w8a8_dense {row['shape']}: "
+            f"{row['device_ms']:.5f} ms, every kernel of the call ({split}); "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
 def time_kernels(run, dev) -> dict:
@@ -2206,7 +2664,7 @@ def main(argv=None) -> int:
         forward_worker(dev)
         return 0
 
-    for name in ("q7_matmul", "w8a8_matmul"):
+    for name in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
         sass = sass_counts(libs[name])
         log(f"[build] {name}: SASS holds {sass['IGMMA']} IGMMA (wgmma) and "
             f"{sass['IMMA']} IMMA (mma.sync) instructions")
@@ -2335,6 +2793,11 @@ def main(argv=None) -> int:
     # phase 11: the search; its counts from 0 inside, read after
     search = search_phase(dev, card)
 
+    # phase 12: the LM serving path and the host mesh; w8a8_dense's count
+    # from 0 just before the qwen3_14b W8A8 run, read just after
+    lm = lm_phase(dev, card, run)
+    times["w8a8_dense"] = time_dense(dev, card)
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -2358,6 +2821,9 @@ def main(argv=None) -> int:
     for row in times["squash_float"]["shapes"]:
         row["device_ms"] = dt["squash_float"][row["key"]]
     times["squash_float"]["floor_device_ms"] = dt["squash_float_floor"]
+    dense_device_times(dev, card, times["w8a8_dense"]["shapes"])
+    times["w8a8_dense"]["device_ms"] = \
+        times["w8a8_dense"]["shapes"][0]["device_ms"]
     for name in ("q7_matmul", "w8a8_matmul"):
         times[name]["device_ms"] = dt[name][shape_key(HEADLINE_GEMM)]
         for row in times[name]["shapes"]:
@@ -2399,6 +2865,30 @@ def main(argv=None) -> int:
                 "product alone (no shift epilogue), where it takes the "
                 "shape; the port never calls it")
         record["kernels"].append(entry)
+    t = times["w8a8_dense"]
+    record["kernels"].append({
+        "name": "w8a8_dense", "route": "cuda", "source": csrc
+        + "w8a8_dense.cu", "replaces": None,
+        "replaces_note": "no TPU kernel: the reference computes this "
+        "product with XLA's int8 dot_general and an elementwise pow2 "
+        "dequantization, src/repro/quant/lm_quant.py:76 (q_dense)",
+        "launches": lm["launches"],
+        "launches_by_path": lm["launches_by_path"],
+        "max_abs_err": lm["max_abs_err"], "ms": t["ms"],
+        "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["int_mm_ms"],
+        "library_note": "torch._int_mm (cuBLASLt's int8 x int8 -> int32 "
+        "product alone, no dequantization) where it takes the shape (M > "
+        "16): it refuses the headline decode shape, and the prefill row "
+        "of `shapes` holds it; the port never calls it",
+        "shape": t["shape"], "shapes": t["shapes"],
+        "lm": {k: lm[k] for k in ("qwen_float", "qwen_w8a8", "gemma_float",
+                                  "gemma_w8a8", "paligemma_float",
+                                  "token_agreement")}})
+    for v in record["kernels"][-1]["lm"].values():
+        if isinstance(v, dict):
+            v.pop("tokens")
     log("kernels: " + ", ".join(f"{k['name']} x{k['launches']}"
                                 for k in record["kernels"]))
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "

@@ -1,4 +1,5 @@
-"""Carrying weights and train states across from the reference package.
+"""Carrying weights and train states across from the reference package:
+CapsNet params, train states and quantized nets, and LM param trees.
 
 The functions take and give plain NumPy arrays and JSON (what the
 reference's arrays and `plan_to_json` give), so this module imports
@@ -70,3 +71,39 @@ def qnet_from_reference(plan_json: dict, np_qweights: dict,
                 for layer, ws in np_qweights.items()}
     return QuantCapsNet(pipeline=pipe, plan=plan, qweights=qweights,
                         rounding=rounding, backend=backend)
+
+
+def _lm_leaf_from(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":           # ml_dtypes' bfloat16: its bits
+        bits = np.ascontiguousarray(a).view(np.int16).copy()
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_reference(np_tree, device=None):
+    """A reference LM param tree (nested dicts and tuples of NumPy
+    leaves: stacked [C, ...] block leaves, {"q","n"} W8A8 leaves) -> the
+    port's, leaf for leaf: bfloat16, float32, int8 and int32 kept as they
+    are, on `device`."""
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(conv(v) for v in tree)
+        return _lm_leaf_from(tree, device)
+    return conv(np_tree)
+
+
+def lm_params_to_reference(tree):
+    """The port's LM param tree -> NumPy leaves in the reference's
+    structure; bfloat16 leaves come back as float32 (exact), the rest in
+    their own dtype, for the reference to cast to its leaf's dtype."""
+    if isinstance(tree, dict):
+        return {k: lm_params_to_reference(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(lm_params_to_reference(v) for v in tree)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,9 +1,10 @@
-"""Procedural image datasets (NumPy only).
+"""Procedural image datasets and the LM token stream (NumPy only).
 
 MNIST/smallNORB/CIFAR *analogues*: class templates rendered with random
 affine pose + noise.  A copy of the reference package's
 `make_image_dataset` and `ImageTask`: the same seed gives the same
-images, so both packages calibrate, serve and train on identical inputs.
+images, so both packages calibrate, serve and train on identical inputs;
+`TokenTask` is the reference's token stream, token for token.
 """
 from __future__ import annotations
 
@@ -135,3 +136,28 @@ class ImageTask:
     def batch(self, index: int, batch_size: int):
         return make_image_dataset(self.kind, batch_size,
                                   seed=(self.seed * 100003 + index))
+
+
+class TokenTask:
+    """Noisy affine-recurrence token stream: token_{t+1} =
+    (a * token_t + b) mod V with random resets — learnable structure.
+    The reference's `TokenTask`: batch i is a pure function of (seed, i),
+    the same int32 tokens bit for bit."""
+
+    def __init__(self, vocab: int, seq_len: int, seed: int = 0,
+                 a: int = 31, b: int = 17, reset_p: float = 0.05):
+        self.vocab = max(vocab, 8)
+        self.seq = seq_len
+        self.seed = seed
+        self.a, self.b, self.reset_p = a, b, reset_p
+
+    def batch(self, index: int, batch_size: int) -> dict:
+        rng = np.random.default_rng((self.seed, index))
+        toks = np.zeros((batch_size, self.seq + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, batch_size)
+        resets = rng.random((batch_size, self.seq)) < self.reset_p
+        fresh = rng.integers(0, self.vocab, (batch_size, self.seq))
+        for t in range(self.seq):
+            nxt = (self.a * toks[:, t] + self.b) % self.vocab
+            toks[:, t + 1] = np.where(resets[:, t], fresh[:, t], nxt)
+        return {"inputs": toks[:, :-1], "targets": toks[:, 1:]}

@@ -1,8 +1,10 @@
-// Tiled int8 x int8 -> int32 GEMM main loop, shared by q7_matmul.cu and
-// w8a8_matmul.cu and templated on the epilogue that turns each int32
-// accumulator into an int8 output.
+// Tiled int8 x int8 -> int32 GEMM main loop, shared by q7_matmul.cu,
+// w8a8_matmul.cu and w8a8_dense.cu and templated on the epilogue that
+// turns each int32 accumulator into an output element of the epilogue's
+// type `Epi::Out` (int8 for the shift epilogues, bfloat16 or float32 for
+// w8a8_dense's dequantization).
 //
-// A is row-major [M, K], B row-major [K, N], C row-major [M, N] int8,
+// A is row-major [M, K], B row-major [K, N], C row-major [M, N] Epi::Out,
 // with an optional batch on gridDim.z (one [M,K] x [K,N] product per z,
 // operands packed back to back).  Each block computes one kBM x kBN
 // output tile; the K loop runs inside the block.
@@ -80,16 +82,17 @@ __device__ __forceinline__ uint4 load16(const int8_t* __restrict__ p,
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Epilogue contract: `stage(tile, n0, N)` runs once per block before the
-// K loop (all threads; `tile` is kBN int32 of shared memory for
-// per-column data), `apply(acc, col, tile)` maps one accumulator of
-// output column n0 + col to its int8 value.
+// Epilogue contract: `Epi::Out` is the output element type;
+// `stage(tile, n0, N)` runs once per block before the K loop (all
+// threads; `tile` is kBN int32 of shared memory for per-column data),
+// `apply(acc, col, tile)` maps one accumulator of output column n0 + col
+// to its output value (converted to Epi::Out by the store).
 
 template <class Epi>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                int8_t* __restrict__ C, int M, int N, int K, bool vec_a,
-                bool vec_b, Epi epi) {
+                typename Epi::Out* __restrict__ C, int M, int N, int K,
+                bool vec_a, bool vec_b, Epi epi) {
   __shared__ __align__(16) int8_t As[kBM * kLd];
   __shared__ __align__(16) int8_t Bs[kBN * kLd];   // transposed: [n][k]
   __shared__ int32_t epi_tile[kBN];
@@ -175,7 +178,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int col = wn + j * 8 + 2 * t + (r & 1);
         if (row < M && n0 + col < N)
           C[static_cast<int64_t>(row) * N + n0 + col] =
-              static_cast<int8_t>(epi.apply(acc[i][j][r], col, epi_tile));
+              static_cast<typename Epi::Out>(
+                  epi.apply(acc[i][j][r], col, epi_tile));
       }
 }
 
@@ -193,7 +197,7 @@ int launch(const void* a, const void* b, void* c, int batch, int M, int N,
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
   gemm_kernel<Epi><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
-      static_cast<int8_t*>(c), M, N, K, vec_a, vec_b, epi);
+      static_cast<typename Epi::Out*>(c), M, N, K, vec_a, vec_b, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

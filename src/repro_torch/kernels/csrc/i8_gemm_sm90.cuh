@@ -1,7 +1,9 @@
 // Hopper int8 x int8 -> int32 GEMM main loop: wgmma fed by a TMA ring,
-// split K for thin products.  Shared by q7_matmul.cu and w8a8_matmul.cu
-// and templated on the same epilogue functors as i8_gemm.cuh, the
-// mma.sync loop that keeps the shapes TMA cannot describe.
+// split K for thin products.  Shared by q7_matmul.cu, w8a8_matmul.cu and
+// w8a8_dense.cu and templated on the same epilogue functors as
+// i8_gemm.cuh, the mma.sync loop that keeps the shapes TMA cannot
+// describe; the functor's `Out` is the output element type (int8, or
+// bfloat16/float32 for w8a8_dense).
 //
 // Replaces, with i8_gemm.cuh, the main loop of two Pallas TPU kernels:
 // src/repro/kernels/q7_matmul.py, q7_matmul_pallas (body
@@ -132,6 +134,24 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// two neighbouring output elements in one aligned store (p's element
+// index even, N even, C aligned to 2 * sizeof(T))
+template <class T>
+struct alignas(2 * sizeof(T)) Pair {
+  T lo, hi;
+};
+
+template <class T>
+__device__ __forceinline__ void store_pair(T* p, T lo, T hi) {
+  *reinterpret_cast<Pair<T>*>(p) = Pair<T>{lo, hi};
+}
+
+__device__ __forceinline__ void store_pair(int8_t* p, int8_t lo, int8_t hi) {
+  *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(
+      static_cast<uint8_t>(lo) |
+      (static_cast<uint16_t>(static_cast<uint8_t>(hi)) << 8));
+}
+
 // keeps the compiler from moving accumulator registers across an
 // asynchronous wgmma
 __device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
@@ -233,11 +253,13 @@ template <int BN, class Epi>
 __global__ void __launch_bounds__(kThreads, 1)
     wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
-                      int8_t* __restrict__ C, int32_t* __restrict__ work,
+                      typename Epi::Out* __restrict__ C,
+                      int32_t* __restrict__ work,
                       int M, int N, int K, int split, Epi epi) {
   constexpr int kNB = BN / 128;                 // m64n128 wgmmas per k32
   constexpr int kStages = stages<BN>();
   constexpr uint32_t kStage = stage_bytes<BN>();
+  using Out = typename Epi::Out;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[kStages];
   __shared__ __align__(8) uint64_t empty_bar[kStages];
@@ -325,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // column 128 h + 8 j + 2 (lane % 4) + (r & 1)
     const int warp = (threadIdx.x % 128) / 32;
     const int row0 = m0 + kWgRows * wg + 16 * warp + lane / 4;
-    const bool pairs = N % 2 == 0;   // two int8 in one aligned 2-byte store
+    const bool pairs = N % 2 == 0;   // two outputs in one aligned store
 #pragma unroll
     for (int h = 0; h < kNB; ++h)
 #pragma unroll
@@ -345,15 +367,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             if (n + 1 < N) p[1] = v1;
             continue;
           }
-          int8_t* p = C + (static_cast<int64_t>(z) * M + row) * N + n;
-          const int8_t c0 = static_cast<int8_t>(epi.apply(v0, col, epi_tile));
+          Out* p = C + (static_cast<int64_t>(z) * M + row) * N + n;
+          const Out c0 = static_cast<Out>(epi.apply(v0, col, epi_tile));
           if (n + 1 < N) {
-            const int8_t c1 =
-                static_cast<int8_t>(epi.apply(v1, col + 1, epi_tile));
+            const Out c1 = static_cast<Out>(epi.apply(v1, col + 1, epi_tile));
             if (pairs) {
-              *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(
-                  static_cast<uint8_t>(c0) |
-                  (static_cast<uint16_t>(static_cast<uint8_t>(c1)) << 8));
+              store_pair(p, c0, c1);
               continue;
             }
             p[1] = c1;
@@ -372,8 +391,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <class Epi>
 __global__ void __launch_bounds__(256)
     splitk_reduce_kernel(const int32_t* __restrict__ work,
-                         int8_t* __restrict__ C, int M, int N, int split,
-                         int group, Epi epi) {
+                         typename Epi::Out* __restrict__ C, int M, int N,
+                         int split, int group, Epi epi) {
   __shared__ int32_t epi_tile[128];
   __shared__ uint32_t sums[8][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -399,8 +418,9 @@ __global__ void __launch_bounds__(256)
   if (g != 0 || row >= M || n >= N) return;
   uint32_t sum = 0;
   for (int i = 0; i < group; ++i) sum += sums[warp + i][lane];
-  C[z * plane + static_cast<int64_t>(row) * N + n] = static_cast<int8_t>(
-      epi.apply(static_cast<int32_t>(sum), n - t0, epi_tile));
+  C[z * plane + static_cast<int64_t>(row) * N + n] =
+      static_cast<typename Epi::Out>(
+          epi.apply(static_cast<int32_t>(sum), n - t0, epi_tile));
 }
 
 // ---------------------------------------------------------------------------
@@ -490,8 +510,8 @@ int launch_product_bn(const void* a, const void* bt, void* c, void* work,
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((N + BN - 1) / BN, (M + kBM - 1) / kBM, batch * split);
   wgmma_gemm_kernel<BN, Epi><<<grid, kThreads, smem_bytes<BN>(), stream>>>(
-      map_a, map_b, static_cast<int8_t*>(c), static_cast<int32_t*>(work), M,
-      N, K, split, epi);
+      map_a, map_b, static_cast<typename Epi::Out*>(c),
+      static_cast<int32_t*>(work), M, N, K, split, epi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,8 +549,8 @@ int launch_reduce(const void* work, void* c, int batch, int M, int N,
   const dim3 grid((N + 31) / 32, (M + 8 / group - 1) / (8 / group), batch);
   splitk_reduce_kernel<Epi><<<grid, 256, 0, static_cast<cudaStream_t>(
                                                 stream)>>>(
-      static_cast<const int32_t*>(work), static_cast<int8_t*>(c), M, N,
-      split, group, epi);
+      static_cast<const int32_t*>(work), static_cast<typename Epi::Out*>(c),
+      M, N, split, group, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,6 +28,7 @@
 namespace {
 
 struct ScalarShift {
+  using Out = int8_t;
   int shift;
   bool nearest;
   __device__ __forceinline__ void stage(int32_t*, int, int) const {}

@@ -1,0 +1,109 @@
+// W8A8 dense product with a power-of-two dequantizing epilogue: Y [M, N]
+// = out(float(A @ W) * 2^-(xe + n[col])), A [M, K] and W [K, N] row-major
+// int8, xe the activation's exponent (one int32 in device memory), n [N]
+// int32 the weight's per-column exponents, out bfloat16 (round to nearest
+// even) or float32.
+//
+// No TPU kernel: the reference computes this with XLA's int8 dot_general
+// and an elementwise dequantization, src/repro/quant/lm_quant.py:76
+// (q_dense).  It is bit-exact with
+// repro_torch.kernels.w8a8_dense.w8a8_dense_plain: the int32 accumulator
+// (wrapping, as XLA's dot) becomes float32 by __int2float_rn, is
+// multiplied by 2^-(xe + n), built exactly from its exponent bits (xe
+// and n lie in [-24, 24], so the scale is a normal float32 and the
+// product is exact), and is rounded once, by __float2bfloat16_rn.
+//
+// Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
+// M*K + K*N + 2*M*N + 4*N bytes (bfloat16 out) at 3.35 TB/s; a decode
+// step (M = the batch, 8) is bound by the bytes of W, a prefill (M = 512)
+// by operations for the wide products.  It runs on the same two main
+// loops as q7_matmul.cu and w8a8_matmul.cu, chosen the same way by
+// kernels/q7_matmul.py::gemm_plan: i8_gemm_sm90.cuh (wgmma, TMA ring,
+// split K; W transposed first by q7_matmul.cu's i8_transpose_launch, one
+// extra read and write of W a call) where TMA can describe A, and
+// i8_gemm.cuh (mma.sync) elsewhere.  Each block that runs the epilogue
+// stages xe + n of its output columns in shared memory once, as
+// w8a8_matmul.cu's ColumnShift stages its shifts; split K runs the same
+// functor in the reduction.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "i8_gemm.cuh"
+#include "i8_gemm_sm90.cuh"
+
+namespace {
+
+__device__ __forceinline__ float to_out(float v, float) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16) {
+  return __float2bfloat16_rn(v);
+}
+
+template <class T>
+struct Dequant {
+  using Out = T;
+  const int32_t* xe;           // the activation's exponent, one int32
+  const int32_t* n;            // [N] the weight columns' exponents
+  __device__ __forceinline__ void stage(int32_t* tile, int n0, int N) const {
+    const int32_t e = *xe;
+    for (int j = threadIdx.x; j < i8gemm::kBN; j += blockDim.x)
+      tile[j] = n0 + j < N ? e + n[n0 + j] : 0;
+    __syncthreads();
+  }
+  __device__ __forceinline__ T apply(int32_t acc, int col,
+                                     const int32_t* tile) const {
+    // 2^-(xe + n): the exponent field of a float32 holds 127 - (xe + n)
+    const float scale = __int_as_float((127 - tile[col]) << 23);
+    return to_out(__fmul_rn(__int2float_rn(acc), scale), T{});
+  }
+};
+
+template <class T>
+Dequant<T> dequant(const void* xe, const void* n) {
+  return Dequant<T>{static_cast<const int32_t*>(xe),
+                    static_cast<const int32_t*>(n)};
+}
+
+}  // namespace
+
+// C entry points (loaded with ctypes); `out_bf16` picks the output type
+// (1: bfloat16, 0: float32).  Each returns cudaGetLastError() after its
+// launch; 0 means the launch was accepted.
+extern "C" int w8a8_dense_launch(const void* a, const void* w,
+                                 const void* xe, const void* n, void* c,
+                                 int M, int N, int K, int out_bf16,
+                                 void* stream) {
+  if (out_bf16)
+    return i8gemm::launch(a, w, c, 1, M, N, K,
+                          dequant<__nv_bfloat16>(xe, n), stream);
+  return i8gemm::launch(a, w, c, 1, M, N, K, dequant<float>(xe, n), stream);
+}
+
+// The wgmma route: the product over A [batch, M, K] and Wt [batch, N, K]
+// (W transposed by i8_transpose_launch) on tiles 128 x bn, into C (split
+// == 1) or into the int32 partials work [batch, split, M, N]; and C from
+// those partials.  The arguments follow w8a8_matmul.cu's entries, the
+// epilogue's last.
+extern "C" int w8a8_dense_wgmma_launch(const void* a, const void* wt, void* c,
+                                       void* work, int batch, int M, int N,
+                                       int K, int bn, int split,
+                                       const void* xe, const void* n,
+                                       int out_bf16, void* stream) {
+  if (out_bf16)
+    return i8sm90::launch_product(a, wt, c, work, batch, M, N, K, bn, split,
+                                  dequant<__nv_bfloat16>(xe, n), stream);
+  return i8sm90::launch_product(a, wt, c, work, batch, M, N, K, bn, split,
+                                dequant<float>(xe, n), stream);
+}
+
+extern "C" int w8a8_dense_reduce_launch(const void* work, void* c, int batch,
+                                        int M, int N, int split,
+                                        const void* xe, const void* n,
+                                        int out_bf16, void* stream) {
+  if (out_bf16)
+    return i8sm90::launch_reduce(work, c, batch, M, N, split,
+                                 dequant<__nv_bfloat16>(xe, n), stream);
+  return i8sm90::launch_reduce(work, c, batch, M, N, split,
+                               dequant<float>(xe, n), stream);
+}

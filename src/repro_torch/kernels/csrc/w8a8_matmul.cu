@@ -26,6 +26,7 @@
 namespace {
 
 struct ColumnShift {
+  using Out = int8_t;
   const int32_t* col_shift;
   bool nearest;
   __device__ __forceinline__ void stage(int32_t* tile, int n0, int N) const {

@@ -85,7 +85,8 @@ def transpose_kn_plain(b):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# each C entry of csrc/{q7_matmul,w8a8_matmul}.cu and its arguments
+# each C entry of csrc/{q7_matmul,w8a8_matmul,w8a8_dense}.cu and its
+# arguments
 ARGTYPES = {
     "q7_matmul_launch": [_P] * 3 + [_I] * 6 + [_P],
     "i8_transpose_launch": [_P, _P] + [_I] * 3 + [_P],
@@ -94,6 +95,9 @@ ARGTYPES = {
     "w8a8_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     "w8a8_matmul_wgmma_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _P],
     "w8a8_matmul_reduce_launch": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
+    "w8a8_dense_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "w8a8_dense_wgmma_launch": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
+    "w8a8_dense_reduce_launch": [_P] * 2 + [_I] * 4 + [_P, _P, _I, _P],
 }
 
 

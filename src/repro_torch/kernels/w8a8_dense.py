@@ -1,0 +1,103 @@
+"""W8A8 dense product with a power-of-two dequantizing epilogue: the CUDA
+kernel's wrapper and its plain version.
+
+`w8a8_dense(xq, wq, xe, n, out_dtype)` takes int8 xq [M, K], int8 wq
+[K, N], the activation's exponent xe (a one-element tensor, its value an
+integer) and int32 n [N], and returns out_dtype(float32(xq @ wq) *
+2^-(xe + n[col])): the product `repro.quant.lm_quant.q_dense` computes
+with XLA's int8 dot_general.  No TPU kernel computes it (the reference
+leaves it to XLA); on the card it is `csrc/w8a8_dense.cu`, on the same
+two GEMM main loops and the same `gemm_plan` as `q7_matmul` and
+`w8a8_matmul`, counted in `launches` and `launches_by_route`.  A tensor
+on the CPU goes to the plain version; a CUDA tensor goes to the kernel
+or raises.  xe is read on the card by the kernel, so a call never waits
+for the device.
+
+Both build the scale 2^-(xe + n) from its float32 exponent bits, exact
+for exponents in [-126, 127] (the quantizers clip xe and n to [-24,
+24]): `torch.ldexp` multiplies by pow(2, e), and CUDA's powf promises no
+exact result.  With exact scales the kernel and the plain version agree
+bit for bit.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.q7_matmul import (ROUTES, GemmPlan, check_operands,
+                                           entry, plan_for, wgmma_route)
+from repro_torch.quant import int8_ops as q
+
+OUT_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def pow2(e):
+    """2.0 ** e as float32, exactly, for integer-valued e in [-126, 127]
+    (any dtype): the exponent field of the result holds e + 127."""
+    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def w8a8_dense_plain(xq, wq, xe, n, out_dtype=torch.bfloat16):
+    """The kernel's arithmetic in torch: the int32 product (exact,
+    wrapping), float32, times 2^-(xe + n), one rounding to out_dtype."""
+    acc = q.einsum_i32("mk,kn->mn", xq, wq)
+    e = xe.reshape(()).to(torch.int32) + n.to(torch.int32)
+    return (acc.to(torch.float32) * pow2(-e)).to(out_dtype)
+
+
+def _check(xq, wq, xe, n, out_dtype) -> None:
+    if xq.dim() != 2:
+        raise ValueError(f"w8a8_dense takes 2-D operands, got "
+                         f"{tuple(xq.shape)}")
+    check_operands("w8a8_dense", xq, wq, "floor")
+    N = wq.shape[1]
+    if n.dtype != torch.int32 or tuple(n.shape) != (N,) \
+            or n.device != xq.device:
+        raise ValueError(f"w8a8_dense: n must be int32 [{N}] on "
+                         f"{xq.device}, got {n.dtype} {tuple(n.shape)} on "
+                         f"{n.device}")
+    if xe.numel() != 1 or xe.device != xq.device:
+        raise ValueError(f"w8a8_dense: xe must be one element on "
+                         f"{xq.device}, got {tuple(xe.shape)} on "
+                         f"{xe.device}")
+    if out_dtype not in OUT_DTYPES:
+        raise TypeError(f"w8a8_dense writes {OUT_DTYPES}, not {out_dtype}")
+
+
+def _launch(xq, wq, xe, n, out_dtype, plan: GemmPlan | None = None):
+    """[M, K] x [K, N] with the exponents -> out_dtype [M, N] on the
+    route of `plan` (gemm_plan's when None); returns the output and the
+    plan."""
+    xq, wq, n = xq.contiguous(), wq.contiguous(), n.contiguous()
+    xe = xe.reshape(()).to(torch.int32)       # on the card, no wait
+    M, K = xq.shape
+    N = wq.shape[1]
+    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    epi = (xe.data_ptr(), n.data_ptr(), int(out_dtype == torch.bfloat16))
+    with torch.cuda.device(xq.device):
+        plan = plan_for(xq, wq) if plan is None else plan
+        if plan.route == "wgmma":
+            wgmma_route("w8a8_dense", plan, xq, wq, out, epi)
+        else:
+            err = entry("w8a8_dense", "w8a8_dense_launch")(
+                xq.data_ptr(), wq.data_ptr(), *epi[:2], out.data_ptr(), M,
+                N, K, epi[2], torch.cuda.current_stream().cuda_stream)
+            build.check(err, "w8a8_dense")
+    return out, plan
+
+
+def w8a8_dense(xq, wq, xe, n, out_dtype=torch.bfloat16):
+    """[M, K] x [K, N] int8, exponents xe and n [N] -> out_dtype [M, N]."""
+    if xq.device.type == "cpu":
+        return w8a8_dense_plain(xq, wq, xe, n, out_dtype)
+    if xq.device.type != "cuda":
+        raise NotImplementedError(f"w8a8_dense on {xq.device}")
+    _check(xq, wq, xe, n, out_dtype)
+    out, plan = _launch(xq, wq, xe, n, out_dtype)
+    w8a8_dense.launches += 1
+    w8a8_dense.launches_by_route[plan.route] += 1
+    return out
+
+
+w8a8_dense.launches = 0
+w8a8_dense.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -10,7 +10,10 @@ submits --requests synthetic images through the bucketed micro-batch
 scheduler, and prints the serving metrics.  With --compare-b1 it
 replays the same requests through a batch-size-1 loop.  Runs on CUDA
 unless --device says otherwise (`--device cpu` serves the `torch`
-backend's models on the CPU).
+backend's models on the CPU).  --mesh host runs the waves under a
+mesh of the local devices, the reference's ("pod", "model", "data")
+layout; on one device its waves are bit-identical to --mesh none, and a
+mesh of more devices raises NotImplementedError (not ported yet).
 
 With --capsbin PATH the engine serves an exported MCU artifact
 instead: the `.capsbin` is imported back into a QuantCapsNet on the
@@ -54,6 +57,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.analysis import CheckError
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.nn.backend import get_backend
 from repro_torch.nn.variants import REGISTRY
 from repro_torch.serving import ModelRegistry, default_specs, serve_window
@@ -79,6 +83,9 @@ def main(argv=None):
     ap.add_argument("--requests", type=int, default=64)
     ap.add_argument("--buckets", default="1,4,16,64",
                     help="comma-separated micro-batch bucket sizes")
+    ap.add_argument("--mesh", choices=("none", "host"), default="none",
+                    help="host: run waves under a mesh of the local "
+                    "devices (one device: the identity; more raise)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-b1", action="store_true",
                     help="also serve via a batch-size-1 loop and report "
@@ -136,7 +143,13 @@ def _serve(args, ap, tracer) -> int:
     # singletons' counters (the cuda backend's fallbacks)
     run_metrics = obs.MetricsRegistry("serve_caps") \
         if args.metrics_out else None
-    registry = ModelRegistry(device=args.device, metrics=run_metrics)
+    # serving waves shard over BATCH=("pod","data"): give "data" the
+    # devices (make_host_mesh fills the LAST axis), as the reference does
+    mesh = make_host_mesh(("pod", "model", "data"), device=args.device) \
+        if args.mesh == "host" else None
+    registry = ModelRegistry(device=args.device, metrics=run_metrics,
+                             mesh=mesh)
+    mesh_tag = "none" if mesh is None else mesh.shape
     buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.capsbin:
         try:
@@ -161,7 +174,8 @@ def _serve(args, ap, tracer) -> int:
         print(f"[serve_caps] imported {args.capsbin} as {model_id!r} "
               f"({qnet.memory_bytes() / 1000:.1f} KB int8, "
               f"backend={qnet.backend}) variants={qnet.variants.tag} "
-              f"buckets={buckets} device={registry.device}")
+              f"buckets={buckets} mesh={mesh_tag} "
+              f"device={registry.device}")
     else:
         model_id = args.model
         if model_id not in registry.specs:
@@ -178,7 +192,8 @@ def _serve(args, ap, tracer) -> int:
         images = spec.images(args.requests, args.seed)
         print(f"[serve_caps] model={model_id} ({spec.config.name}, "
               f"backend={spec.backend}, variants={spec.variants.tag}) "
-              f"buckets={buckets} device={registry.device}")
+              f"buckets={buckets} mesh={mesh_tag} "
+              f"device={registry.device}")
         t0 = time.perf_counter()
         qnet = registry.model(model_id)
         print(f"[serve_caps] lazy PTQ build: "

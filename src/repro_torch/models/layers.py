@@ -1,0 +1,170 @@
+"""Core layer primitives: norms, RoPE, dense projections, embeddings.
+
+The counterpart of `repro.models.layers`.  Parameters are plain dicts of
+tensors in the reference's layouts; every init function takes an
+explicit `torch.Generator` (on `device`) and draws each leaf in float32,
+scaled, then cast, so an init holds at most one float32 leaf at a time.
+The port's draws are not the reference's (the tests carry weights across
+with `repro_torch.convert.lm_params_from_reference`).
+
+Where the reference asks `preferred_element_type=float32` of a bf16
+product, the port casts the operands to float32.  A bf16 dense product
+is bf16 in, bf16 out, rounded once from a float32 accumulation, as XLA
+computes it: cuBLAS does so on the card with its reduced-precision bf16
+reductions off (`full_bf16_sums`, which the `LM` entry points enter),
+and on the CPU, whose bf16 GEMM does not round once, the product runs in
+float32 and is cast.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+DEFAULT_DTYPE = torch.bfloat16
+
+
+def normal(gen, shape, scale: float, dtype=DEFAULT_DTYPE, device=None):
+    """N(0, 1) * scale drawn in float32 from `gen`, cast to dtype."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=device)
+    return x.mul_(scale).to(dtype)
+
+
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMSNorm with fp32 accumulation, cast back to x.dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def init_norm(d: int, device=None) -> dict:
+    return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+@contextlib.contextmanager
+def full_bf16_sums():
+    """cuBLAS's reduced-precision bf16 reductions off for the duration,
+    the flag restored on exit: every bf16 product on the card is then
+    rounded once from a float32 sum."""
+    matmul = torch.backends.cuda.matmul
+    old = matmul.allow_bf16_reduced_precision_reduction
+    matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        matmul.allow_bf16_reduced_precision_reduction = old
+
+
+def dense(x, w, b=None):
+    """Dense projection; dispatches to the W8A8 path when `w` is a
+    quantized leaf {"q","n"} (repro_torch.quant.lm_quant).  A bf16
+    product on the card assumes `full_bf16_sums` is in force (the `LM`
+    entry points enter it); outside it cuBLAS may round partial sums."""
+    if isinstance(w, dict) and "q" in w:
+        from repro_torch.quant.lm_quant import q_dense
+        y = q_dense(x, w, out_dtype=x.dtype)
+    else:
+        y = _matmul(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def _matmul(x, w):
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def init_dense(gen, d_in: int, d_out: int, bias: bool = False,
+               dtype=DEFAULT_DTYPE, scale: float | None = None,
+               device=None) -> dict:
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": normal(gen, (d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_angles(positions, head_dim: int, theta: float):
+    """positions [...,] int -> (sin, cos) [..., head_dim/2] fp32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    inv_freq = 1.0 / torch.pow(theta, exps)      # float32, as theta ** exps
+    ang = positions.float()[..., None] * inv_freq
+    return torch.sin(ang), torch.cos(ang)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [B, S, N, Dh], positions [B, S] (or [S]) -> rotated x (same
+    dtype); split halves, not interleaved."""
+    sin, cos = rope_angles(positions, x.shape[-1], theta)
+    sin = sin[..., None, :]                 # broadcast over the head axis
+    cos = cos[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+def init_embed(gen, vocab: int, d: int, dtype=DEFAULT_DTYPE,
+               device=None) -> dict:
+    return {"table": normal(gen, (vocab, d), d ** -0.5, dtype, device)}
+
+
+def embed_lookup(params: dict, tokens):
+    table = params["table"]
+    tokens = torch.as_tensor(tokens, device=table.device)
+    out = torch.index_select(table, 0, tokens.reshape(-1))
+    return out.reshape(tuple(tokens.shape) + (table.shape[-1],))
+
+
+def init_lm_head(gen, d: int, vocab: int, dtype=DEFAULT_DTYPE,
+                 device=None) -> dict:
+    return {"w": normal(gen, (d, vocab), d ** -0.5, dtype, device)}
+
+
+def lm_logits(params: dict, x):
+    return dense(x, params["w"])
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+def init_mlp(gen, d: int, f: int, dtype=DEFAULT_DTYPE, device=None) -> dict:
+    s_in, s_out = d ** -0.5, f ** -0.5
+    return {"w_gate": normal(gen, (d, f), s_in, dtype, device),
+            "w_up": normal(gen, (d, f), s_in, dtype, device),
+            "w_down": normal(gen, (f, d), s_out, dtype, device)}
+
+
+def mlp(params: dict, x):
+    g = dense(x, params["w_gate"])
+    u = dense(x, params["w_up"])
+    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+    return dense(h, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits, labels, mask=None):
+    """Mean cross entropy; logits [..., V] (fp32 accum), labels int [...]."""
+    logits = logits.float()
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=logits.device).float()
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

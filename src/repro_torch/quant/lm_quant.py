@@ -1,0 +1,117 @@
+"""W8A8 quantization of transformer parameters — the paper's Qm.n
+framework applied to LM serving; the counterpart of
+`repro.quant.lm_quant` (its MoE `q_einsum` is not ported yet).
+
+Weights: int8 with per-output-channel power-of-two exponents, reduced
+over the contraction dim (axis -2) only.  Activations: dynamic
+per-tensor power-of-two quantization at matmul entry.  A quantized
+weight leaf is a dict {"q": int8 [..., out], "n": int32 [out]};
+`models.layers.dense` dispatches on that structure, so the same model
+code runs both float and W8A8 (`launch/serve.py --quant w8a8`).
+
+Exponents are the reference's, floor(log2(127 / max(max_abs, 1e-30)))
+clipped to [-24, 24]; every scale is an exact power of two
+(`kernels.w8a8_dense.pow2`).  The reference scales by `jnp.exp2`, which
+XLA's CPU backend does not compute exactly at some integer arguments of
+magnitude 13 or more, so there its "power-of-two" scales can be off by
+up to ~2e-6 relative.  `q_dense` runs `kernels.w8a8_dense` (the CUDA
+kernel on the card, its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from repro_torch.kernels.w8a8_dense import pow2, w8a8_dense
+
+QUANT_LEAF_NAMES = {
+    "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+    "up_proj", "down_proj", "in_proj", "out_proj", "wx",
+    "ffn_up", "ffn_down",
+}
+
+
+def exponent(max_abs):
+    """The power-of-two exponent that brings max_abs to at most 127:
+    float32 floor(log2(127 / max(max_abs, 1e-30))) clipped to [-24, 24]."""
+    return torch.clamp(torch.floor(torch.log2(
+        127.0 / torch.clamp_min(max_abs.float(), 1e-30))), -24, 24)
+
+
+def _quantize_2d(w):
+    """[K, N] -> (int8 [K, N], int32 [N])."""
+    wf = w.float()
+    n = exponent(wf.abs().amax(dim=-2)).to(torch.int32)
+    q = torch.clamp(torch.round(wf * pow2(n)[None, :]), -128, 127)
+    return q.to(torch.int8), n
+
+
+def _quantize_weight(w) -> dict:
+    """[..., K, N] -> {"q" int8, "n" int32 [..., N]}: per-output-channel
+    power-of-two exponents over the contraction dim, so stacked-cycle
+    leading dims are kept; quantized one [K, N] slice at a time, so a
+    stacked leaf never has a float32 copy."""
+    K, N = w.shape[-2:]
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    n = torch.empty(w.shape[:-2] + (N,), dtype=torch.int32, device=w.device)
+    for idx in itertools.product(*map(range, w.shape[:-2])):
+        q[idx], n[idx] = _quantize_2d(w[idx])
+    return {"q": q, "n": n}
+
+
+def quantize_lm_params(params, quantize_head: bool = True,
+                       consume: bool = False):
+    """Transform a float param tree into the W8A8 tree (norms,
+    embeddings, biases and small vectors stay float).  With consume=True
+    each float leaf is dropped from its dict as soon as its int8 leaf
+    exists, so the float tree is freed as it goes (given no other
+    reference to it); the tuples of the tree are rebuilt."""
+    def visit(tree, names):
+        if isinstance(tree, dict):
+            out = tree if consume else {}
+            for k in list(tree):
+                out[k] = visit(tree[k], names + (str(k),))
+            return out
+        if isinstance(tree, (tuple, list)):
+            return tuple(visit(v, names + (str(i),))
+                         for i, v in enumerate(tree))
+        name = names[-1]
+        if name in QUANT_LEAF_NAMES and tree.dim() >= 2:
+            return _quantize_weight(tree)
+        if quantize_head and name == "w" and "lm_head" in names:
+            return _quantize_weight(tree)
+        return tree
+    return visit(params, ())
+
+
+def is_qweight(w) -> bool:
+    return isinstance(w, dict) and set(w) >= {"q", "n"}
+
+
+def quantize_activation(x):
+    """Dynamic per-tensor pow2 activation quantization -> (int8,
+    exponent as a float32 0-d tensor on x's device)."""
+    xf = x.float()
+    e = exponent(xf.abs().amax())
+    q = torch.clamp(torch.round(xf * pow2(e)), -128, 127).to(torch.int8)
+    return q, e
+
+
+def q_dense(x, w: dict, out_dtype=torch.bfloat16):
+    """W8A8 dense: x [..., K] float, w {"q" [K, N], "n" [N]} -> out_dtype
+    [..., N] = out(float32(q(x) @ q) * 2^-(xe + n))."""
+    xq, xe = quantize_activation(x)
+    K, N = w["q"].shape
+    y = w8a8_dense(xq.reshape(-1, K), w["q"], xe, w["n"], out_dtype)
+    return y.reshape(x.shape[:-1] + (N,))
+
+
+def quantized_bytes(qparams) -> int:
+    def walk(tree):
+        if isinstance(tree, dict):
+            return sum(walk(v) for v in tree.values())
+        if isinstance(tree, (tuple, list)):
+            return sum(walk(v) for v in tree)
+        return tree.numel() * tree.element_size()
+    return int(walk(qparams))

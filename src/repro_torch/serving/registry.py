@@ -8,8 +8,9 @@ Two caches with different lifetimes:
     and skip the lazy path, and an exported `.capsbin` artifact is
     `install_artifact()`ed onto the registry's device.  `export(id)`
     writes a served model out as that artifact.
-  * wave cache — `executable(id, bucket)` binds `wave_fn` to (model,
-    bucket) once and reuses it for every later wave.
+  * wave cache — `executable(id, bucket)` binds `sharded.wave_fn` to
+    (model, bucket) once (`sharded.compile_wave`, under the registry's
+    mesh if any) and reuses it for every later wave.
 
 `quantize_count` / `compile_count` / `exec_hits` count builds, wave
 bindings and wave-cache hits, so tests can pin reuse: they are views
@@ -36,6 +37,8 @@ from repro_torch.nn.config import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB,
                                    CapsNetConfig)
 from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
 from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH, VariantSet
+from repro_torch.serving import sharded
+from repro_torch.serving.sharded import wave_fn  # noqa: F401 (re-export)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,29 +93,11 @@ def default_specs() -> dict:
     return out
 
 
-def wave_fn(qnet: QuantCapsNet, bucket: int):
-    """What one serving wave computes, bound to (model, bucket): float
-    images [bucket,H,W,C] -> (v_q int8 [B,J,O], lengths float32 [B,J],
-    pred int32 [B]), all on the model's device."""
-    shape = (bucket,) + tuple(qnet.pipeline.cfg.input_shape)
-    device = qnet.device
-
-    @torch.inference_mode()
-    def fn(x):
-        x = torch.as_tensor(x, dtype=torch.float32)
-        if tuple(x.shape) != shape:
-            raise ValueError(f"wave bound to {shape}, got {tuple(x.shape)}")
-        v_q = qnet.forward(qnet.quantize_input(x.to(device)))
-        lengths = qnet.class_lengths(v_q)
-        pred = torch.argmax(lengths, dim=-1).to(torch.int32)
-        return v_q, lengths, pred
-    return fn
-
-
 class ModelRegistry:
     def __init__(self, specs: dict | None = None, device=None,
-                 metrics: obs.MetricsRegistry | None = None):
+                 metrics: obs.MetricsRegistry | None = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.specs = dict(specs) if specs is not None else default_specs()
         self._models: dict = {}
         self._execs: dict = {}
@@ -260,13 +245,14 @@ class ModelRegistry:
     # ------------------------------------------------------------------
     # wave functions
     # ------------------------------------------------------------------
-    def executable(self, model_id: str, bucket: int):
+    def executable(self, model_id: str, bucket: int) -> sharded.CompiledWave:
         key = (model_id, bucket)
         if key in self._execs:
             self._c_hits.inc(model=model_id, bucket=str(bucket))
             return self._execs[key]
         with obs.span("serving.compile_wave", model=model_id, bucket=bucket):
-            exe = wave_fn(self.model(model_id), bucket)
+            exe = sharded.compile_wave(self.model(model_id), bucket,
+                                       mesh=self.mesh)
         self._execs[key] = exe
         self._c_compile.inc(model=model_id, bucket=str(bucket))
         return exe

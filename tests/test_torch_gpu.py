@@ -579,3 +579,146 @@ def test_cuda_search_candidates_equal_the_torch_backends(cuda):
             assert kr.routing_q7.launches > n[1]
         want = Objective(twin, st.images, st.labels).evaluate(spec)
         assert got.to_json() == want.to_json()
+
+
+# ---------------------------------------------------------------------------
+# the LM path: w8a8_dense and a reduced qwen3_14b
+# ---------------------------------------------------------------------------
+def dense_operands(rng, M, K, N):
+    xq, wq = i8(rng, (M, K)), i8(rng, (K, N))
+    xe = torch.tensor(float(rng.integers(-24, 25)))
+    n = torch.from_numpy(rng.integers(-24, 25, (N,)).astype(np.int32))
+    return xq, wq, xe, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mkn_offset", [
+    (8, 5120, 1024, 0), (512, 512, 640, 0), (7, 100, 33, 0),
+    (4, 2048, 8, 0), (130, 784, 300, 1), (1, 64, 3, 0)], ids=str)
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=str)
+def test_cuda_w8a8_dense_matches_plain_on_each_route(cuda, mkn_offset, out):
+    """Bit for bit on the route gemm_plan names (A `offset` bytes past a
+    16-byte boundary takes mma.sync), one launch counted per call."""
+    from repro_torch.kernels import w8a8_dense as kd
+    M, K, N, offset = mkn_offset
+    rng = np.random.default_rng(M + K + N + offset)
+    xq, wq, xe, n = dense_operands(rng, M, K, N)
+    buf = torch.zeros(M * K + 16, dtype=torch.int8, device=cuda)
+    xd = buf[offset:offset + M * K].view(M, K)
+    xd.copy_(xq)
+    plan = kq.plan_for(xd, wq.to(cuda))
+    before = dict(kd.w8a8_dense.launches_by_route)
+    got = ops.w8a8_dense(xd, wq.to(cuda), xe.to(cuda), n.to(cuda), out)
+    before[plan.route] += 1
+    assert kd.w8a8_dense.launches_by_route == before
+    assert got.dtype == out
+    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wq, xe, n, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_split", [(128, 1), (256, 1), (128, 3),
+                                        (256, 2), (128, 8)], ids=str)
+def test_cuda_w8a8_dense_every_tile_and_split(cuda, tile_split):
+    from repro_torch.kernels import w8a8_dense as kd
+    tile_n, split = tile_split
+    plan = kq.GemmPlan("wgmma", (128, tile_n), split)
+    rng = np.random.default_rng(tile_n * split)
+    for M, K, N in ((8, 2048, 8), (200, 784, 300), (129, 1040, 257)):
+        xq, wq, xe, n = dense_operands(rng, M, K, N)
+        for out in (torch.bfloat16, torch.float32):
+            got, used = kd._launch(xq.to(cuda), wq.to(cuda), xe.to(cuda),
+                                   n.to(cuda), out, plan)
+            assert used == plan
+            assert torch.equal(got.cpu(),
+                               kd.w8a8_dense_plain(xq, wq, xe, n, out))
+
+
+def lm_setup(quant: str):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cfg = reduced(get_config("qwen3_14b"), d_model=64)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    if quant == "w8a8":
+        params = quantize_lm_params(params)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (2, 20)).astype(np.int32))
+    return cfg, model, params, toks
+
+
+def on(tree, device):
+    if isinstance(tree, dict):
+        return {k: on(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(on(v, device) for v in tree)
+    return tree.to(device)
+
+
+@pytest.fixture
+def f32_sums():
+    """bf16 products rounded once from float32 sums, as the `LM` entry
+    points run them (the blocks below are called directly)."""
+    from repro_torch.models.layers import full_bf16_sums
+    with full_bf16_sums():
+        yield
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_qwen3_float_prefill_decode_matches_the_cpu(cuda,
+                                                                 f32_sums):
+    """The port on the card against the port on the CPU: logits of
+    magnitude ~4 within the CPU tests' 0.1 (cuBLAS and the CPU sum bf16
+    products in other orders)."""
+    cfg, model, params, toks = lm_setup("none")
+    pc = on(params, cuda)
+    lc, cc = model.prefill(params, {"inputs": toks[:, :16]}, alloc=512)
+    lg, cg = model.prefill(pc, {"inputs": toks[:, :16].to(cuda)}, alloc=512)
+    diffs = [float((lc.float() - lg.float().cpu()).abs().max())]
+    for i in range(4):
+        t = toks[:, 16 + i:17 + i]
+        lc, cc = model.decode_step(params, cc, t, 16 + i)
+        lg, cg = model.decode_step(pc, cg, t.to(cuda), 16 + i)
+        diffs.append(float((lc.float() - lg.float().cpu()).abs().max()))
+    assert max(diffs) <= 0.1, diffs
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_qwen3_w8a8_blocks_match_the_cpu(cuda, f32_sums):
+    """W8A8 layer by layer (the card's block on the CPU's block input,
+    each with its own caches; a whole chain of per-tensor int8
+    activations amplifies one-ulp float differences): every block output
+    and the logits within 0.1, and every dense product on w8a8_dense."""
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.models import layers, transformer as tt
+    cfg, model, params, toks = lm_setup("w8a8")
+    pc = on(params, cuda)
+    cache_c = model.init_cache(2, 512, "cpu")
+    cache_g = model.init_cache(2, 512, cuda)
+    n0 = kd.w8a8_dense.launches
+    diffs = []
+
+    def run(x, mode, pos):
+        for ci in range(cfg.num_cycles):
+            for i, kind in enumerate(cfg.blocks):
+                y, _, _ = tt.block_apply(
+                    cfg, kind, tt._cycle(params["blocks"][i], ci), x,
+                    mode=mode, cache=cache_c[ci][i], pos=pos, prefix_len=0)
+                yg, _, _ = tt.block_apply(
+                    cfg, kind, tt._cycle(pc["blocks"][i], ci), x.to(cuda),
+                    mode=mode, cache=cache_g[ci][i], pos=pos, prefix_len=0)
+                diffs.append(float((y.float() - yg.float().cpu()).abs()
+                                   .max()))
+                x = y
+        h = layers.rms_norm(x[:, -1:], params["final_norm"]["scale"])
+        diffs.append(float((layers.lm_logits(params["lm_head"], h).float()
+                            - layers.lm_logits(pc["lm_head"], h.to(cuda))
+                            .float().cpu()).abs().max()))
+
+    run(layers.embed_lookup(params["embed"], toks[:, :16]), "prefill", None)
+    for i in range(4):
+        run(layers.embed_lookup(params["embed"], toks[:, 16 + i:17 + i]),
+            "decode", 16 + i)
+    assert max(diffs) <= 0.1, diffs
+    assert kd.w8a8_dense.launches - n0 == 5 * (7 * cfg.num_layers + 1)

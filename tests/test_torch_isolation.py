@@ -52,6 +52,8 @@ def test_the_port_imports_with_jax_and_the_reference_blocked():
         f"for m in {modules!r}:",
         "    importlib.import_module(m)",
         "import repro_torch.launch.serve_caps",
+        "import repro_torch.launch.serve",
+        "import repro_torch.models.transformer",
         "assert not any(m.split('.')[0] in " + repr(FORBIDDEN)
         + " for m in sys.modules if sys.modules[m] is not None)",
         "print('ok', len(" + repr(modules) + "))",
@@ -80,6 +82,19 @@ def test_default_device_without_a_gpu_raises(no_gpu):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_caps.main(["--model", "edge_tiny@torch", "--requests", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_the_lm_entry_points_default_to_the_card(no_gpu):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.train import reduced
+    from repro_torch.models.transformer import build_model
+    cfg = reduced(get_config("qwen3_14b"), d_model=64)
+    for call in (lambda: serve.serve(cfg, requests=1, prompt_len=4, gen=2),
+                 lambda: serve.main(["--requests", "1", "--gen", "2"]),
+                 lambda: build_model(cfg).init(torch.Generator())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_the_artifact_entry_points_default_to_the_card(no_gpu, tmp_path):

@@ -325,18 +325,21 @@ def test_cluster_decomposition_equals_the_plain_routing(cs):
 def test_kernel_sources_name_what_they_replace():
     names = sorted(p.stem for p in build.sources())
     assert names == ["q7_matmul", "routing_q7", "squash_float", "squash_q7",
-                     "w8a8_matmul"]
+                     "w8a8_dense", "w8a8_matmul"]
     notes = {"routing_q7": "src/repro/kernels/routing.py",
              "squash_q7": "src/repro/kernels/squash.py",
              "squash_float": "src/repro/kernels/squash.py",
              "q7_matmul": "src/repro/kernels/q7_matmul.py",
-             "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py"}
+             "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py",
+             # no TPU kernel: the XLA product it takes the place of
+             "w8a8_dense": "src/repro/quant/lm_quant.py:76"}
     for p in build.sources():
         text = p.read_text()
-        assert notes[p.stem] in text and f"{p.stem}_pallas" in text
+        what = "(q_dense)" if p.stem == "w8a8_dense" else f"{p.stem}_pallas"
+        assert notes[p.stem] in text and what in text
         assert "Bound on the H100" in text
         assert f'extern "C" int {p.stem}_launch' in text
-    for gemm in ("q7_matmul", "w8a8_matmul"):
+    for gemm in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
         text = (build.CSRC / f"{gemm}.cu").read_text()
         assert '#include "i8_gemm.cuh"' in text and "i8gemm::launch" in text
     h = build.source_hash()

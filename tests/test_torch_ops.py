@@ -26,6 +26,7 @@ from repro.quant import int8_ops as R
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import q7_matmul as kq
 from repro_torch.kernels import squash as ks
+from repro_torch.kernels import w8a8_dense as kd
 from repro_torch.kernels import w8a8_matmul as kw
 from repro_torch.quant import int8_ops as T
 
@@ -251,6 +252,8 @@ def _calls(dev):
         "matmul_q7": lambda: ops.matmul_q7(a, b, 3),
         "bmm_q7": lambda: ops.bmm_q7(a[None], b[None], 3),
         "w8a8_matmul": lambda: ops.w8a8_matmul(a, b, sh),
+        "w8a8_dense": lambda: ops.w8a8_dense(
+            a, b, torch.zeros((), device=dev), sh),
         "squash_q7": lambda: ops.squash_q7(a.reshape(32, 4), in_frac=5),
         "squash_float": lambda: ops.squash_float(
             torch.zeros((8, 4), device=dev)),
@@ -263,8 +266,8 @@ def _calls(dev):
 
 def _launches():
     return (kq.matmul_q7.launches, kq.bmm_q7.launches,
-            kw.w8a8_matmul.launches, ks.squash_q7.launches,
-            ks.squash_float.launches)
+            kw.w8a8_matmul.launches, kd.w8a8_dense.launches,
+            ks.squash_q7.launches, ks.squash_float.launches)
 
 
 def test_ops_take_cpu_tensors_to_the_plain_versions():
