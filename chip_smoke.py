@@ -208,6 +208,38 @@ Phases, each raising on failure:
    and power limit, and `[time]`/`[device]` lines `w8a8_dense` at (8,
    17408, 5120) and (512, 5120, 17408) beside its plain version, its
    bound and `torch._int_mm`.
+13. (run after phase 12, before phase 9) the MoE FFN,
+   `repro_torch.models.moe` with `lm_quant.q_einsum` on `w8a8_bmm`, the
+   batched face of `w8a8_dense`, with every earlier phase's tensors
+   freed first: `w8a8_bmm` bit for bit against its plain version (bf16
+   out) at every expert product of phi35_moe (E 16: (4096, 6400),
+   (6400, 4096)) and mixtral_8x22b (E 8: (6144, 16384), (16384, 6144)),
+   read off their param trees, at M = C = 4 (a decode step of 8 rows,
+   one group) and M = 8 C = 96 / 160 (a prefill of 8 x 64, a group a
+   row), on the route gemm_plan picks and on the other one (forced),
+   plus a ragged (3, 7, 100, 33) on mma.sync and a split-K (4, 4, 2048,
+   8), every expert with exponents of its own (the plain product with
+   expert 0's exponents everywhere must differ); phi35_moe at full width
+   cut to 16 of its 32 layers (its bf16 tree is 83.6 GB at 32) and
+   mixtral_8x22b at full width cut to 4 of 56 (its SWA caches a ring of
+   512 slots), each serving 8 requests x 64 prompt tokens for 32 greedy
+   tokens, float then W8A8, finite logits required, `w8a8_bmm` and
+   `w8a8_dense` counted from 0 just before each W8A8 run and required to
+   launch exactly 3 x L x 32 and (4 x L + 1) x 32 times (phi35_moe:
+   1,536 and 2,080); the float decode after prefill(64) held against
+   prefill(65) within atol 0.15 + rtol 0.05 on the rows whose compared
+   token kept every top-k assignment at every MoE layer on both sides
+   (found by wrapping `models.moe.moe_apply` for those forwards), at the
+   configs' capacity factor and at E / k (where nothing can drop), the
+   gated and set-aside rows printed, failing if no row was gated (W8A8
+   printed only); `python -m repro_torch.launch.serve --arch phi35_moe
+   --quant w8a8 --d-model 1024 --requests 8 --prompt-len 64 --gen 32`
+   exits 0; `[moe]` lines hold prefill ms, decode ms a step, tok/s,
+   parameter MiB, peak device GiB and the assignments each layer drops
+   at a prefill, beside the card's name and power limit; `[time]` and
+   `[device]` lines `w8a8_bmm` at (16, 4, 4096, 6400) and (16, 96, 4096,
+   6400) beside its plain version, its bound and (at the second) 16
+   calls of `torch._int_mm`.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -1957,25 +1989,30 @@ def warm_times(res, cfg, dev, steps: int = 8) -> tuple:
     return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / steps
 
 
-def serve_lm(cfg, dev, card: str, quant: str, consist: str):
+def serve_lm(cfg, dev, card: str, quant: str, consist: str,
+             tag: str = "[lm]"):
     """launch.serve.serve of `cfg` (8 x 64 prompts, 32 greedy tokens),
     finite logits required, the numbers logged (the serve call's, its
     first calls included, and a warm prefill and 8 decode steps after
-    it); then the consistency check (`consist`: a `lm_consistency` gate,
-    or "none").  Returns the tokens, the numbers and the serve call's
-    w8a8_dense launches, with the model and params dropped."""
+    it; for a MoE config the assignments each layer drops at a prefill
+    of the served prompts); then the consistency check (`consist`: a
+    `lm_consistency` gate, "moe" for `moe_consistency`'s, or "none").
+    Returns the tokens, the numbers and the serve call's w8a8_dense and
+    w8a8_bmm launches, with the model and params dropped."""
     import torch
     from repro_torch.kernels import w8a8_dense as kd
     from repro_torch.launch.serve import serve
     torch.cuda.reset_peak_memory_stats()
-    n0 = kd.w8a8_dense.launches
+    n0, b0 = kd.w8a8_dense.launches, kd.w8a8_bmm.launches
     res = serve(cfg, LM_REQUESTS, LM_PROMPT, LM_GEN, quant, dev, seed=SEED,
-                log=lambda *a: log("[lm]", *a))
+                log=lambda *a: log(tag, *a))
     launches = kd.w8a8_dense.launches - n0
+    bmm_launches = kd.w8a8_bmm.launches - b0
     if not torch.isfinite(res["logits"].float()).all():
         raise AssertionError(f"{cfg.name} {quant}: non-finite logits")
     steps = LM_GEN - 1
     out = dict(tokens=res["tokens"], launches=launches,
+               bmm_launches=bmm_launches,
                prefill_ms=res["prefill_s"] * 1e3,
                decode_ms_step=res["decode_s"] * 1e3 / steps,
                tok_per_s=res["tok_per_s"],
@@ -1984,7 +2021,7 @@ def serve_lm(cfg, dev, card: str, quant: str, consist: str):
     out["warm_prefill_ms"], out["warm_decode_ms_step"] = \
         warm_times(res, cfg, dev)
     out["warm_tok_per_s"] = LM_REQUESTS / out["warm_decode_ms_step"] * 1e3
-    log(f"[lm] {card} | {cfg.name} {quant} ({cfg.num_layers} layers, d "
+    log(f"{tag} {card} | {cfg.name} {quant} ({cfg.num_layers} layers, d "
         f"{cfg.d_model}): serve: prefill {out['prefill_ms']:.2f} ms for "
         f"{LM_REQUESTS}x{LM_PROMPT} tokens (first call), decode "
         f"{out['decode_ms_step']:.3f} ms a step over {steps} steps "
@@ -1993,11 +2030,22 @@ def serve_lm(cfg, dev, card: str, quant: str, consist: str):
         f"{out['warm_decode_ms_step']:.3f} ms a step "
         f"({out['warm_tok_per_s']:.1f} tok/s); params "
         f"{out['param_mib']:.1f} MiB, peak {out['peak_gib']:.2f} GiB, "
-        f"w8a8_dense launches {launches}")
-    if consist != "none":
+        f"w8a8_dense launches {launches}"
+        + (f", w8a8_bmm launches {bmm_launches}" if cfg.num_experts else ""))
+    if cfg.num_experts:
+        out["dropped"] = prefill_drops(res, cfg)
+        log(f"{tag} {card} | {cfg.name} {quant}: assignments dropped per "
+            f"layer at a prefill of the served {LM_REQUESTS}x{LM_PROMPT} "
+            f"prompts (of {LM_REQUESTS * LM_PROMPT * cfg.experts_per_tok} "
+            f"a layer, capacity {moe_capacity(LM_PROMPT, cfg)} an expert "
+            f"and row): {out['dropped']}")
+    if consist == "moe":
+        for line in moe_consistency(res["params"], cfg, dev, quant):
+            log(f"{tag} {line}")
+    elif consist != "none":
         line = lm_consistency(res["model"], res["params"], cfg, dev, quant,
                               gate=consist)
-        log(f"[lm] {line} (gate: {CONSIST_GATES[consist]})")
+        log(f"{tag} {line} (gate: {CONSIST_GATES[consist]})")
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -2152,6 +2200,340 @@ def dense_device_times(dev, card: str, rows: list) -> None:
         log(f"[device] {card} | w8a8_dense {row['shape']}: "
             f"{row['device_ms']:.5f} ms, every kernel of the call ({split}); "
             f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the MoE FFN (repro_torch.models.moe, q_einsum on w8a8_bmm)
+# ---------------------------------------------------------------------------
+# depth cuts: phi35_moe's bf16 tree is 83.6 GB at its 32 layers, over the
+# card's 80 GB; mixtral_8x22b holds ~5 GB of bf16 a layer
+MOE_LAYERS = {"phi35_moe": 16, "mixtral_8x22b": 4}
+# (E, M, K, N): K % 16 != 0, the mma.sync loop; one tile an expert, split K
+MOE_RAGGED = (3, 7, 100, 33)
+MOE_SPLIT = (4, 4, 2048, 8)
+# M of the expert products: C at a decode step of 8 rows (one group), and
+# 8 * C at a prefill of 8 x 64 (a group a row)
+MOE_M = {"phi35_moe": (4, 96), "mixtral_8x22b": (4, 160)}
+# the timed shapes of the JSON record: phi35_moe's gate/up product at a
+# decode step (the headline) and at a prefill of 8 x 64
+MOE_TIMED = ((16, 4, 4096, 6400), (16, 96, 4096, 6400))
+MOE_CLI_D = 1024
+
+
+def moe_configs() -> dict:
+    """phi35_moe and mixtral_8x22b at full width, depth cut to MOE_LAYERS."""
+    from repro_torch.configs import get_config
+    return {name: dataclasses.replace(get_config(name), num_layers=layers)
+            for name, layers in MOE_LAYERS.items()}
+
+
+def moe_capacity(tokens_per_group: int, cfg) -> int:
+    from repro_torch.models import moe
+    return moe.capacity(tokens_per_group, cfg)
+
+
+def expert_ekn(cfg) -> list:
+    """(E, K, N) of every W8A8 expert product of `cfg`, read off the
+    quantized param tree of one pattern cycle built on the meta device."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cycle = dataclasses.replace(cfg, num_layers=len(cfg.blocks))
+    tree = quantize_lm_params(build_model(cycle).init(torch.Generator(),
+                                                      "meta"))
+    return sorted({tuple(b["moe"][k]["q"].shape[-3:])
+                   for b in tree["blocks"] if "moe" in b
+                   for k in ("w_gate", "w_up", "w_down")})
+
+
+def bmm_bound(E: int, M: int, K: int, N: int):
+    """w8a8_bmm's bound: 2EMKN int8 operations against E(MK + KN) bytes of
+    int8 in, 2EMN of bf16 out and 4EN of exponents."""
+    bytes_ms = E * (M * K + K * N + 2 * M * N + 4 * N) / HBM_BYTES_PER_S \
+        * 1e3
+    ops_ms = 2 * E * M * K * N / INT8_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def bmm_operands(E: int, M: int, K: int, N: int, g, dev):
+    """Random int8 operands and exponents on the card from `g`, every
+    expert's n its own draw."""
+    import torch
+    z = dict(generator=g, device=dev)
+    xq = torch.randint(-128, 128, (E, M, K), dtype=torch.int8, **z)
+    wq = torch.randint(-128, 128, (E, K, N), dtype=torch.int8, **z)
+    xe = torch.randint(-24, 25, (), **z).float()
+    n = torch.randint(-24, 25, (E, N), dtype=torch.int32, **z)
+    return xq, wq, xe, n
+
+
+def check_bmm(dev, cfgs) -> float:
+    """w8a8_bmm against its plain version on the card, bit for bit (bf16
+    out), at every expert product of `cfgs` at its decode and prefill M,
+    on the route gemm_plan picks (counted) and on the other one
+    (mma.sync, or wgmma where TMA takes the shape), plus a ragged and a
+    split-K shape; every case's experts have exponents of their own, and
+    the plain product with expert 0's exponents everywhere must differ
+    from it (a kernel reading expert 0's n for all would fail).  Returns
+    the largest |difference| (0)."""
+    import torch
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import w8a8_dense as kd
+    g = torch.Generator(dev).manual_seed(SEED + 20)
+    cases = []
+    for cfg in cfgs:
+        ekn = expert_ekn(cfg)
+        want = sorted({(cfg.num_experts, cfg.d_model, cfg.d_ff),
+                       (cfg.num_experts, cfg.d_ff, cfg.d_model)})
+        if ekn != want:
+            raise AssertionError(f"{cfg.name}'s expert products read {ekn}")
+        Ms = (moe_capacity(LM_REQUESTS, cfg),
+              LM_REQUESTS * moe_capacity(LM_PROMPT, cfg))
+        if Ms != MOE_M[cfg.name]:
+            raise AssertionError(f"{cfg.name}: expert rows {Ms}")
+        cases += [(E, M, K, N, cfg.name) for E, K, N in ekn for M in Ms]
+    cases += [(*MOE_RAGGED, "ragged"), (*MOE_SPLIT, "split K")]
+    worst = 0.0
+    for E, M, K, N, who in cases:
+        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
+        want = kd.w8a8_dense_plain(xq, wq, xe, n)
+        if torch.equal(want, kd.w8a8_dense_plain(xq, wq, xe,
+                                                 n[:1].expand(E, N))):
+            raise AssertionError(f"{(E, M, K, N)}: the experts' exponents "
+                                 "do not tell them apart")
+        plan = kq.plan_for(xq, wq)
+        other = kq.GemmPlan("mma.sync", (kq.TILE_M, 128), 1) \
+            if plan.route == "wgmma" else None
+        if other is None and K % 16 == 0:
+            other = kq.gemm_plan(M, K, N, E, 0)
+        runs = [("planned", plan, kd.w8a8_bmm(xq, wq, xe, n))]
+        if other is not None:
+            runs.append(("forced", other,
+                         kd._launch(xq, wq, xe, n, torch.bfloat16,
+                                    other)[0]))
+        torch.cuda.synchronize()
+        for what, p, got in runs:
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"w8a8_bmm {(E, M, K, N)} ({what} "
+                                     f"{p}) differs from its plain version")
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+        log(f"[moe] w8a8_bmm {(E, M, K, N)} ({who}): "
+            + "; ".join(f"{what} route {p.route}, tile {p.tile}, split "
+                        f"{p.split}" for what, p, _ in runs)
+            + ": bit-exact against the plain version (bf16 out), per-expert "
+            "exponents")
+        del xq, wq, want, runs
+    if not {"wgmma", "mma.sync"} <= {
+            r for r, c in kd.w8a8_bmm.launches_by_route.items() if c}:
+        raise AssertionError(f"w8a8_bmm left a route unused: "
+                             f"{kd.w8a8_bmm.launches_by_route}")
+    return worst
+
+
+def moe_kept(fn):
+    """fn() with models.moe.moe_apply wrapped; returns fn's result and,
+    for each MoE layer call, (is_decode, keep [B, S, k], experts [B, S,
+    k]): whether each token's assignment was kept, and its experts in
+    ascending order."""
+    from repro_torch.models import moe
+    orig, calls = moe.moe_apply, []
+
+    def spy(params, x, cfg, *, is_decode=False):
+        B, S, D = x.shape
+        xg = x.reshape(1, B * S, D) if is_decode else x
+        r = moe.route(params, xg, cfg)
+        shape = (B, S, cfg.experts_per_tok)
+        calls.append((is_decode, r.keep.reshape(shape),
+                      r.eidx.reshape(shape).sort(-1).values))
+        return orig(params, x, cfg, is_decode=is_decode)
+    moe.moe_apply = spy
+    try:
+        return fn(), calls
+    finally:
+        moe.moe_apply = orig
+
+
+def prefill_drops(res, cfg) -> list:
+    """Assignments dropped in each MoE layer at a prefill of the served
+    prompts."""
+    import torch
+    with torch.inference_mode():
+        _, calls = moe_kept(lambda: res["model"].prefill(
+            res["params"], {"inputs": res["prompts"]}, alloc=512))
+    return [int((~keep).sum()) for _, keep, _ in calls]
+
+
+def moe_consistency(params, cfg, dev, quant: str) -> list:
+    """prefill(t[:64]) then decode_step(t[64]) against prefill(t[:65]),
+    held to the CPU tests' tolerance (float; W8A8 printed only) on the
+    rows whose compared token kept all its assignments at every MoE layer
+    on both sides, to the same experts: at the config's capacity factor,
+    and at E / k, where no expert can overflow.  A decode step groups
+    the batch (8 tokens), a prefill each row (65), so a token dropped on
+    one side only is the reference's semantics, not a fault; nor is a
+    token whose router, a near-tie, reads the two sides' bf16 roundings
+    as different experts.  Returns the lines; raises when a gated row is
+    beyond the tolerance, or no row was gated."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    lines, gated = [], 0
+    for cf in (cfg.capacity_factor, cfg.num_experts / cfg.experts_per_tok):
+        c = dataclasses.replace(cfg, capacity_factor=cf)
+        (a, b), calls = moe_kept(lambda: decode_vs_prefill(
+            build_model(c), params, c, dev))
+        full = [(k[:, -1], e[:, -1]) for d, k, e in calls
+                if not d and k.shape[1] == LM_PROMPT + 1]
+        dec = [(k[:, 0], e[:, 0]) for d, k, e in calls if d]
+        if len(full) != cfg.num_layers or len(dec) != cfg.num_layers:
+            raise AssertionError(f"{cfg.name}: {len(full)} prefill and "
+                                 f"{len(dec)} decode MoE calls")
+        kept = torch.stack([k1.all(-1) & k2.all(-1)
+                            for (k1, _), (k2, _) in zip(full, dec)]).all(0)
+        same = torch.stack([(e1 == e2).all(-1)
+                            for (_, e1), (_, e2) in zip(full, dec)]).all(0)
+        rows = kept & same
+        err = (a - b).abs()
+        beyond = (err > CONSIST_ATOL + CONSIST_RTOL * a.abs())[rows]
+        over = int(beyond.sum())
+        worst = float(err[rows].max()) if rows.any() else float("nan")
+        agree = int((a.argmax(-1) == b.argmax(-1))[rows].sum())
+        gated += int(rows.sum())
+        line = (f"{cfg.name} {quant} capacity factor {cf:g} (C "
+                f"{moe_capacity(LM_PROMPT + 1, c)} at "
+                f"prefill({LM_PROMPT + 1}),"
+                f" {moe_capacity(LM_REQUESTS, c)} at decode): decode after "
+                f"prefill({LM_PROMPT}) vs prefill({LM_PROMPT + 1}) on the "
+                f"{int(rows.sum())} rows whose compared token kept every "
+                f"assignment at every layer on both sides, to the same "
+                f"experts ({int((~kept).sum())} set aside for a drop, "
+                f"{int((kept & ~same).sum())} for other experts): max |diff| "
+                f"{worst:.4f}, {over} logits beyond atol {CONSIST_ATOL} + "
+                f"rtol {CONSIST_RTOL}, argmax equal on {agree}; all rows: "
+                f"max |diff| {float(err.max()):.4f}")
+        lines.append(line + (" (printed, not gated: W8A8)" if quant == "w8a8"
+                             else " (gated)"))
+        if quant != "w8a8" and over:
+            raise AssertionError(line)
+    if quant != "w8a8" and gated == 0:
+        raise AssertionError(f"{cfg.name}: no row gated: {lines}")
+    return lines
+
+
+def moe_phase(dev, card: str) -> dict:
+    """Phase 13; returns the w8a8_bmm record's pieces."""
+    import torch
+    from repro_torch.kernels import w8a8_dense as kd
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[moe] device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cfgs = moe_configs()
+    err = check_bmm(dev, cfgs.values())
+    runs, counts, dense = {}, {}, {}
+    for name, cfg in cfgs.items():
+        runs[f"{name}_float"] = serve_lm(cfg, dev, card, "none", "moe",
+                                         "[moe]")
+        kd.w8a8_bmm.launches = kd.w8a8_dense.launches = 0
+        q = runs[f"{name}_w8a8"] = serve_lm(cfg, dev, card, "w8a8", "moe",
+                                            "[moe]")
+        L = cfg.num_layers
+        want = (3 * L * LM_GEN, (4 * L + 1) * LM_GEN)
+        got = (q["bmm_launches"], q["launches"])
+        log(f"[moe] {name} w8a8: w8a8_bmm launched {got[0]} times over the "
+            f"serve call, expected {want[0]} (3 expert products x {L} "
+            f"layers, per forward, 1 prefill + {LM_GEN - 1} decode steps); "
+            f"w8a8_dense {got[1]}, expected {want[1]} (wq, wk, wv, wo x {L}"
+            f" + lm_head, per forward)")
+        if got != want:
+            raise AssertionError(f"{name} w8a8: launches {got}, not {want}")
+        counts[name], dense[f"moe_{name}"] = got
+        agree = float((q["tokens"] == runs[f"{name}_float"]["tokens"])
+                      .mean())
+        log(f"[moe] {name}: W8A8 and float greedy tokens agree on "
+            f"{agree:.1%} (not gated)")
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = ["--arch", "phi35_moe", "--quant", "w8a8", "--d-model",
+            MOE_CLI_D, "--requests", LM_REQUESTS, "--prompt-len",
+            LM_PROMPT, "--gen", LM_GEN]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *map(str, args)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.serve {args}: exit {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"[moe] {card} | python -m repro_torch.launch.serve "
+        f"{' '.join(map(str, args))}: exit 0 in "
+        f"{time.perf_counter() - t:.1f} s (process included):")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[moe]   {line}")
+    for r in runs.values():
+        r.pop("tokens")
+    return dict(launches=counts["phi35_moe"], launches_by_path={
+        f"moe_{k}": v for k, v in counts.items()}, max_abs_err=err,
+        runs=runs, dense_launches_by_path=dense)
+
+
+def time_bmm(dev, card: str) -> dict:
+    """w8a8_bmm at MOE_TIMED: the wrapper's wall time, its plain
+    version's, the bound and E calls of torch._int_mm (where it takes
+    the shape: M > 16)."""
+    import torch
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import w8a8_dense as kd
+    g = torch.Generator(dev).manual_seed(SEED + 21)
+    rows = []
+    for E, M, K, N in MOE_TIMED:
+        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
+        bound, by = bmm_bound(E, M, K, N)
+        yard = None if M <= 16 else cuda_ms(
+            lambda: [torch._int_mm(xq[e], wq[e]) for e in range(E)])
+        rows.append(dict(
+            shape=[E, M, K, N], ms=cuda_ms(lambda: kd.w8a8_bmm(xq, wq, xe,
+                                                                n)),
+            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wq, xe, n),
+                             iters=5),
+            bound_ms=bound, bound_by=by, int_mm_ms=yard,
+            plan=str(tuple(kq.plan_for(xq, wq)))))
+        yard = "n/a (M <= 16)" if yard is None \
+            else f"{yard:.4f} ms ({E} calls)"
+        log(f"[time] {card} | w8a8_bmm {[E, M, K, N]} ({rows[-1]['plan']}): "
+            f"kernel {rows[-1]['ms']:.4f} ms, plain "
+            f"{rows[-1]['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by}), "
+            f"torch._int_mm yardstick {yard}")
+        del xq, wq
+    return dict(rows[0], shapes=rows)
+
+
+def bmm_device_times(dev, card: str, rows: list) -> None:
+    """Profiler device time of w8a8_bmm at each MOE_TIMED shape, summed
+    over every kernel of the call (the transpose of every expert's W, the
+    product, a split-K reduction), and of the E torch._int_mm calls, into
+    `rows`."""
+    import torch
+    from repro_torch.kernels import w8a8_dense as kd
+    g = torch.Generator(dev).manual_seed(SEED + 21)
+    for row in rows:
+        E, M, K, N = row["shape"]
+        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
+        parts = {}
+        row["device_ms"] = device_ms(lambda: kd.w8a8_bmm(xq, wq, xe, n),
+                                     None, calls=20, parts=parts)
+        row["int_mm_device_ms"] = None if M <= 16 else device_ms(
+            lambda: [torch._int_mm(xq[e], wq[e]) for e in range(E)], None,
+            calls=20)
+        split = ", ".join(f"{k.split('(')[0].split('<')[0].split('::')[-1]}"
+                          f" {v:.5f}" for k, v in parts.items())
+        yard = "n/a" if row["int_mm_device_ms"] is None \
+            else f"{row['int_mm_device_ms']:.5f} ms"
+        log(f"[device] {card} | w8a8_bmm {row['shape']}: "
+            f"{row['device_ms']:.5f} ms, every kernel of the call ({split}); "
+            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}); "
+            f"{E} torch._int_mm calls {yard}")
+        del xq, wq
 
 
 # ---------------------------------------------------------------------------
@@ -2798,6 +3180,11 @@ def main(argv=None) -> int:
     lm = lm_phase(dev, card, run)
     times["w8a8_dense"] = time_dense(dev, card)
 
+    # phase 13: the MoE FFN; w8a8_bmm's and w8a8_dense's counts from 0
+    # just before each W8A8 run, read just after
+    moe = moe_phase(dev, card)
+    times["w8a8_bmm"] = time_bmm(dev, card)
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -2824,6 +3211,9 @@ def main(argv=None) -> int:
     dense_device_times(dev, card, times["w8a8_dense"]["shapes"])
     times["w8a8_dense"]["device_ms"] = \
         times["w8a8_dense"]["shapes"][0]["device_ms"]
+    bmm_device_times(dev, card, times["w8a8_bmm"]["shapes"])
+    times["w8a8_bmm"]["device_ms"] = \
+        times["w8a8_bmm"]["shapes"][0]["device_ms"]
     for name in ("q7_matmul", "w8a8_matmul"):
         times[name]["device_ms"] = dt[name][shape_key(HEADLINE_GEMM)]
         for row in times[name]["shapes"]:
@@ -2849,9 +3239,13 @@ def main(argv=None) -> int:
                  "max_abs_err": errs[name], "ms": t["ms"],
                  "device_ms": t["device_ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                 "bound_by": t["bound_by"], "library_ms": None,
-                 "library_note": "no single PyTorch call computes this "
-                 "function", "shape": t["shape"]}
+                 "bound_by": t["bound_by"],
+                 "library_ms": t.get("int_mm_ms"),
+                 "library_note": "torch._int_mm, cuBLASLt's int8 x int8 -> "
+                 "int32 product alone (no shift epilogue), at the headline "
+                 "shape; the port never calls it"
+                 if t.get("int_mm_ms") is not None else "no single PyTorch "
+                 "call computes this function", "shape": t["shape"]}
         if name in artifact["launches"]:
             entry["launches_by_path"] = {
                 "main": launches[name],
@@ -2873,7 +3267,8 @@ def main(argv=None) -> int:
         "product with XLA's int8 dot_general and an elementwise pow2 "
         "dequantization, src/repro/quant/lm_quant.py:76 (q_dense)",
         "launches": lm["launches"],
-        "launches_by_path": lm["launches_by_path"],
+        "launches_by_path": {**lm["launches_by_path"],
+                             **moe["dense_launches_by_path"]},
         "max_abs_err": lm["max_abs_err"], "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -2889,6 +3284,25 @@ def main(argv=None) -> int:
     for v in record["kernels"][-1]["lm"].values():
         if isinstance(v, dict):
             v.pop("tokens")
+    t = times["w8a8_bmm"]
+    record["kernels"].append({
+        "name": "w8a8_bmm", "route": "cuda", "source": csrc
+        + "w8a8_dense.cu", "replaces": None,
+        "replaces_note": "no TPU kernel: the reference computes the MoE "
+        "expert products with XLA's int8 einsum and an elementwise pow2 "
+        "dequantization, src/repro/quant/lm_quant.py:86 (q_einsum); the "
+        "batched face of w8a8_dense.cu's kernel, one expert a batch entry",
+        "launches": moe["launches"],
+        "launches_by_path": moe["launches_by_path"],
+        "max_abs_err": moe["max_abs_err"], "ms": t["ms"],
+        "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["int_mm_ms"],
+        "library_note": "E calls of torch._int_mm (cuBLASLt's int8 x int8 "
+        "-> int32 product alone, no dequantization) where it takes the "
+        "shape (M > 16): it refuses the headline decode shape, and the "
+        "prefill row of `shapes` holds it; the port never calls it",
+        "shape": t["shape"], "shapes": t["shapes"], "moe": moe["runs"]})
     log("kernels: " + ", ".join(f"{k['name']} x{k['launches']}"
                                 for k in record["kernels"]))
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "

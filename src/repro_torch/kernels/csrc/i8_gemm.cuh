@@ -83,8 +83,9 @@ __device__ __forceinline__ uint4 load16(const int8_t* __restrict__ p,
 }
 
 // Epilogue contract: `Epi::Out` is the output element type;
-// `stage(tile, n0, N)` runs once per block before the K loop (all
-// threads; `tile` is kBN int32 of shared memory for per-column data),
+// `stage(tile, z, n0, N)` runs once per block before the K loop (all
+// threads; `tile` is kBN int32 of shared memory for the per-column data
+// of columns [n0, n0 + kBN) of batch entry z),
 // `apply(acc, col, tile)` maps one accumulator of output column n0 + col
 // to its output value (converted to Epi::Out by the store).
 
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int g = lane / 4, t = lane % 4;       // mma groupID, thread-in-group
   const int wm = (warp / 4) * kWarpM, wn = (warp % 4) * kWarpN;
 
-  epi.stage(epi_tile, n0, N);
+  epi.stage(epi_tile, z, n0, N);
 
   int32_t acc[kMi][kNi][4];
 #pragma unroll

@@ -279,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (split == 1)
 #pragma unroll
     for (int h = 0; h < kNB; ++h)
-      epi.stage(epi_tile + 128 * h, n0 + 128 * h, N);   // all threads
+      epi.stage(epi_tile + 128 * h, z, n0 + 128 * h, N);   // all threads
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(smem_u32(&full_bar[s]), 1);
@@ -402,7 +402,7 @@ __global__ void __launch_bounds__(256)
   const int g = warp % group;
   const int64_t z = blockIdx.z;
   const int64_t plane = static_cast<int64_t>(M) * N;
-  epi.stage(epi_tile, t0, N);                   // all threads
+  epi.stage(epi_tile, z, t0, N);                // all threads
   uint32_t s[4] = {0u, 0u, 0u, 0u};
   if (row < M && n < N) {
     const int32_t* p = work + z * split * plane +

@@ -31,7 +31,7 @@ struct ScalarShift {
   using Out = int8_t;
   int shift;
   bool nearest;
-  __device__ __forceinline__ void stage(int32_t*, int, int) const {}
+  __device__ __forceinline__ void stage(int32_t*, int64_t, int, int) const {}
   __device__ __forceinline__ int32_t apply(int32_t acc, int,
                                            const int32_t*) const {
     return q7::rshift_sat8(acc, shift, nearest);

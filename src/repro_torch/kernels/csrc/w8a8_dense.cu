@@ -2,27 +2,32 @@
 // = out(float(A @ W) * 2^-(xe + n[col])), A [M, K] and W [K, N] row-major
 // int8, xe the activation's exponent (one int32 in device memory), n [N]
 // int32 the weight's per-column exponents, out bfloat16 (round to nearest
-// even) or float32.
+// even) or float32.  The batched face takes `batch` such products packed
+// back to back, A [batch, M, K], W [batch, K, N], n [batch, N] (each
+// entry its own exponents, one xe for all) -> Y [batch, M, N]: the MoE's
+// expert products, one expert a batch entry.
 //
-// No TPU kernel: the reference computes this with XLA's int8 dot_general
-// and an elementwise dequantization, src/repro/quant/lm_quant.py:76
-// (q_dense).  It is bit-exact with
-// repro_torch.kernels.w8a8_dense.w8a8_dense_plain: the int32 accumulator
-// (wrapping, as XLA's dot) becomes float32 by __int2float_rn, is
-// multiplied by 2^-(xe + n), built exactly from its exponent bits (xe
-// and n lie in [-24, 24], so the scale is a normal float32 and the
-// product is exact), and is rounded once, by __float2bfloat16_rn.
+// No TPU kernel: the reference computes these with XLA's int8
+// dot_general and einsum and an elementwise dequantization,
+// src/repro/quant/lm_quant.py:76 (q_dense) and :86 (q_einsum).  It is
+// bit-exact with repro_torch.kernels.w8a8_dense.w8a8_dense_plain: the
+// int32 accumulator (wrapping, as XLA's dot) becomes float32 by
+// __int2float_rn, is multiplied by 2^-(xe + n), built exactly from its
+// exponent bits (xe and n lie in [-24, 24], so the scale is a normal
+// float32 and the product is exact), and is rounded once, by
+// __float2bfloat16_rn.
 //
-// Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
-// M*K + K*N + 2*M*N + 4*N bytes (bfloat16 out) at 3.35 TB/s; a decode
-// step (M = the batch, 8) is bound by the bytes of W, a prefill (M = 512)
-// by operations for the wide products.  It runs on the same two main
-// loops as q7_matmul.cu and w8a8_matmul.cu, chosen the same way by
-// kernels/q7_matmul.py::gemm_plan: i8_gemm_sm90.cuh (wgmma, TMA ring,
-// split K; W transposed first by q7_matmul.cu's i8_transpose_launch, one
-// extra read and write of W a call) where TMA can describe A, and
-// i8_gemm.cuh (mma.sync) elsewhere.  Each block that runs the epilogue
-// stages xe + n of its output columns in shared memory once, as
+// Bound on the H100: 2*batch*M*K*N int8 operations at 1,979 TOP/s
+// against batch*(M*K + K*N + 2*M*N + 4*N) bytes (bfloat16 out) at 3.35
+// TB/s; a decode step (M = the batch, 8, or an expert's 4 slots) is
+// bound by the bytes of W, a prefill (M = 512) by operations for the
+// wide products.  It runs on the same two main loops as q7_matmul.cu and
+// w8a8_matmul.cu, chosen the same way by kernels/q7_matmul.py::gemm_plan,
+// the batch on the grid's z: i8_gemm_sm90.cuh (wgmma, TMA ring, split K;
+// W transposed first by q7_matmul.cu's i8_transpose_launch, one extra
+// read and write of W a call) where TMA can describe A, and i8_gemm.cuh
+// (mma.sync) elsewhere.  Each block that runs the epilogue stages xe + n
+// of its batch entry's output columns in shared memory once, as
 // w8a8_matmul.cu's ColumnShift stages its shifts; split K runs the same
 // functor in the reduction.
 #include <cuda_bf16.h>
@@ -44,11 +49,13 @@ template <class T>
 struct Dequant {
   using Out = T;
   const int32_t* xe;           // the activation's exponent, one int32
-  const int32_t* n;            // [N] the weight columns' exponents
-  __device__ __forceinline__ void stage(int32_t* tile, int n0, int N) const {
+  const int32_t* n;            // [batch, N] the weight columns' exponents
+  __device__ __forceinline__ void stage(int32_t* tile, int64_t z, int n0,
+                                        int N) const {
     const int32_t e = *xe;
+    const int32_t* nz = n + z * N;
     for (int j = threadIdx.x; j < i8gemm::kBN; j += blockDim.x)
-      tile[j] = n0 + j < N ? e + n[n0 + j] : 0;
+      tile[j] = n0 + j < N ? e + nz[n0 + j] : 0;
     __syncthreads();
   }
   __device__ __forceinline__ T apply(int32_t acc, int col,
@@ -68,23 +75,25 @@ Dequant<T> dequant(const void* xe, const void* n) {
 }  // namespace
 
 // C entry points (loaded with ctypes); `out_bf16` picks the output type
-// (1: bfloat16, 0: float32).  Each returns cudaGetLastError() after its
-// launch; 0 means the launch was accepted.
+// (1: bfloat16, 0: float32), and `batch` products run on the grid's z.
+// Each returns cudaGetLastError() after its launch; 0 means the launch
+// was accepted.
 extern "C" int w8a8_dense_launch(const void* a, const void* w,
                                  const void* xe, const void* n, void* c,
-                                 int M, int N, int K, int out_bf16,
-                                 void* stream) {
+                                 int batch, int M, int N, int K,
+                                 int out_bf16, void* stream) {
   if (out_bf16)
-    return i8gemm::launch(a, w, c, 1, M, N, K,
+    return i8gemm::launch(a, w, c, batch, M, N, K,
                           dequant<__nv_bfloat16>(xe, n), stream);
-  return i8gemm::launch(a, w, c, 1, M, N, K, dequant<float>(xe, n), stream);
+  return i8gemm::launch(a, w, c, batch, M, N, K, dequant<float>(xe, n),
+                        stream);
 }
 
 // The wgmma route: the product over A [batch, M, K] and Wt [batch, N, K]
 // (W transposed by i8_transpose_launch) on tiles 128 x bn, into C (split
 // == 1) or into the int32 partials work [batch, split, M, N]; and C from
 // those partials.  The arguments follow w8a8_matmul.cu's entries, the
-// epilogue's last.
+// epilogue's last (xe, n [batch, N], out_bf16).
 extern "C" int w8a8_dense_wgmma_launch(const void* a, const void* wt, void* c,
                                        void* work, int batch, int M, int N,
                                        int K, int bn, int split,

@@ -29,7 +29,8 @@ struct ColumnShift {
   using Out = int8_t;
   const int32_t* col_shift;
   bool nearest;
-  __device__ __forceinline__ void stage(int32_t* tile, int n0, int N) const {
+  __device__ __forceinline__ void stage(int32_t* tile, int64_t, int n0,
+                                        int N) const {
     for (int j = threadIdx.x; j < i8gemm::kBN; j += blockDim.x)
       tile[j] = n0 + j < N ? col_shift[n0 + j] : 0;
     __syncthreads();

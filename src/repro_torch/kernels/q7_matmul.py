@@ -95,7 +95,7 @@ ARGTYPES = {
     "w8a8_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     "w8a8_matmul_wgmma_launch": [_P] * 4 + [_I] * 6 + [_P, _I, _P],
     "w8a8_matmul_reduce_launch": [_P] * 2 + [_I] * 4 + [_P, _I, _P],
-    "w8a8_dense_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "w8a8_dense_launch": [_P] * 5 + [_I] * 5 + [_P],
     "w8a8_dense_wgmma_launch": [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P],
     "w8a8_dense_reduce_launch": [_P] * 2 + [_I] * 4 + [_P, _P, _I, _P],
 }

@@ -1,6 +1,6 @@
 """Model assembly: decoder-only transformers of attention / SWA blocks
-with gated-MLP FFNs, over pattern cycles; the counterpart of the `LM`
-class of `repro.models.transformer`.
+with gated-MLP or MoE FFNs, over pattern cycles; the counterpart of the
+`LM` class of `repro.models.transformer`.
 
 Parameters for each pattern position are stacked over `num_cycles` on a
 leading axis, as in the reference; `run_stack` is a Python loop over the
@@ -11,8 +11,8 @@ cycles of a tuple over pattern positions of {"k", "v"} dicts (the
 reference's `decode_unroll` layout, its only one for these configs),
 filled at prefill and written in place at decode.
 
-Not ported yet (ROADMAP Queue A item 5): the MoE FFN, the mamba / mLSTM /
-sLSTM mixers and the encoder-decoder model; `build_model` and `LM` raise
+Not ported yet (ROADMAP Queue A item 5): the mamba / mLSTM / sLSTM
+mixers and the encoder-decoder model; `build_model` and `LM` raise
 NotImplementedError for configs that need them.
 """
 from __future__ import annotations
@@ -20,11 +20,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 from repro_torch.models.layers import init_norm, rms_norm
 
 ROADMAP_ITEMS = {
-    "moe": "MoE: models/moe.py, q_einsum",
     "mamba": "SSM and hybrid: mamba, xlstm, scan_utils",
     "mlstm": "SSM and hybrid: mamba, xlstm, scan_utils",
     "slstm": "SSM and hybrid: mamba, xlstm, scan_utils",
@@ -45,9 +44,7 @@ def check_ported(cfg) -> None:
     for mixer, ffn in cfg.blocks:
         if mixer not in ("attn", "swa"):
             raise _not_ported(cfg, f"the {mixer!r} mixer", mixer)
-        if ffn == "moe":
-            raise _not_ported(cfg, "the MoE FFN", "moe")
-        if ffn != "mlp":
+        if ffn not in ("mlp", "moe"):
             raise ValueError(f"{cfg.name}: unknown ffn {ffn!r}")
 
 
@@ -85,6 +82,9 @@ def init_block(gen, cfg, kind, device=None) -> dict:
         p["norm2"] = init_norm(cfg.d_model, device)
         p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                    device=device)
+    elif ffn == "moe":
+        p["norm2"] = init_norm(cfg.d_model, device)
+        p["moe"] = moe.init_moe(gen, cfg, device)
     return p
 
 
@@ -97,10 +97,15 @@ def block_apply(cfg, kind, p, x, *, mode, cache, pos, prefix_len):
         cfg, p["attn"], h, mode=mode, cache=cache, pos=pos,
         prefix_len=prefix_len, window=window)
     x = x + h
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "mlp":
         x = x + layers.mlp(p["mlp"], rms_norm(x, p["norm2"]["scale"],
                                               cfg.norm_eps))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif ffn == "moe":
+        h2, aux = moe.moe_apply(p["moe"],
+                                rms_norm(x, p["norm2"]["scale"], cfg.norm_eps),
+                                cfg, is_decode=(mode == "decode"))
+        x = x + h2
     return x, new_cache, aux
 
 
@@ -224,6 +229,8 @@ class LM:
             x = x[:, prefix_len:]
         loss = lm_loss(x, params["lm_head"]["w"], batch["targets"],
                        batch.get("mask"))
+        if cfg.num_experts:
+            loss = loss + cfg.router_aux_coef * aux
         return loss, {"loss": loss, "aux": aux}
 
     # -- caches ---------------------------------------------------------------
@@ -279,5 +286,5 @@ def _map_pair(fn, a, b):
 
 def build_model(cfg):
     """The model of `cfg`: an `LM`, or NotImplementedError for what the
-    port does not have yet (MoE, SSM/hybrid, encoder-decoder)."""
+    port does not have yet (SSM/hybrid, encoder-decoder)."""
     return LM(cfg)

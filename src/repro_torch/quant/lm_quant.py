@@ -1,21 +1,23 @@
 """W8A8 quantization of transformer parameters — the paper's Qm.n
 framework applied to LM serving; the counterpart of
-`repro.quant.lm_quant` (its MoE `q_einsum` is not ported yet).
+`repro.quant.lm_quant`.
 
 Weights: int8 with per-output-channel power-of-two exponents, reduced
 over the contraction dim (axis -2) only.  Activations: dynamic
 per-tensor power-of-two quantization at matmul entry.  A quantized
-weight leaf is a dict {"q": int8 [..., out], "n": int32 [out]};
-`models.layers.dense` dispatches on that structure, so the same model
-code runs both float and W8A8 (`launch/serve.py --quant w8a8`).
+weight leaf is a dict {"q": int8 [..., out], "n": int32 [..., out]};
+`models.layers.dense` and the MoE expert products (`models.moe`)
+dispatch on that structure, so the same model code runs both float and
+W8A8 (`launch/serve.py --quant w8a8`).
 
 Exponents are the reference's, floor(log2(127 / max(max_abs, 1e-30)))
 clipped to [-24, 24]; every scale is an exact power of two
 (`kernels.w8a8_dense.pow2`).  The reference scales by `jnp.exp2`, which
 XLA's CPU backend does not compute exactly at some integer arguments of
 magnitude 13 or more, so there its "power-of-two" scales can be off by
-up to ~2e-6 relative.  `q_dense` runs `kernels.w8a8_dense` (the CUDA
-kernel on the card, its plain version on the CPU).
+up to ~2e-6 relative.  `q_dense` runs `kernels.w8a8_dense` and
+`q_einsum` its batched face `w8a8_bmm` (the CUDA kernel on the card,
+its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -23,8 +25,9 @@ import itertools
 
 import torch
 
-from repro_torch.kernels.w8a8_dense import pow2, w8a8_dense
+from repro_torch.kernels.w8a8_dense import pow2, w8a8_bmm, w8a8_dense
 
+EINSUM_SPECS = ("gecd,edf->gecf", "gecf,efd->gecd")
 QUANT_LEAF_NAMES = {
     "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
     "up_proj", "down_proj", "in_proj", "out_proj", "wx",
@@ -105,6 +108,24 @@ def q_dense(x, w: dict, out_dtype=torch.bfloat16):
     K, N = w["q"].shape
     y = w8a8_dense(xq.reshape(-1, K), w["q"], xe, w["n"], out_dtype)
     return y.reshape(x.shape[:-1] + (N,))
+
+
+def q_einsum(spec: str, x, w: dict, out_dtype=torch.bfloat16):
+    """Quantized einsum of the MoE expert products (`EINSUM_SPECS`):
+    x [G, E, C, K] float, w {"q" [E, K, N], "n" [E, N]} -> out_dtype
+    [G, E, C, N] = out(float32(q(x)[g, e] @ q[e]) * 2^-(xe + n[e])).
+    The activation is quantized per tensor over the whole buffer, its
+    empty slots' zeros included, as the reference does; the products
+    run as one [E, G*C, K] x [E, K, N] `w8a8_bmm` (one copy of the int8
+    activation into expert-major order), and the output is a view of
+    [E, G, C, N] in the reference's order."""
+    if spec not in EINSUM_SPECS:
+        raise ValueError(f"q_einsum computes {EINSUM_SPECS}, not {spec!r}")
+    xq, xe = quantize_activation(x)
+    G, E, C, K = xq.shape
+    xq = xq.permute(1, 0, 2, 3).contiguous().view(E, G * C, K)
+    y = w8a8_bmm(xq, w["q"], xe, w["n"], out_dtype)
+    return y.view(E, G, C, -1).permute(1, 0, 2, 3)
 
 
 def quantized_bytes(qparams) -> int:

@@ -392,7 +392,7 @@ def test_every_gemm_entry_has_its_argtypes():
     pointer and an int for every int of its C signature."""
     import re
     from repro_torch.kernels import q7_matmul as kq
-    for lib in ("q7_matmul", "w8a8_matmul"):
+    for lib in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
         src = (build.CSRC / f"{lib}.cu").read_text()
         for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                      src):

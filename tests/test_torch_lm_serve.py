@@ -1,11 +1,12 @@
 """The port's LM serving path against the reference `repro` on the CPU:
-`LM.prefill` and teacher-forced `decode_step`s of the five slice
+`LM.prefill` and teacher-forced `decode_step`s of the seven ported
 architectures (reduced to d_model 64: `stablelm_3b`, `qwen3_14b`,
 `qwen2_72b` with qkv biases, `gemma3_12b` with a window of 8 under a
-16-token prompt so the SWA caches wrap, and `paligemma_3b` with its
-prefix-LM image embeds), float and W8A8; decode consistent with
-prefill; `launch.serve` end to end; NotImplementedError for the
-architectures not ported yet.
+16-token prompt so the SWA caches wrap, `paligemma_3b` with its
+prefix-LM image embeds, and the MoE `phi35_moe` and `mixtral_8x22b`,
+4 experts top-2), float and W8A8; decode consistent with prefill;
+`launch.serve` end to end; NotImplementedError for the architectures
+not ported yet.
 
 Weights: the reference's own init, carried across with
 `convert.lm_params_from_reference`; inputs from NumPy seeds.
@@ -25,7 +26,7 @@ different int8 code, so a whole-chain comparison measures chaos, not the
 quantizer; every layer is instead run in lockstep, the port's block on
 the reference's block input, each block output and the logits held
 equal to the reference's (W8A8_ATOL = 0, as measured on every block of
-the five architectures), with XLA's inexact CPU exp2 replaced by an
+the seven architectures), with XLA's inexact CPU exp2 replaced by an
 exact power of two on the reference side (tests/test_torch_lm_quant.py
 holds the unpatched `q_dense`).  The float tree put in place of the
 W8A8 one is 0.047-0.195 off on each block (measured), so a block whose
@@ -50,11 +51,14 @@ from repro_torch.configs.base import get_config as tget
 from repro_torch.convert import lm_params_from_reference
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.train import reduced as treduced
+from repro_torch.models import moe as TM
 from repro_torch.models import transformer as TT
 from repro_torch.quant import lm_quant as TQ
 
-ARCHS = ["stablelm_3b", "qwen3_14b", "qwen2_72b", "gemma3_12b",
-         "paligemma_3b"]
+DENSE_ARCHS = ["stablelm_3b", "qwen3_14b", "qwen2_72b", "gemma3_12b",
+               "paligemma_3b"]
+MOE_ARCHS = ["phi35_moe", "mixtral_8x22b"]
+ARCHS = DENSE_ARCHS + MOE_ARCHS
 B, S, STEPS = 2, 16, 4
 FLOAT_ATOL = 0.1
 W8A8_ATOL = 0.0
@@ -246,7 +250,7 @@ def test_lm_entry_points_round_bf16_sums_once_and_restore_the_flag(
     assert matmul.allow_bf16_reduced_precision_reduction
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 def test_float_decode_is_consistent_with_prefill(arch, setups):
     """prefill(t[:S]) then decode_step(t[S]) agrees with prefill(t[:S+1]),
     within the reference's own tolerance for this check (atol 0.15, rtol
@@ -254,8 +258,28 @@ def test_float_decode_is_consistent_with_prefill(arch, setups):
     W8A8 quantizes each activation tensor with one dynamic exponent, so
     a decode step (one position) and a prefill of S+1 positions quantize
     the same row differently, in the reference as in the port."""
+    check_consistency(setups[arch]["cfg"], setups[arch])
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_is_consistent_with_prefill_where_nothing_drops(
+        arch, setups):
+    """The same check for the MoE archs, at capacity_factor E / k, where
+    every expert has a slot for every token of its group.  At the
+    config's 1.25 the reference's semantics differ between the two
+    sides: a decode step groups the batch (T 2, C 4), a prefill each row
+    (T 17, C 12), and here the compared token is dropped at one layer
+    (mixtral_8x22b) or both (phi35_moe) of the prefill on every row, and
+    kept at decode."""
     s = setups[arch]
-    tm = TT.build_model(s["cfg"])
+    cfg = dataclasses.replace(s["cfg"], capacity_factor=(
+        s["cfg"].num_experts / s["cfg"].experts_per_tok))
+    assert TM.capacity(S + 1, cfg) >= S + 1
+    check_consistency(cfg, s)
+
+
+def check_consistency(cfg, s):
+    tm = TT.build_model(cfg)
     tp = lm_params_from_reference(jax.tree.map(np.asarray, s["rp"]), "cpu")
     full = dict(port_batch(s["batch"]),
                 inputs=torch.from_numpy(s["toks"][:, :S + 1]))
@@ -294,7 +318,8 @@ def test_swa_ring_cache_drops_old_positions():
 
 @pytest.mark.parametrize("argv", [
     [], ["--quant", "w8a8"], ["--arch", "paligemma_3b", "--quant", "w8a8"],
-    ["--arch", "gemma3_12b"]], ids=str)
+    ["--arch", "gemma3_12b"], ["--arch", "phi35_moe", "--quant", "w8a8"],
+    ["--arch", "mixtral_8x22b"]], ids=str)
 def test_serve_cli_on_the_cpu(argv, capsys):
     rc = tserve.main(["--device", "cpu", "--requests", "2", "--prompt-len",
                       "8", "--gen", "4", "--d-model", "64", *argv])
@@ -323,7 +348,16 @@ def test_serve_returns_its_greedy_tokens():
     ("jamba_v01_52b", "SSM and hybrid"), ("xlstm_1_3b", "SSM and hybrid"),
     ("seamless_m4t_medium", "EncDecLM")])
 def test_the_architectures_not_ported_yet_raise(arch, what):
+    """jamba_v01_52b (its mamba mixer), xlstm_1_3b and seamless_m4t_medium
+    raise, naming their ROADMAP item; the MoE archs, ported since, build
+    and serve."""
     cfg = treduced(tget(arch), d_model=64)
+    if what == "MoE":
+        assert isinstance(TT.build_model(cfg), TT.LM)
+        assert tserve.main(["--arch", arch, "--device", "cpu", "--d-model",
+                            "64", "--requests", "2", "--prompt-len", "8",
+                            "--gen", "2"]) == 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A.*{what}"):
         TT.build_model(cfg)
     with pytest.raises(NotImplementedError):

@@ -254,6 +254,8 @@ def _calls(dev):
         "w8a8_matmul": lambda: ops.w8a8_matmul(a, b, sh),
         "w8a8_dense": lambda: ops.w8a8_dense(
             a, b, torch.zeros((), device=dev), sh),
+        "w8a8_bmm": lambda: ops.w8a8_bmm(
+            a[None], b[None], torch.zeros((), device=dev), sh[None]),
         "squash_q7": lambda: ops.squash_q7(a.reshape(32, 4), in_frac=5),
         "squash_float": lambda: ops.squash_float(
             torch.zeros((8, 4), device=dev)),
@@ -267,6 +269,7 @@ def _calls(dev):
 def _launches():
     return (kq.matmul_q7.launches, kq.bmm_q7.launches,
             kw.w8a8_matmul.launches, kd.w8a8_dense.launches,
+            kd.w8a8_bmm.launches,
             ks.squash_q7.launches, ks.squash_float.launches)
 
 
