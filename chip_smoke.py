@@ -240,6 +240,47 @@ Phases, each raising on failure:
    `[device]` lines `w8a8_bmm` at (16, 4, 4096, 6400) and (16, 96, 4096,
    6400) beside its plain version, its bound and (at the second) 16
    calls of `torch._int_mm`.
+14. (run after phase 13, before phase 9) the SSM and hybrid LMs,
+   `repro_torch.models.{mamba,xlstm}` (plain torch: the recurrences are
+   Python loops over time, as the reference's are `lax.scan`s, not
+   Pallas), with every earlier phase's tensors freed first:
+   `w8a8_dense` bit for bit at every product of xlstm_1_3b and of
+   jamba_v01_52b (read off their param trees; M 8 and 512) and
+   `w8a8_bmm` at jamba's expert products (E 16: (4096, 14336), (14336,
+   4096); M 4 and 96, both routes); xlstm_1_3b in full (48 layers, 7
+   mLSTM : 1 sLSTM) and jamba_v01_52b at full width cut to one 8-layer
+   cycle (7 mamba : 1 attention, MoE every other layer; 51.57 B
+   parameters in full, 103 GB of bf16), each serving 8 requests x 64
+   prompt tokens for 32 greedy tokens, float then W8A8, finite logits
+   required, `w8a8_dense` and `w8a8_bmm` counted from 0 just before each
+   W8A8 run and required to launch exactly 229 x 32 = 7,328 (xlstm) and
+   31 x 32 = 992 and 12 x 32 = 384 (jamba) times; the float decode after
+   prefill(64) held against prefill(65) within atol 0.15 + rtol 0.05
+   (xlstm: its bf16 paths drift apart layer by layer, 0.30 at 48
+   layers, as the reference's own do, `tools/xlstm_drift.py`, so at
+   most 1,250 logits beyond it, none more than 0.35 off, argmax equal on
+   every row, a float32 copy of its params with none beyond, and the
+   same check with the mLSTM's C or m or the sLSTM's state kept in bf16
+   required to fail that gate; jamba:
+   `moe_consistency`'s gated rows at capacity factor 1.25 and at E / k,
+   failing if none is gated); `[ssm]` lines
+   hold prefill ms, decode ms a step, tok/s, parameter MiB and peak
+   device GiB of each run beside the card's name and power limit.
+15. (run after phase 14, before phase 9) the encoder-decoder,
+   `models.transformer.EncDecLM`: `w8a8_dense` bit for bit at every
+   product of seamless_m4t_medium (its lm_head N 256,256); the config in
+   full (12 encoder and 12 decoder layers) serving as phase 14 does, on
+   the zero frame embeddings `launch.serve` gives it, `w8a8_dense`
+   required to launch exactly 217 + 109 x 31 = 3,596 times (the encoder
+   and the cross K/V projections at the prefill only); its float decode
+   held against prefill(65) on random frames; `python -m
+   repro_torch.launch.serve --arch seamless_m4t_medium --no-reduce
+   --quant w8a8 --requests 8 --prompt-len 64 --gen 32` exits 0
+   (`[encdec]` lines).  After phase 9 (its `torch.profiler` sessions
+   would slow phase 9's host timings), the device launches of one
+   prefill and one decode step of each config of phases 14-15, bf16 and
+   W8A8, and one xlstm_1_3b mLSTM decode layer's device time beside its
+   bound (`[recurrent]` lines).
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -1789,6 +1830,14 @@ CONSIST_ATOL, CONSIST_RTOL = 0.15, 0.05
 # bounds how many and how far, and a float32 run of the same params
 # must pass the tolerance with none beyond it
 CONSIST_OUTLIERS, CONSIST_MAX = 8, 0.25
+# xlstm_1_3b in full in bf16 on an H100: 0.3008 off, 1,021 logits beyond
+# the tolerance, argmax equal on 8/8, the same in every run (its float32
+# witness 0.004380, none beyond): the bf16 paths drift apart layer by
+# layer, as the reference's do (tools/xlstm_drift.py).  Its gate lies
+# between that and the readings of the faults it must catch
+# (`drift_faults`): the mLSTM's C kept in bf16 0.4688 / 5,265 beyond,
+# its m 0.5889 / 8,247, the sLSTM's state 0.3730 / 1,508.
+DRIFT_BEYOND, DRIFT_MAX = 1250, 0.35
 CONSIST_GATES = {
     "tol": "the CPU tests' tolerance, no logit beyond it; argmax printed "
     "(random weights leave near-ties among 152k-262k logits)",
@@ -1796,7 +1845,11 @@ CONSIST_GATES = {
     f"logits beyond it, none more than {CONSIST_MAX} off; the float32 "
     "witness with none beyond it",
     "print": "none: W8A8 quantizes each activation tensor with one dynamic "
-    "exponent, so 8 x 65 rows and 8 rows quantize a row differently"}
+    "exponent, so 8 x 65 rows and 8 rows quantize a row differently",
+    "drift": f"at most {DRIFT_BEYOND} logits beyond the CPU tests' "
+    f"tolerance, none more than {DRIFT_MAX} off, argmax equal on every "
+    "row; the float32 witness with none beyond it; the same check with "
+    "the mLSTM's C or m or the sLSTM's state kept in bf16 fails it"}
 
 
 def dense_bound(M: int, K: int, N: int):
@@ -1841,11 +1894,11 @@ def dense_kn(cfg) -> list:
     return sorted(out)
 
 
-def check_dense(dev, cfgs) -> float:
+def check_dense(dev, cfgs, tag: str = "[lm]") -> float:
     """w8a8_dense against its plain version on the card, bit for bit, at
-    every product of the W8A8 configs phase 12 serves (M 8 and 512: a
-    decode step and a prefill of 8 x 64), a ragged shape and a split-K
-    one; returns the largest |difference| (0)."""
+    every product of the W8A8 configs `cfgs` (those a phase serves; M 8
+    and 512: a decode step and a prefill of 8 x 64), a ragged shape and
+    a split-K one; returns the largest |difference| (0)."""
     import torch
     from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import w8a8_dense as kd
@@ -1871,7 +1924,7 @@ def check_dense(dev, cfgs) -> float:
             raise AssertionError(f"w8a8_dense {(M, K, N)} ({plan}) differs "
                                  "from its plain version")
         worst = max(worst, float((got.float() - want.float()).abs().max()))
-        log(f"[lm] w8a8_dense {(M, K, N)} ({who}): route {plan.route}, "
+        log(f"{tag} w8a8_dense {(M, K, N)} ({who}): route {plan.route}, "
             f"tile {plan.tile}, split {plan.split}: bit-exact against the "
             f"plain version (bf16 out)")
         del xq, wq, got, want
@@ -1882,18 +1935,35 @@ def check_dense(dev, cfgs) -> float:
     return worst
 
 
+def extra_inputs(cfg, dev, frames: str = "zeros") -> dict:
+    """The batch entries beside the tokens: a VLM's zero image embeds;
+    an encoder-decoder's frame embeddings [8, 64, d_model] float32, zero
+    as `launch.serve` gives them, or with frames="random" drawn from a
+    seeded generator, so the cross-attention sees a non-zero encoder
+    output."""
+    import torch
+    out = {}
+    if cfg.family == "vlm":
+        out["prefix_embeds"] = torch.zeros(
+            (LM_REQUESTS, cfg.num_prefix_embeds, cfg.d_model), device=dev)
+    if cfg.is_encoder_decoder:
+        shape = (LM_REQUESTS, LM_PROMPT, cfg.d_model)
+        out["frames"] = torch.zeros(shape, device=dev) if frames == "zeros" \
+            else torch.randn(shape, device=dev, generator=torch.Generator(
+                dev).manual_seed(SEED + 30))
+    return out
+
+
 def decode_vs_prefill(model, params, cfg, dev) -> tuple:
     """(prefill(t[:65]) logits, decode_step(t[64]) logits after
     prefill(t[:64])), float32, for 8 TokenTask rows (zero image embeds
-    for a VLM)."""
+    for a VLM; for an encoder-decoder the same random frames [8, 64, d]
+    on both sides)."""
     import torch
     from repro_torch.data.synthetic import TokenTask
     toks = torch.as_tensor(TokenTask(cfg.vocab_size, LM_PROMPT + 1, seed=5)
                            .batch(0, LM_REQUESTS)["inputs"], device=dev)
-    batch = {}
-    if cfg.family == "vlm":
-        batch["prefix_embeds"] = torch.zeros(
-            (LM_REQUESTS, cfg.num_prefix_embeds, cfg.d_model), device=dev)
+    batch = extra_inputs(cfg, dev, frames="random")
     pos = LM_PROMPT + (cfg.num_prefix_embeds if cfg.family == "vlm" else 0)
     with torch.inference_mode():
         full, _ = model.prefill(params, dict(batch, inputs=toks), alloc=512)
@@ -1916,19 +1986,68 @@ def tree_float32(tree):
     return tree.float()
 
 
-def lm_consistency(model, params, cfg, dev, quant: str, gate: str) -> str:
+def consist_numbers(a, b) -> tuple:
+    """(logits beyond the tolerance as a mask, their count, the largest
+    |difference|, rows whose argmax agree) of prefill logits `a` and
+    decode logits `b`."""
+    err = (a - b).abs()
+    beyond = err > CONSIST_ATOL + CONSIST_RTOL * a.abs()
+    return (beyond, int(beyond.sum()), float(err.max()),
+            int((a.argmax(-1) == b.argmax(-1)).sum()))
+
+
+def drift_ok(over: int, worst: float, agree: int) -> bool:
+    return over <= DRIFT_BEYOND and worst <= DRIFT_MAX and \
+        agree == LM_REQUESTS
+
+
+def drift_faults(model, params, cfg, dev, tag: str) -> str:
+    """The "drift" gate against the faults it must catch: the check run
+    again with the mLSTM's C, its m, or the sLSTM's state rounded to bf16
+    after every mixer call (a state kept in the activations' dtype) must
+    fail it.  Returns the lines."""
+    from repro_torch.models import xlstm
+
+    def rounded(apply, names):
+        def f(p, x, cfg_, *, mode, cache=None):
+            y, c = apply(p, x, cfg_, mode=mode, cache=cache)
+            if c is not None:
+                for k in names:
+                    c[k].copy_(c[k].bfloat16().float())
+            return y, c
+        return f
+    lines = []
+    for fn, names, what in (("mlstm_apply", "C", "the mLSTM's C"),
+                            ("mlstm_apply", "m", "the mLSTM's m"),
+                            ("slstm_apply", "cnmh", "the sLSTM's state")):
+        orig = getattr(xlstm, fn)
+        setattr(xlstm, fn, rounded(orig, names))
+        try:
+            a, b = decode_vs_prefill(model, params, cfg, dev)
+        finally:
+            setattr(xlstm, fn, orig)
+        _, over, worst, agree = consist_numbers(a, b)
+        line = (f"{tag} {cfg.name} with {what} kept in bf16: max |diff| "
+                f"{worst:.4f}, {over} beyond, argmax equal on "
+                f"{agree}/{LM_REQUESTS} rows")
+        if drift_ok(over, worst, agree):
+            raise AssertionError(f"{line}: the drift gate misses it")
+        lines.append(line + ": fails the gate, as it must")
+    return "\n".join(lines)
+
+
+def lm_consistency(model, params, cfg, dev, quant: str, gate: str,
+                   tag: str = "[lm]") -> str:
     """prefill(t[:64]) then decode_step(t[64]) against prefill(t[:65]);
     returns the lines.  `gate` "tol" raises on any logit past the CPU
     tests' tolerance; "bounded" on more than CONSIST_OUTLIERS of them or
     one more than CONSIST_MAX off, and runs the same check on a float32
     copy of the params (a witness that rounds neither path to bf16),
-    which must have none; "print" never raises."""
-    import torch
+    which must have none; "drift" on more than DRIFT_BEYOND of them, one
+    more than DRIFT_MAX off or an argmax that differs, then runs the
+    witness and `drift_faults`; "print" never raises."""
     a, b = decode_vs_prefill(model, params, cfg, dev)
-    err = (a - b).abs()
-    beyond = err > CONSIST_ATOL + CONSIST_RTOL * a.abs()
-    over, worst = int(beyond.sum()), float(err.max())
-    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    beyond, over, worst, agree = consist_numbers(a, b)
     line = (f"{cfg.name} {quant}: decode after prefill({LM_PROMPT}) vs "
             f"prefill({LM_PROMPT + 1}): "
             f"max |diff| {worst:.4f} over logits up to "
@@ -1936,9 +2055,10 @@ def lm_consistency(model, params, cfg, dev, quant: str, gate: str) -> str:
             f"{CONSIST_ATOL} + rtol {CONSIST_RTOL}, argmax equal on "
             f"{agree}/{LM_REQUESTS} rows")
     if (gate == "tol" and over) or (gate == "bounded" and (
-            over > CONSIST_OUTLIERS or worst > CONSIST_MAX)):
+            over > CONSIST_OUTLIERS or worst > CONSIST_MAX)) or (
+            gate == "drift" and not drift_ok(over, worst, agree)):
         raise AssertionError(line)
-    if gate != "bounded":
+    if gate not in ("bounded", "drift"):
         return line
     # the float32 witness: which bf16 path lies off the unrounded logits
     p32 = tree_float32(params)
@@ -1950,7 +2070,7 @@ def lm_consistency(model, params, cfg, dev, quant: str, gate: str) -> str:
     at = (f"at the {over} logits beyond: prefill off float32 by up to "
           f"{float(fa[beyond].max()):.4f}, decode by up to "
           f"{float(fb[beyond].max()):.4f}" if over else "none beyond")
-    line += (f"\n[lm] {cfg.name} float32 witness (the same params in "
+    line += (f"\n{tag} {cfg.name} float32 witness (the same params in "
              f"float32): decode vs prefill max |diff| "
              f"{float(werr.max()):.6f}, {wover} beyond the tolerance; bf16 "
              f"prefill({LM_PROMPT + 1}) off it by up to "
@@ -1958,6 +2078,8 @@ def lm_consistency(model, params, cfg, dev, quant: str, gate: str) -> str:
              f"{float(fb.max()):.4f}; {at}")
     if wover:
         raise AssertionError(line)
+    if gate == "drift":
+        line += "\n" + drift_faults(model, params, cfg, dev, tag)
     return line
 
 
@@ -1968,10 +2090,7 @@ def warm_times(res, cfg, dev, steps: int = 8) -> tuple:
     import torch
     from repro_torch.models.transformer import decode_alloc
     model, params = res["model"], res["params"]
-    batch = {"inputs": res["prompts"]}
-    if cfg.family == "vlm":
-        batch["prefix_embeds"] = torch.zeros(
-            (LM_REQUESTS, cfg.num_prefix_embeds, cfg.d_model), device=dev)
+    batch = dict(extra_inputs(cfg, dev), inputs=res["prompts"])
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2044,12 +2163,32 @@ def serve_lm(cfg, dev, card: str, quant: str, consist: str,
             log(f"{tag} {line}")
     elif consist != "none":
         line = lm_consistency(res["model"], res["params"], cfg, dev, quant,
-                              gate=consist)
+                              gate=consist, tag=tag)
         log(f"{tag} {line} (gate: {CONSIST_GATES[consist]})")
     del res
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def run_cli(args, tag: str, card: str) -> None:
+    """`python -m repro_torch.launch.serve ARGS` in its own process, exit
+    0 required, its lines logged."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = [*map(str, args), "--requests", str(LM_REQUESTS), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN)]
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.serve {args}: exit {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"{tag} {card} | python -m repro_torch.launch.serve "
+        f"{' '.join(args)}: exit 0 in {time.perf_counter() - t:.1f} s "
+        f"(process included):")
+    for line in proc.stdout.strip().splitlines():
+        log(f"{tag}   {line}")
 
 
 def lm_phase(dev, card: str, run) -> dict:
@@ -2101,22 +2240,8 @@ def lm_phase(dev, card: str, run) -> dict:
                    "bounded")
 
     # the CLI, at its default arch and full size
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    args = ["--arch", "stablelm_3b", "--no-reduce", "--quant", "w8a8",
-            "--requests", LM_REQUESTS, "--prompt-len", LM_PROMPT, "--gen",
-            LM_GEN]
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *map(str, args)], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"launch.serve {args}: exit {proc.returncode}"
-                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    log(f"[lm] {card} | python -m repro_torch.launch.serve "
-        f"{' '.join(map(str, args))}: exit 0 in "
-        f"{time.perf_counter() - t:.1f} s (process included):")
-    for line in proc.stdout.strip().splitlines():
-        log(f"[lm]   {line}")
+    run_cli(["--arch", "stablelm_3b", "--no-reduce", "--quant", "w8a8"],
+            "[lm]", card)
 
     # serve_caps --mesh host, and waves with and without the host mesh
     import contextlib
@@ -2213,7 +2338,8 @@ MOE_RAGGED = (3, 7, 100, 33)
 MOE_SPLIT = (4, 4, 2048, 8)
 # M of the expert products: C at a decode step of 8 rows (one group), and
 # 8 * C at a prefill of 8 x 64 (a group a row)
-MOE_M = {"phi35_moe": (4, 96), "mixtral_8x22b": (4, 160)}
+MOE_M = {"phi35_moe": (4, 96), "mixtral_8x22b": (4, 160),
+         "jamba_v01_52b": (4, 96)}
 # the timed shapes of the JSON record: phi35_moe's gate/up product at a
 # decode step (the headline) and at a prefill of 8 x 64
 MOE_TIMED = ((16, 4, 4096, 6400), (16, 96, 4096, 6400))
@@ -2268,7 +2394,7 @@ def bmm_operands(E: int, M: int, K: int, N: int, g, dev):
     return xq, wq, xe, n
 
 
-def check_bmm(dev, cfgs) -> float:
+def check_bmm(dev, cfgs, tag: str = "[moe]") -> float:
     """w8a8_bmm against its plain version on the card, bit for bit (bf16
     out), at every expert product of `cfgs` at its decode and prefill M,
     on the route gemm_plan picks (counted) and on the other one
@@ -2319,7 +2445,7 @@ def check_bmm(dev, cfgs) -> float:
                                      f"{p}) differs from its plain version")
             worst = max(worst, float((got.float() - want.float()).abs()
                                      .max()))
-        log(f"[moe] w8a8_bmm {(E, M, K, N)} ({who}): "
+        log(f"{tag} w8a8_bmm {(E, M, K, N)} ({who}): "
             + "; ".join(f"{what} route {p.route}, tile {p.tile}, split "
                         f"{p.split}" for what, p, _ in runs)
             + ": bit-exact against the plain version (bf16 out), per-expert "
@@ -2330,6 +2456,10 @@ def check_bmm(dev, cfgs) -> float:
         raise AssertionError(f"w8a8_bmm left a route unused: "
                              f"{kd.w8a8_bmm.launches_by_route}")
     return worst
+
+
+def moe_layers(cfg) -> int:
+    return cfg.num_cycles * sum(ffn == "moe" for _, ffn in cfg.blocks)
 
 
 def moe_kept(fn):
@@ -2386,7 +2516,7 @@ def moe_consistency(params, cfg, dev, quant: str) -> list:
         full = [(k[:, -1], e[:, -1]) for d, k, e in calls
                 if not d and k.shape[1] == LM_PROMPT + 1]
         dec = [(k[:, 0], e[:, 0]) for d, k, e in calls if d]
-        if len(full) != cfg.num_layers or len(dec) != cfg.num_layers:
+        if len(full) != moe_layers(cfg) or len(dec) != moe_layers(cfg):
             raise AssertionError(f"{cfg.name}: {len(full)} prefill and "
                                  f"{len(dec)} decode MoE calls")
         kept = torch.stack([k1.all(-1) & k2.all(-1)
@@ -2454,27 +2584,218 @@ def moe_phase(dev, card: str) -> dict:
         log(f"[moe] {name}: W8A8 and float greedy tokens agree on "
             f"{agree:.1%} (not gated)")
 
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    args = ["--arch", "phi35_moe", "--quant", "w8a8", "--d-model",
-            MOE_CLI_D, "--requests", LM_REQUESTS, "--prompt-len",
-            LM_PROMPT, "--gen", LM_GEN]
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                           *map(str, args)], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"launch.serve {args}: exit {proc.returncode}"
-                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    log(f"[moe] {card} | python -m repro_torch.launch.serve "
-        f"{' '.join(map(str, args))}: exit 0 in "
-        f"{time.perf_counter() - t:.1f} s (process included):")
-    for line in proc.stdout.strip().splitlines():
-        log(f"[moe]   {line}")
+    run_cli(["--arch", "phi35_moe", "--quant", "w8a8", "--d-model",
+             MOE_CLI_D], "[moe]", card)
     for r in runs.values():
         r.pop("tokens")
     return dict(launches=counts["phi35_moe"], launches_by_path={
         f"moe_{k}": v for k, v in counts.items()}, max_abs_err=err,
         runs=runs, dense_launches_by_path=dense)
+
+
+# ---------------------------------------------------------------------------
+# phases 14-15: the SSM, hybrid and encoder-decoder LMs
+# (repro_torch.models.{mamba,xlstm}, EncDecLM), on w8a8_dense / w8a8_bmm
+# ---------------------------------------------------------------------------
+# W8A8 launches a forward pass (a prefill, or one decode step), predicted
+# from the code: xlstm_1_3b 42 mLSTM blocks x 5 products (up_proj, wq, wk,
+# wv, down_proj) + 6 sLSTM blocks x 3 (wx, ffn_up, ffn_down) + lm_head;
+# jamba_v01_52b's cycle 7 mamba x 2 (in_proj, out_proj) + 4 attention
+# products + 4 MLP blocks x 3 + lm_head on w8a8_dense, 4 MoE blocks x 3
+# expert products on w8a8_bmm
+SSM_DENSE_PER_PASS = {"xlstm_1_3b": 229, "jamba_v01_52b": 31}
+SSM_BMM_PER_PASS = {"xlstm_1_3b": 0, "jamba_v01_52b": 12}
+# seamless_m4t_medium: the encoder runs once, at prefill (12 layers x (4
+# attention + 3 MLP products); the frontend stays float), the decoder's
+# prefill 12 x (4 self + 4 cross (wq, then wk and wv of the encoder's
+# output, wo) + 3 MLP) + lm_head = 84 + 132 + 1; a decode step 12 x (4
+# self + 2 cross (wq, wo: the cross K/V are cached) + 3) + lm_head
+ENCDEC_DENSE = (217, 109)
+ENCDEC_CLI = ["--arch", "seamless_m4t_medium", "--no-reduce", "--quant",
+              "w8a8"]
+# an mLSTM decode step of xlstm_1_3b at 8 requests reads and writes C,
+# float32 [8, 4, 1024, 1024]: twice 134.2 MB
+MLSTM_TIMED_CALLS = 20
+
+
+def ssm_configs() -> dict:
+    """xlstm_1_3b in full (48 layers); jamba_v01_52b at full width cut to
+    one 8-layer pattern cycle (51.57 B parameters in full, 103 GB of
+    bf16, over the card's 80 GB)."""
+    from repro_torch.configs import get_config
+    jamba = get_config("jamba_v01_52b")
+    return {"xlstm_1_3b": get_config("xlstm_1_3b"),
+            "jamba_v01_52b": dataclasses.replace(
+                jamba, num_layers=len(jamba.blocks))}
+
+
+def serve_counted(cfg, dev, card: str, tag: str, consist: str,
+                  dense_per_pass: tuple, bmm_per_pass: int = 0) -> dict:
+    """`cfg` served in bf16 (decode/prefill gate `consist`) and in W8A8
+    (printed), w8a8_dense and w8a8_bmm counted from 0 just before the
+    W8A8 run and read just after, required to launch exactly as
+    predicted: `dense_per_pass` (a prefill, a decode step) and
+    `bmm_per_pass` a forward pass, 1 prefill and LM_GEN - 1 decode
+    steps."""
+    from repro_torch.kernels import w8a8_dense as kd
+    f = serve_lm(cfg, dev, card, "none", consist, tag)
+    kd.w8a8_dense.launches = kd.w8a8_bmm.launches = 0
+    q = serve_lm(cfg, dev, card, "w8a8",
+                 "moe" if consist == "moe" else "print", tag)
+    pre, step = dense_per_pass
+    want = (pre + step * (LM_GEN - 1), bmm_per_pass * LM_GEN)
+    got = (q["launches"], q["bmm_launches"])
+    log(f"{tag} {cfg.name} w8a8: w8a8_dense launched {got[0]} times over "
+        f"the serve call, expected {want[0]} ({pre} at the prefill + "
+        f"{step} x {LM_GEN - 1} decode steps); w8a8_bmm {got[1]}, expected "
+        f"{want[1]} ({bmm_per_pass} a forward pass)")
+    if got != want:
+        raise AssertionError(f"{cfg.name} w8a8: launches {got}, not {want}")
+    agree = float((q["tokens"] == f["tokens"]).mean())
+    log(f"{tag} {cfg.name}: W8A8 and float greedy tokens agree on "
+        f"{agree:.1%} (not gated)")
+    for r in (f, q):
+        r.pop("tokens")
+    return dict(float=f, w8a8=q, launches=got, token_agreement=agree)
+
+
+def ssm_phase(dev, card: str) -> dict:
+    """Phase 14; returns the runs and the kernels' launches by path."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ssm] device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    cfgs = ssm_configs()
+    err = max(check_dense(dev, cfgs.values(), "[ssm]"),
+              check_bmm(dev, [cfgs["jamba_v01_52b"]], "[ssm]"))
+    runs = {}
+    for name, cfg in cfgs.items():
+        per_pass = SSM_DENSE_PER_PASS[name]
+        runs[name] = serve_counted(
+            cfg, dev, card, "[ssm]", "moe" if cfg.num_experts else "drift",
+            (per_pass, per_pass), SSM_BMM_PER_PASS[name])
+    return dict(runs=runs, max_abs_err=err, dense={
+        f"ssm_{k}": r["launches"][0] for k, r in runs.items()}, bmm={
+        "ssm_jamba_v01_52b": runs["jamba_v01_52b"]["launches"][1]})
+
+
+def encdec_phase(dev, card: str) -> dict:
+    """Phase 15; returns the runs and w8a8_dense's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("seamless_m4t_medium")
+    err = check_dense(dev, [cfg], "[encdec]")
+    run = serve_counted(cfg, dev, card, "[encdec]", "tol", ENCDEC_DENSE)
+    run_cli(ENCDEC_CLI, "[encdec]", card)
+    return dict(runs={cfg.name: run}, max_abs_err=err, dense={
+        "encdec_seamless_m4t_medium": run["launches"][0]})
+
+
+def kernel_records(fn) -> int:
+    """Device activities (kernels, copies, sets) of one fn() call in a
+    torch.profiler trace (CUDA activity; the host's runtime calls, which
+    the trace also holds, left out): the larger count of two traces,
+    since a trace may drop records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    counts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA))
+    return max(counts)
+
+
+def mlstm_decode_device(params, cfg, dev, card: str, quant: str) -> dict:
+    """One mLSTM layer's decode step (xlstm_1_3b's first block, 8 rows)
+    from the profiler, every kernel of the call, against its bound: C
+    read and written once (state) and, beside it, the layer's weights
+    read once."""
+    import torch
+    from repro_torch.models import layers, xlstm
+    from repro_torch.models.transformer import _cycle
+    from repro_torch.quant.lm_quant import quantized_bytes
+    p = _cycle(params["blocks"][0], 0)["mlstm"]
+    cache = xlstm.init_mlstm_cache(cfg, LM_REQUESTS, dev)
+    x = torch.randn((LM_REQUESTS, 1, cfg.d_model), device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED + 31)
+                    ).to(torch.bfloat16)
+    parts = {}
+    with torch.inference_mode(), layers.full_bf16_sums():
+        ms = device_ms(lambda: xlstm.mlstm_apply(p, x, cfg, mode="decode",
+                                                 cache=cache), None,
+                       calls=MLSTM_TIMED_CALLS, parts=parts)
+        launches = kernel_records(lambda: xlstm.mlstm_apply(
+            p, x, cfg, mode="decode", cache=cache))
+    state = sum(t.numel() * t.element_size() for t in cache.values())
+    weights = quantized_bytes(p)
+    bound_state = 2 * state / HBM_BYTES_PER_S * 1e3
+    bound = (2 * state + weights) / HBM_BYTES_PER_S * 1e3
+    top = sorted(parts.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[recurrent] {card} | xlstm_1_3b {quant}: one mLSTM decode layer (8 "
+        f"rows): {ms:.5f} device ms, {launches} device launches; bound "
+        f"{bound_state:.5f} ms for the state alone ({2 * state / 1e6:.1f} "
+        f"MB read + written at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{bound:.5f} ms with the layer's {weights / 1e6:.1f} MB of "
+        f"weights; largest kernels: "
+        + ", ".join(f"{k.split('(')[0].split('<')[0][-40:]} {v:.5f}"
+                    for k, v in top))
+    return dict(device_ms=ms, launches=launches, bound_state_ms=bound_state,
+                bound_ms=bound, state_bytes=state, weight_bytes=weights)
+
+
+def recurrent_device_counts(dev, card: str) -> dict:
+    """(run after phase 9, with phase 8: torch.profiler sessions) the
+    device launches of one prefill of 8 x 64 tokens and of one decode
+    step for each config of phases 14-15, bf16 and W8A8, on weights from
+    seed 0; and one mLSTM decode layer's device time against its
+    bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.models.transformer import build_model, decode_alloc
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cfgs = dict(ssm_configs(),
+                seamless_m4t_medium=get_config("seamless_m4t_medium"))
+    out = {}
+    for name, cfg in cfgs.items():
+        model = build_model(cfg)
+        for quant in ("none", "w8a8"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+            if quant == "w8a8":
+                params = quantize_lm_params(params, consume=True)
+            toks = torch.as_tensor(TokenTask(cfg.vocab_size, LM_PROMPT,
+                                             seed=3).batch(0, LM_REQUESTS)
+                                   ["inputs"], device=dev)
+            batch = dict(extra_inputs(cfg, dev), inputs=toks)
+            alloc = decode_alloc(LM_PROMPT + LM_GEN)
+            one = torch.ones((LM_REQUESTS, 1), dtype=torch.int32,
+                             device=dev)
+            with torch.inference_mode():
+                _, cache = model.prefill(params, batch, alloc=alloc)
+                pre = kernel_records(lambda: model.prefill(params, batch,
+                                                           alloc=alloc))
+                step = kernel_records(lambda: model.decode_step(
+                    params, cache, one, LM_PROMPT))
+            row = dict(prefill=pre, decode_step=step)
+            log(f"[recurrent] {card} | {name} {quant}: {pre} device "
+                f"launches a prefill of {LM_REQUESTS}x{LM_PROMPT}, {step} a "
+                f"decode step ({cfg.num_layers} layers)")
+            if name == "xlstm_1_3b":
+                row["mlstm_decode"] = mlstm_decode_device(params, cfg, dev,
+                                                          card, quant)
+            out[f"{name}_{quant}"] = row
+            del params, cache
+    return out
 
 
 def time_bmm(dev, card: str) -> dict:
@@ -3185,6 +3506,12 @@ def main(argv=None) -> int:
     moe = moe_phase(dev, card)
     times["w8a8_bmm"] = time_bmm(dev, card)
 
+    # phase 14: the SSM and hybrid LMs, phase 15: the encoder-decoder;
+    # w8a8_dense's and w8a8_bmm's counts from 0 just before each W8A8 run,
+    # read just after
+    ssm = ssm_phase(dev, card)
+    encdec = encdec_phase(dev, card)
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -3214,6 +3541,7 @@ def main(argv=None) -> int:
     bmm_device_times(dev, card, times["w8a8_bmm"]["shapes"])
     times["w8a8_bmm"]["device_ms"] = \
         times["w8a8_bmm"]["shapes"][0]["device_ms"]
+    recurrent = recurrent_device_counts(dev, card)
     for name in ("q7_matmul", "w8a8_matmul"):
         times[name]["device_ms"] = dt[name][shape_key(HEADLINE_GEMM)]
         for row in times[name]["shapes"]:
@@ -3268,8 +3596,10 @@ def main(argv=None) -> int:
         "dequantization, src/repro/quant/lm_quant.py:76 (q_dense)",
         "launches": lm["launches"],
         "launches_by_path": {**lm["launches_by_path"],
-                             **moe["dense_launches_by_path"]},
-        "max_abs_err": lm["max_abs_err"], "ms": t["ms"],
+                             **moe["dense_launches_by_path"],
+                             **ssm["dense"], **encdec["dense"]},
+        "max_abs_err": max(lm["max_abs_err"], ssm["max_abs_err"],
+                           encdec["max_abs_err"]), "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["int_mm_ms"],
@@ -3280,7 +3610,9 @@ def main(argv=None) -> int:
         "shape": t["shape"], "shapes": t["shapes"],
         "lm": {k: lm[k] for k in ("qwen_float", "qwen_w8a8", "gemma_float",
                                   "gemma_w8a8", "paligemma_float",
-                                  "token_agreement")}})
+                                  "token_agreement")},
+        "ssm": ssm["runs"], "encdec": encdec["runs"],
+        "recurrent_device_launches": recurrent})
     for v in record["kernels"][-1]["lm"].values():
         if isinstance(v, dict):
             v.pop("tokens")
@@ -3293,8 +3625,9 @@ def main(argv=None) -> int:
         "dequantization, src/repro/quant/lm_quant.py:86 (q_einsum); the "
         "batched face of w8a8_dense.cu's kernel, one expert a batch entry",
         "launches": moe["launches"],
-        "launches_by_path": moe["launches_by_path"],
-        "max_abs_err": moe["max_abs_err"], "ms": t["ms"],
+        "launches_by_path": {**moe["launches_by_path"], **ssm["bmm"]},
+        "max_abs_err": max(moe["max_abs_err"], ssm["max_abs_err"]),
+        "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["int_mm_ms"],

@@ -4,9 +4,8 @@ A copy of the reference package's `repro.configs.base` (pure data, no
 JAX): every assigned architecture is a `ModelConfig`; every assigned
 input shape is a `ShapeSpec`.  `get_config(arch)` imports
 `repro_torch.configs.<arch>`, whose CONFIG equals the reference's field
-for field.  The port serves the dense and VLM decoder-only ones
-(`repro_torch.models.transformer`); MoE, SSM/hybrid and enc-dec configs
-load here but their models raise NotImplementedError (ROADMAP Queue A).
+for field.  The port builds and serves all ten
+(`repro_torch.models.transformer`).
 """
 from __future__ import annotations
 

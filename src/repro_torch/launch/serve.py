@@ -7,7 +7,9 @@ W8A8 quantization; the counterpart of `repro.launch.serve`.
       --no-reduce --quant w8a8          # full size, on the card
 
 Requests are batched (all rows of a wave share a decode position), the
-KV cache is allocated once per wave, and --quant w8a8 swaps the
+KV cache (and a recurrent mixer's state) is allocated once per wave, an
+encoder-decoder gets zero frame embeddings of the prompt's length (the
+reference's speech-frontend stub), and --quant w8a8 swaps the
 parameter tree for int8 weights with per-channel power-of-two scales
 (repro_torch.quant.lm_quant), whose products run the `w8a8_dense` CUDA
 kernel on the card.  The same flags, output lines and greedy loop as the
@@ -77,6 +79,10 @@ def serve(cfg, requests: int = 8, prompt_len: int = 64, gen: int = 32,
         batch["prefix_embeds"] = torch.zeros(
             (requests, cfg.num_prefix_embeds, cfg.d_model),
             dtype=torch.float32, device=device)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.zeros(
+            (requests, prompt_len, cfg.d_model), dtype=torch.float32,
+            device=device)
 
     with torch.inference_mode():
         _sync(device)

@@ -1,2 +1,5 @@
-"""The LM substrate of the port: dense and VLM decoder-only transformers
-(`transformer.LM`), their layers and attention, float and W8A8."""
+"""The LM substrate of the port: decoder-only LMs of attention, SWA,
+mamba, mLSTM and sLSTM blocks with MLP or MoE FFNs (`transformer.LM`,
+dense, VLM, MoE, SSM and hybrid) and the encoder-decoder
+(`transformer.EncDecLM`), their layers, attention, MoE and recurrent
+mixers, float and W8A8."""

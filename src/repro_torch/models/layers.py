@@ -153,6 +153,18 @@ def mlp(params: dict, x):
     return dense(h, params["w_down"])
 
 
+def silu(x):
+    """x * sigmoid(x), as `jax.nn.silu` computes it (closer to its bits
+    than F.silu; the recurrent mixers use it)."""
+    return x * torch.sigmoid(x)
+
+
+def softplus(x):
+    """log(1 + e^x) as `jax.nn.softplus` computes it: logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------

@@ -828,3 +828,185 @@ def test_cuda_reduced_phi35_moe_w8a8_decode_matches_the_cpu(cuda,
     assert max(diffs) <= 0.1, diffs
     assert kd.w8a8_bmm.launches - n_bmm == 2 * 3 * cfg.num_layers
     assert kd.w8a8_dense.launches - n_dense == 2 * (4 * cfg.num_layers + 1)
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and encoder-decoder LMs: mamba, mLSTM, sLSTM, EncDecLM
+# ---------------------------------------------------------------------------
+SSM_DENSE_KN = [(2048, 8192), (4096, 4096), (2816, 2048), (4096, 16384),
+                (8192, 4096), (1024, 256256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kn", SSM_DENSE_KN, ids=str)
+def test_cuda_w8a8_dense_at_the_ssm_and_encdec_products(cuda, kn):
+    """Products of xlstm_1_3b (up_proj, wq, ffn_down), jamba_v01_52b
+    (in_proj, out_proj) and seamless_m4t_medium (its 256,256-wide
+    lm_head) at a decode step's M = 8, bit for bit."""
+    from repro_torch.kernels import w8a8_dense as kd
+    K, N = kn
+    xq, wq, xe, n = dense_operands(np.random.default_rng(K + N), 8, K, N)
+    got = ops.w8a8_dense(xq.to(cuda), wq.to(cuda), xe.to(cuda), n.to(cuda))
+    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wq, xe, n))
+
+
+def mixer_case(name):
+    """A reduced config, the mixer's params (CPU, seed 0) and its module."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import mamba, xlstm
+    arch = "jamba_v01_52b" if name == "mamba" else "xlstm_1_3b"
+    cfg = reduced(get_config(arch), d_model=64)
+    init, apply, cache = {
+        "mamba": (mamba.init_mamba, mamba.mamba_apply,
+                  mamba.init_mamba_cache),
+        "mlstm": (xlstm.init_mlstm, xlstm.mlstm_apply,
+                  xlstm.init_mlstm_cache),
+        "slstm": (xlstm.init_slstm, xlstm.slstm_apply,
+                  xlstm.init_slstm_cache)}[name]
+    return cfg, init(torch.Generator().manual_seed(0), cfg, "cpu"), apply, \
+        cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mamba", "mlstm", "slstm"])
+def test_cuda_recurrent_mixer_matches_the_cpu(cuda, f32_sums, name):
+    """Prefill of 16 positions, then 4 decode steps, on the card and on
+    the CPU: outputs and float32 states within atol 0.05 + rtol 0.05
+    (cuBLAS and the CPU sum the bf16 products in other orders, so a bf16
+    activation may round one ulp apart), the states written in place in
+    the card's cache buffers."""
+    cfg, p, apply, init_cache = mixer_case(name)
+    pc = on(p, cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (2, 20, cfg.d_model)).astype(np.float32)).bfloat16()
+    cc = init_cache(cfg, 2, device="cpu")
+    cg = on(cc, cuda)
+    ptrs = {k: v.data_ptr() for k, v in cg.items()}
+    yc, _ = apply(p, x[:, :16], cfg, mode="prefill", cache=cc)
+    yg, _ = apply(pc, x[:, :16].to(cuda), cfg, mode="prefill", cache=cg)
+    outs = [(yc, yg)]
+    for t in range(16, 20):
+        yc, _ = apply(p, x[:, t:t + 1], cfg, mode="decode", cache=cc)
+        yg, _ = apply(pc, x[:, t:t + 1].to(cuda), cfg, mode="decode",
+                      cache=cg)
+        outs.append((yc, yg))
+    for a, b in outs + [(cc[k], cg[k]) for k in cc]:
+        torch.testing.assert_close(b.float().cpu(), a.float(), atol=0.05,
+                                   rtol=0.05)
+    assert {k: v.data_ptr() for k, v in cg.items()} == ptrs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dense,bmm", [
+    ("xlstm_1_3b", 39, 0), ("jamba_v01_52b", 31, 12)])
+def test_cuda_reduced_ssm_w8a8_blocks_match_the_cpu(cuda, f32_sums, arch,
+                                                    dense, bmm):
+    """A reduced xlstm_1_3b (7 mLSTM + 1 sLSTM) and jamba_v01_52b (one
+    cycle) in W8A8, prefill and one decode step layer by layer (the
+    card's block on the CPU's block input, each with its own caches):
+    every block output and the logits within 0.1, as the qwen3_14b case,
+    every dense product on w8a8_dense and every expert product on
+    w8a8_bmm (`dense` and `bmm` a forward pass)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import layers, transformer as tt
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cfg = reduced(get_config(arch), d_model=64)
+    model = tt.build_model(cfg)
+    params = quantize_lm_params(model.init(torch.Generator().manual_seed(0),
+                                           "cpu"))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        1, cfg.vocab_size, (2, 17)).astype(np.int32))
+    pc = on(params, cuda)
+    cache_c = model.init_cache(2, 512, "cpu")
+    cache_g = model.init_cache(2, 512, cuda)
+    n_bmm, n_dense = kd.w8a8_bmm.launches, kd.w8a8_dense.launches
+    diffs = []
+
+    def run(x, mode, pos):
+        for ci in range(cfg.num_cycles):
+            for i, kind in enumerate(cfg.blocks):
+                y, _, _ = tt.block_apply(
+                    cfg, kind, tt._cycle(params["blocks"][i], ci), x,
+                    mode=mode, cache=cache_c[ci][i], pos=pos, prefix_len=0)
+                yg, _, _ = tt.block_apply(
+                    cfg, kind, tt._cycle(pc["blocks"][i], ci), x.to(cuda),
+                    mode=mode, cache=cache_g[ci][i], pos=pos, prefix_len=0)
+                diffs.append(float((y.float() - yg.float().cpu()).abs()
+                                   .max()))
+                x = y
+        h = layers.rms_norm(x[:, -1:], params["final_norm"]["scale"])
+        diffs.append(float((layers.lm_logits(params["lm_head"], h).float()
+                            - layers.lm_logits(pc["lm_head"], h.to(cuda))
+                            .float().cpu()).abs().max()))
+
+    run(layers.embed_lookup(params["embed"], toks[:, :16]), "prefill", None)
+    run(layers.embed_lookup(params["embed"], toks[:, 16:]), "decode", 16)
+    assert max(diffs) <= 0.1, diffs
+    assert kd.w8a8_dense.launches - n_dense == 2 * dense
+    assert kd.w8a8_bmm.launches - n_bmm == 2 * bmm
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_seamless_w8a8_blocks_match_the_cpu(cuda, f32_sums):
+    """A reduced seamless_m4t_medium (2 encoder and 2 decoder layers) in
+    W8A8: each encoder block, then each decoder block at prefill and at
+    one decode step, on the CPU's block input, within 0.1; the encoder's
+    and decoder's products on w8a8_dense, 37 at the prefill and 19 at the
+    decode step (the cross K/V cached)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import layers, transformer as tt
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cfg = reduced(get_config("seamless_m4t_medium"), d_model=64)
+    model = tt.build_model(cfg)
+    params = quantize_lm_params(model.init(torch.Generator().manual_seed(0),
+                                           "cpu"))
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(rng.normal(0, 1, (2, 12, 64)).astype(
+        np.float32)).bfloat16()
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 17)).astype(
+        np.int32))
+    pc = on(params, cuda)
+    cache_c = model.init_cache(2, 512, 12, "cpu")
+    cache_g = model.init_cache(2, 512, 12, cuda)
+    n0 = kd.w8a8_dense.launches
+    diffs = []
+    x = layers.dense(frames, params["frontend"]["w"])
+    for ci in range(cfg.num_encoder_layers):
+        y, _, _ = tt.block_apply(
+            cfg, tt.ENC_BLOCK[0], tt._cycle(params["enc_blocks"][0], ci), x,
+            mode="train", cache=None, pos=None, prefix_len=2 ** 30)
+        yg, _, _ = tt.block_apply(
+            cfg, tt.ENC_BLOCK[0], tt._cycle(pc["enc_blocks"][0], ci),
+            x.to(cuda), mode="train", cache=None, pos=None,
+            prefix_len=2 ** 30)
+        diffs.append(float((y.float() - yg.float().cpu()).abs().max()))
+        x = y
+    enc = layers.rms_norm(x, params["enc_norm"]["scale"])
+
+    def run(x, enc, mode, pos):
+        for ci in range(cfg.num_cycles):
+            y = tt.dec_block(cfg, tt._cycle(params["dec_blocks"][0], ci), x,
+                             enc, mode=mode, pos=pos,
+                             cache=tt._cycle(cache_c[0], ci))
+            yg = tt.dec_block(cfg, tt._cycle(pc["dec_blocks"][0], ci),
+                              x.to(cuda), None if enc is None
+                              else enc.to(cuda), mode=mode, pos=pos,
+                              cache=tt._cycle(cache_g[0], ci))
+            diffs.append(float((y.float() - yg.float().cpu()).abs().max()))
+            x = y
+        h = layers.rms_norm(x[:, -1:], params["final_norm"]["scale"])
+        diffs.append(float((layers.lm_logits(params["lm_head"], h).float()
+                            - layers.lm_logits(pc["lm_head"], h.to(cuda))
+                            .float().cpu()).abs().max()))
+
+    run(layers.embed_lookup(params["embed"], toks[:, :16]), enc, "prefill",
+        None)
+    run(layers.embed_lookup(params["embed"], toks[:, 16:]), None, "decode",
+        16)
+    assert max(diffs) <= 0.1, diffs
+    assert kd.w8a8_dense.launches - n0 == 37 + 19

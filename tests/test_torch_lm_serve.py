@@ -5,8 +5,9 @@ architectures (reduced to d_model 64: `stablelm_3b`, `qwen3_14b`,
 16-token prompt so the SWA caches wrap, `paligemma_3b` with its
 prefix-LM image embeds, and the MoE `phi35_moe` and `mixtral_8x22b`,
 4 experts top-2), float and W8A8; decode consistent with prefill;
-`launch.serve` end to end; NotImplementedError for the architectures
-not ported yet.
+`launch.serve` end to end, and the CLI serving the SSM, hybrid and
+encoder-decoder architectures too (held against the reference in
+`tests/test_torch_lm_ssm.py` and `tests/test_torch_lm_encdec.py`).
 
 Weights: the reference's own init, carried across with
 `convert.lm_params_from_reference`; inputs from NumPy seeds.
@@ -343,22 +344,18 @@ def test_serve_returns_its_greedy_tokens():
         tserve.serve(cfg, quant="w4", device="cpu")
 
 
-@pytest.mark.parametrize("arch,what", [
-    ("phi35_moe", "MoE"), ("mixtral_8x22b", "MoE"),
-    ("jamba_v01_52b", "SSM and hybrid"), ("xlstm_1_3b", "SSM and hybrid"),
-    ("seamless_m4t_medium", "EncDecLM")])
-def test_the_architectures_not_ported_yet_raise(arch, what):
-    """jamba_v01_52b (its mamba mixer), xlstm_1_3b and seamless_m4t_medium
-    raise, naming their ROADMAP item; the MoE archs, ported since, build
-    and serve."""
+@pytest.mark.parametrize("arch,model", [
+    ("phi35_moe", TT.LM), ("mixtral_8x22b", TT.LM),
+    ("jamba_v01_52b", TT.LM), ("xlstm_1_3b", TT.LM),
+    ("seamless_m4t_medium", TT.EncDecLM)])
+def test_the_moe_ssm_hybrid_and_encdec_architectures_build_and_serve(
+        arch, model):
+    """The architectures of ROADMAP Queue A item 5, once refused: the MoE
+    decoders, jamba_v01_52b (mamba mixers), xlstm_1_3b (mLSTM/sLSTM) and
+    the encoder-decoder seamless_m4t_medium build and serve through the
+    CLI on the CPU."""
     cfg = treduced(tget(arch), d_model=64)
-    if what == "MoE":
-        assert isinstance(TT.build_model(cfg), TT.LM)
-        assert tserve.main(["--arch", arch, "--device", "cpu", "--d-model",
-                            "64", "--requests", "2", "--prompt-len", "8",
-                            "--gen", "2"]) == 0
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A.*{what}"):
-        TT.build_model(cfg)
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--arch", arch, "--device", "cpu", "--d-model", "64"])
+    assert type(TT.build_model(cfg)) is model
+    assert tserve.main(["--arch", arch, "--device", "cpu", "--d-model",
+                        "64", "--requests", "2", "--prompt-len", "8",
+                        "--gen", "2"]) == 0
