@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --device-times   # phase 1 and phase 8's times
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --train-lm
+                                           # phase 16 alone
     python3 chip_smoke.py --forward-pairs PARENT_TREE
 
 (`--device-times` runs on an older tree too: copy this script into a
@@ -281,6 +283,33 @@ Phases, each raising on failure:
    prefill and one decode step of each config of phases 14-15, bf16 and
    W8A8, and one xlstm_1_3b mLSTM decode layer's device time beside its
    bound (`[recurrent]` lines).
+16. (run last, after phase 8) LM training
+   (`launch.{train,steps}`), in a process of its own (`chip_smoke.py
+   --train-lm`, with deterministic algorithms and
+   CUBLAS_WORKSPACE_CONFIG=:4096:8 so that a resume can repeat its
+   bits): (a) `launch.train.main` on stablelm_3b in full (32 layers, d
+   2560, 2.80 B parameters), B 8 x S 256, 12 steps, no checkpoint (one
+   full-size snapshot is 33.5 GB, and a chip call may write 45 GiB to
+   its disk): median warm ms a step, tok/s, peak device GiB, the losses
+   and grad norms, the step's bound (8 N T FLOP at the dense bf16 peak,
+   beside the state's bytes); a learning check (AdamW at a constant lr
+   of 1e-3, 4 steps: batch 0's loss must fall, the step timed as
+   forward + backward and the in-place AdamW; the CLI's schedule warms
+   up over 2,000 steps); (b) at full width cut to 4 of 32 layers, a
+   straight run, then the same command with `--ckpt-every 4` and a fault
+   before step 6: `run_with_restarts` rebuilds it, it resumes from step
+   4, and its final params, m, v and steps must equal the straight
+   run's bit for bit (three 6.9 GB checkpoints in
+   `build/lm_train_smoke/`, removed after); (c) 4 steps of (a) with
+   `--grad-compress` (ms a step against (a), peak GiB); (d) one step of
+   each other family at `--reduce` under deterministic algorithms,
+   naming any op that has no deterministic CUDA kernel (none raised on
+   torch 2.11), then paligemma_3b, phi35_moe, xlstm_1_3b, jamba_v01_52b
+   and seamless_m4t_medium at `--reduce` (d 256), 4 steps each with
+   deterministic algorithms off: finite losses and grad norms, step 0's
+   loss and grad norm within `LM_TRAIN_CPU_RTOL` of the port's CPU step
+   on the same weights, and the learning check (`[train-lm]` lines).  It
+   launches none of the port's kernels.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -2694,6 +2723,356 @@ def encdec_phase(dev, card: str) -> dict:
         "encdec_seamless_m4t_medium": run["launches"][0]})
 
 
+# ---------------------------------------------------------------------------
+# phase 16: LM training (repro_torch.launch.{train,steps}), in a process of
+# its own (deterministic algorithms, CUBLAS_WORKSPACE_CONFIG)
+# ---------------------------------------------------------------------------
+LM_TRAIN_DIR = ROOT / "build" / "lm_train_smoke"
+BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
+LM_TRAIN_ARGV = ["--arch", "stablelm_3b", "--steps", "12", "--batch", "8",
+                 "--seq", "256", "--log-every", "1"]
+# (b): the same width cut to 4 of 32 layers (0.57 B parameters), so that
+# its three checkpoints (6.9 GB each) stay well inside the 45 GiB a chip
+# call may write to its disk: one full-size snapshot is 33.5 GB
+LM_RESUME_LAYERS = 4
+LM_RESUME_CKPT = ["--ckpt-every", "4"]
+LM_TRAIN_FAULT = 6                 # the crashed run raises before step 6
+LM_TRAIN_GC_STEPS = 4              # --grad-compress steps
+LM_TRAIN_OTHERS = ("paligemma_3b", "phi35_moe", "xlstm_1_3b",
+                   "jamba_v01_52b", "seamless_m4t_medium")
+LM_TRAIN_OTHER_ARGV = ["--reduce", "--steps", "4", "--batch", "4", "--seq",
+                       "128", "--log-every", "1"]
+# the port's CPU step 0 against the card's, on the same weights and batch
+# (measured at most 1.55e-4 and 3.75e-3, xlstm's grad norm, on an H100
+# 80GB HBM3 at 700 W)
+LM_TRAIN_CPU_RTOL = {"loss": 1e-3, "grad_norm": 1.5e-2}
+LM_TRAIN_LEARN_LR = 1e-3           # the learning check's constant lr
+LM_TRAIN_LEARN_STEPS = 4
+
+
+def train_lm_phase(card: str) -> dict:
+    """Phase 16 in a process of its own (`--train-lm`): its lines are
+    logged here and its summary returned."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train-lm] device memory before the phase: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved by this "
+        f"process")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--train-lm"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=1000)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 (--train-lm): exit {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    log(f"[train-lm] the phase's process: exit 0 in "
+        f"{time.perf_counter() - t:.1f} s")
+    return json.loads(lines[-1])["train_lm"]
+
+
+def train_lm_cli(argv, fail_at=None) -> tuple:
+    """`launch.train.main(argv)` with its printed lines captured and
+    logged: (its result, its stdout).  With `fail_at`, the first time the
+    loop asks for batch `fail_at` it raises instead (a fault for the
+    restart path)."""
+    import contextlib
+    import io
+    from unittest import mock
+    from repro_torch.launch import train
+    real, armed = train.make_batch, [fail_at is not None]
+
+    def make_batch(cfg, task, i, batch, device):
+        if armed[0] and i == fail_at:
+            armed[0] = False
+            raise RuntimeError(f"injected fault before step {i}")
+        return real(cfg, task, i, batch, device)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), \
+            mock.patch.object(train, "make_batch", make_batch):
+        res = train.main(argv)
+    out = buf.getvalue()
+    for line in out.strip().splitlines():
+        log(f"[train-lm]   {line}")
+    return res, out
+
+
+def task_seq(cfg) -> int:
+    argv = LM_TRAIN_ARGV if cfg.name == "stablelm_3b" else \
+        LM_TRAIN_OTHER_ARGV
+    return int(argv[argv.index("--seq") + 1])
+
+
+def task_batch(cfg) -> int:
+    argv = LM_TRAIN_ARGV if cfg.name == "stablelm_3b" else \
+        LM_TRAIN_OTHER_ARGV
+    return int(argv[argv.index("--batch") + 1])
+
+
+def train_summary(res, tokens: int) -> dict:
+    log_ = res["log"]
+    warm = [r["ms"] for r in log_[1:]]
+    ms = statistics.median(warm)
+    return {"ms": ms, "tok_per_s": tokens / (ms / 1e3),
+            "first_ms": log_[0]["ms"], "losses": [r["loss"] for r in log_],
+            "grad_norms": [r["grad_norm"] for r in log_]}
+
+
+def check_finite(tag: str, res) -> None:
+    import math
+    rows = res["log"]
+    if not rows or not all(math.isfinite(r["loss"])
+                           and math.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"{tag}: a loss or grad norm is not finite: "
+                             f"{rows}")
+
+
+def learns(tag: str, cfg, dev, n: int = LM_TRAIN_LEARN_STEPS) -> dict:
+    """The port's train step with AdamW at a constant lr of
+    LM_TRAIN_LEARN_LR (the CLI's cosine schedule warms up over 2,000
+    steps, so its lr stays below 2e-6 in a smoke run's few steps and its
+    loss moves by noise): batch 0's loss before and after `n` steps on
+    batches 0..n-1 of the token stream, which must fall."""
+    import torch
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.adam import AdamW
+    model = build_model(cfg)
+    state = steps.init_train_state(cfg, torch.Generator(dev).manual_seed(0),
+                                   dev)
+    opt = AdamW(lr=LM_TRAIN_LEARN_LR, weight_decay=0.1, clip_norm=1.0)
+    task = TokenTask(cfg.vocab_size, task_seq(cfg), seed=7)
+    B = task_batch(cfg)
+    b0 = make_batch(cfg, task, 0, B, dev)
+    with torch.no_grad():
+        before = float(model.train_loss(state["params"], b0)[0])
+    split = []
+    for i in range(n):
+        # make_train_step's two calls, timed apart (host clock after a
+        # synchronize)
+        batch = make_batch(cfg, task, i, B, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, grads = steps.loss_and_grads(model, state["params"], batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.update_(grads, state["opt"], state["params"])
+        torch.cuda.synchronize()
+        split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    with torch.no_grad():
+        after = float(model.train_loss(state["params"], b0)[0])
+    fb, up = (statistics.median(x[k] for x in split[1:]) for k in (0, 1))
+    log(f"{tag}: batch 0's loss {before:.5f} -> {after:.5f} after {n} "
+        f"steps of AdamW at a constant lr {LM_TRAIN_LEARN_LR:g}; a step's "
+        f"split (median of steps 1-{n - 1}): forward + backward {fb:.1f} "
+        f"ms, the in-place AdamW {up:.1f} ms")
+    if not after < before:
+        raise AssertionError(f"{tag}: batch 0's loss did not fall: "
+                             f"{before} -> {after}")
+    return {"batch0_before": before, "batch0_after": after,
+            "fwd_bwd_ms": fb, "adamw_ms": up}
+
+
+def train_lm_child(dev, card: str) -> dict:
+    """Phase 16 (`chip_smoke.py --train-lm`)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_batch, reduced
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import leaves, tree_map
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    shutil.rmtree(LM_TRAIN_DIR, ignore_errors=True)
+    cfg = get_config("stablelm_3b")
+    B, S = task_batch(cfg), task_seq(cfg)
+    tokens = B * S
+
+    # (a) stablelm_3b in full through the CLI's main
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res, _ = train_lm_cli(LM_TRAIN_ARGV)
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(p.numel() for p in leaves(res["state"]["params"]))
+    summ = train_summary(res, tokens)
+    check_finite("[train-lm] stablelm_3b", res)
+    flops = 6 * n_params * tokens
+    flops_remat = 8 * n_params * tokens
+    # bytes: the weights read by the forward, the recompute and the
+    # backward (bf16), the optimizer's reads of p, g (bf16), m, v (f32)
+    # and its writes of p, m, v
+    state_bytes = n_params * (3 * 2 + 2 + 2 + 4 + 4 + 2 + 4 + 4)
+    bound = {"flop_ms": flops / BF16_OPS_PER_S * 1e3,
+             "flop_remat_ms": flops_remat / BF16_OPS_PER_S * 1e3,
+             "bytes_ms": state_bytes / HBM_BYTES_PER_S * 1e3}
+    bound["bound_ms"] = max(bound["flop_remat_ms"], bound["bytes_ms"])
+    log(f"[train-lm] {card} | stablelm_3b in full ({n_params / 1e9:.3f} B "
+        f"params, {cfg.num_layers} layers, d {cfg.d_model}), B {B} x S {S}, "
+        f"deterministic algorithms on: 12 steps in {wall:.1f} s; median "
+        f"warm step {summ['ms']:.1f} ms ({summ['tok_per_s']:.0f} tok/s), "
+        f"step 0 {summ['first_ms']:.1f} ms; peak device memory "
+        f"{peak:.2f} GiB")
+    log(f"[train-lm] stablelm_3b loss step 0 {summ['losses'][0]:.4f}, step "
+        f"11 {summ['losses'][-1]:.4f}; grad norm step 0 "
+        f"{summ['grad_norms'][0]:.4f}, step 11 {summ['grad_norms'][-1]:.4f} "
+        f"(lr <= {3e-4 * 12 / 2000:.2e} in the schedule's warmup)")
+    log(f"[train-lm] stablelm_3b step bound: 6 N T = {flops / 1e12:.1f} "
+        f"TFLOP ({bound['flop_ms']:.1f} ms), 8 N T with the remat's extra "
+        f"forward = {flops_remat / 1e12:.1f} TFLOP "
+        f"({bound['flop_remat_ms']:.1f} ms) at {BF16_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s (H100 SXM dense bf16, 700 W data sheet; this card: "
+        f"{card}); {state_bytes / 1e9:.1f} GB of weights and optimizer "
+        f"state ({bound['bytes_ms']:.1f} ms at 3.35 TB/s); the step is "
+        f"{summ['ms'] / bound['bound_ms']:.1f} x its bound")
+    if len(res["log"]) != 12 or res["attempts"] != 1:
+        raise AssertionError(f"(a): {len(res['log'])} steps, "
+                             f"{res['attempts']} attempts")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    learned = learns("[train-lm] stablelm_3b in full", cfg, dev)
+    out["stablelm_3b"] = dict(summ, peak_gib=peak, n_params=n_params,
+                              wall_s=wall, **bound, **learned)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) at full width, LM_RESUME_LAYERS deep: a straight run, then the
+    # same command with checkpoints and a fault before LM_TRAIN_FAULT
+    from unittest import mock
+    from repro_torch.launch import train
+    cut = cfg.scaled(num_layers=LM_RESUME_LAYERS)
+    with mock.patch.object(train, "get_config", lambda arch: cut):
+        res, _ = train_lm_cli(LM_TRAIN_ARGV)
+        want = [x.cpu() for x in leaves(res["state"])]
+        del res
+        b_dir = str(LM_TRAIN_DIR / "b")
+        t = time.perf_counter()
+        res, text = train_lm_cli(LM_TRAIN_ARGV + LM_RESUME_CKPT
+                                 + ["--ckpt-dir", b_dir],
+                                 fail_at=LM_TRAIN_FAULT)
+        wall = time.perf_counter() - t
+    for line in (f"[restart 1/2] RuntimeError: injected fault before step "
+                 f"{LM_TRAIN_FAULT}", "[resume] from step 4"):
+        if line not in text:
+            raise AssertionError(f"(b): no line {line!r}")
+    saved = sorted(p.name for p in (LM_TRAIN_DIR / "b").iterdir())
+    if saved != ["LATEST", "step_00000004.npz", "step_00000008.npz",
+                 "step_00000012.npz"]:
+        raise AssertionError(f"(b) checkpoints: {saved}")
+    snap = (LM_TRAIN_DIR / "b" / "step_00000012.npz").stat().st_size
+    got = leaves(res["state"])
+    differ = [i for i, (x, y) in enumerate(zip(got, want))
+              if not torch.equal(x.cpu(), y)]
+    if len(got) != len(want) or differ or res["attempts"] != 2:
+        raise AssertionError(f"(b): {len(differ)} of {len(want)} leaves "
+                             f"differ from the straight run "
+                             f"({res['attempts']} attempts)")
+    n_cut = sum(p.numel() for p in leaves(res["state"]["params"]))
+    log(f"[train-lm] {card} | stablelm_3b at full width, {LM_RESUME_LAYERS} "
+        f"of {cfg.num_layers} layers ({n_cut / 1e9:.3f} B params), a fault "
+        f"before step {LM_TRAIN_FAULT}, resumed from "
+        f"step 4: after step 12 its params, m, v and steps equal the "
+        f"straight run's bit for bit ({len(want)} leaves); {wall:.1f} s for "
+        f"the two attempts (three {snap / 1e9:.2f} GB checkpoints written, "
+        f"one read, 5 s backoff)")
+    out["resume"] = {"leaves": len(want), "wall_s": wall, "equal": True,
+                     "layers": LM_RESUME_LAYERS, "snapshot_bytes": snap}
+    del res, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(LM_TRAIN_DIR / "b")
+
+    # (c) --grad-compress, the same model and batch
+    torch.cuda.reset_peak_memory_stats()
+    argv = list(LM_TRAIN_ARGV)
+    argv[argv.index("--steps") + 1] = str(LM_TRAIN_GC_STEPS)
+    res, _ = train_lm_cli(argv + ["--grad-compress"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    summ = train_summary(res, tokens)
+    errs = leaves(res["state"]["err"])
+    if not all(torch.isfinite(e).all() for e in errs) or \
+            not any(e.abs().max() > 0 for e in errs):
+        raise AssertionError("(c): the error buffer is not finite or zero")
+    log(f"[train-lm] {card} | stablelm_3b --grad-compress: median warm "
+        f"step {summ['ms']:.1f} ms ({summ['tok_per_s']:.0f} tok/s) against "
+        f"{out['stablelm_3b']['ms']:.1f} ms without; peak device memory "
+        f"{peak:.2f} GiB (the float32 error buffer); loss step 0 "
+        f"{summ['losses'][0]:.4f}, step {LM_TRAIN_GC_STEPS - 1} "
+        f"{summ['losses'][-1]:.4f}")
+    out["grad_compress"] = dict(summ, peak_gib=peak)
+    del res, errs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the other families at --reduce: first one step of each under
+    # deterministic algorithms, naming any op that has no deterministic
+    # CUDA kernel (it raises there); then their runs with them off
+    out["deterministic"] = {}
+    for arch in LM_TRAIN_OTHERS:
+        cfg = reduced(get_config(arch))
+        params = build_model(cfg).init(torch.Generator(dev).manual_seed(0),
+                                       dev)
+        batch = make_batch(cfg, TokenTask(cfg.vocab_size, task_seq(cfg),
+                                          seed=7), 0, task_batch(cfg), dev)
+        try:
+            steps.loss_and_grads(build_model(cfg), params, batch)
+            verdict = "ran"
+        except RuntimeError as e:           # names the op, then go on
+            verdict = str(e).splitlines()[0][:200]
+        out["deterministic"][arch] = verdict
+        del params, batch
+    log(f"[train-lm] one step of each family at --reduce under "
+        f"deterministic algorithms: {out['deterministic']}")
+    torch.use_deterministic_algorithms(False)
+    out["others"] = {}
+    for arch in LM_TRAIN_OTHERS:
+        cfg = reduced(get_config(arch))
+        res, _ = train_lm_cli(["--arch", arch] + LM_TRAIN_OTHER_ARGV)
+        check_finite(f"[train-lm] {arch}", res)
+        # the port's CPU step 0 on the card's initial weights and batch 0
+        params = build_model(cfg).init(torch.Generator(dev).manual_seed(0),
+                                       dev)
+        params = tree_map(lambda x: x.cpu(), params)
+        batch = make_batch(cfg, TokenTask(cfg.vocab_size, task_seq(cfg),
+                                          seed=7), 0, task_batch(cfg), "cpu")
+        loss, _, grads = steps.loss_and_grads(build_model(cfg), params,
+                                              batch)
+        from repro_torch.optim.adam import global_norm
+        cpu = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
+        card0 = {k: res["log"][0][k] for k in cpu}
+        rel = {k: abs(card0[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+        summ = train_summary(res, task_seq(cfg) * task_batch(cfg))
+        log(f"[train-lm] {card} | {arch} --reduce (d {cfg.d_model}, "
+            f"{cfg.num_layers} layers): median warm step {summ['ms']:.1f} "
+            f"ms; step 0 loss {card0['loss']:.5f} / grad norm "
+            f"{card0['grad_norm']:.5f} on the card, {cpu['loss']:.5f} / "
+            f"{cpu['grad_norm']:.5f} on the CPU (relative "
+            f"{rel['loss']:.2e} / {rel['grad_norm']:.2e})")
+        for k, tol in LM_TRAIN_CPU_RTOL.items():
+            if not rel[k] <= tol:
+                raise AssertionError(f"{arch}: step 0's {k} on the card "
+                                     f"{card0[k]} vs the CPU {cpu[k]}: "
+                                     f"{rel[k]:.2e} > {tol}")
+        del res, params, grads
+        learned = learns(f"[train-lm] {arch} --reduce", cfg, dev)
+        out["others"][arch] = dict(summ, cpu=cpu, card=card0, rel=rel,
+                                   **learned)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_records(fn) -> int:
     """Device activities (kernels, copies, sets) of one fn() call in a
     torch.profiler trace (CUDA activity; the host's runtime calls, which
@@ -3308,10 +3687,11 @@ def log_device_times(card: str, dt: dict) -> None:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--device-times"], ["--forward-worker"]) and (
+    if argv not in ([], ["--device-times"], ["--forward-worker"],
+                    ["--train-lm"]) and (
             len(argv) != 2 or argv[0] != "--forward-pairs"):
-        print("usage: chip_smoke.py [--device-times | --forward-pairs "
-              "PARENT_TREE]", file=sys.stderr)
+        print("usage: chip_smoke.py [--device-times | --train-lm | "
+              "--forward-pairs PARENT_TREE]", file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not next to this script "
@@ -3329,6 +3709,17 @@ def main(argv=None) -> int:
         card = card_line()
         forward_pairs(Path(argv[1]).resolve(), card)
         log(card)
+        return 0
+    if argv == ["--train-lm"]:
+        card = card_line()
+        if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+            print("chip_smoke --train-lm: run with CUBLAS_WORKSPACE_CONFIG="
+                  ":4096:8 (deterministic cuBLAS)", file=sys.stderr)
+            return 2
+        t0 = time.perf_counter()
+        res = train_lm_child(torch.device("cuda"), card)
+        log(f"[train-lm] phase 16 passed in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"train_lm": res}))
         return 0
     from repro_torch.kernels import build
     from repro_torch.kernels import q7_matmul as kq
@@ -3512,6 +3903,7 @@ def main(argv=None) -> int:
     ssm = ssm_phase(dev, card)
     encdec = encdec_phase(dev, card)
 
+
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
     traced_serving(run, card)
@@ -3548,6 +3940,10 @@ def main(argv=None) -> int:
             row["device_ms"] = dt[name][shape_key(row["shape"])]
             row["int_mm_device_ms"] = dt["int_mm"].get(
                 shape_key(row["shape"]))
+
+    # phase 16, last: LM training in a process of its own; it launches
+    # none of the kernels, and no profiler session follows it
+    train_lm = train_lm_phase(card)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
@@ -3638,6 +4034,7 @@ def main(argv=None) -> int:
         "shape": t["shape"], "shapes": t["shapes"], "moe": moe["runs"]})
     log("kernels: " + ", ".join(f"{k['name']} x{k['launches']}"
                                 for k in record["kernels"]))
+    log(f"[train-lm] summary {json.dumps(train_lm)}")
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "
         f"the build included")
     log(card)

@@ -7,47 +7,51 @@ Write protocol (restart-safe at any kill point):
 A crash mid-write leaves only a .tmp file that restore ignores; LATEST
 always points at a fully written snapshot.  Resume = restore_latest().
 
-A snapshot's keys are the tree's paths joined by "/" in sorted key order
-(`params/caps/conv0/w`, `opt/step`), exactly as the reference package
+A snapshot's keys are the tree's paths joined by "/" in flattening
+order (`params/caps/conv0/w`, `opt/step`, `params/blocks/0/attn/wq`:
+dict keys sorted, tuple indices in order), exactly as the reference package
 writes them, so a checkpoint written by either package restores in the
 other.  Batches are pure functions of the step index
-(`repro_torch.data.synthetic.ImageTask`), so no data-pipeline state is
-saved.
+(`repro_torch.data.synthetic.ImageTask`, `TokenTask`), so no
+data-pipeline state is saved.
 """
 from __future__ import annotations
 
-import io
 import os
 import pathlib
 import re
+import zipfile
 
 import numpy as np
 import torch
 
-from repro_torch.tree import leaves_with_paths
+from repro_torch.tree import leaves_with_paths, unflatten
 
 
-def _flatten(tree) -> dict:
-    flat = {}
-    for key, leaf in leaves_with_paths(tree):
-        t = torch.as_tensor(leaf).detach()
-        # np.savez cannot store bfloat16; store it as float32 (restore
-        # casts back to the example leaf's dtype, exactly)
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        flat[key] = t.cpu().numpy()
-    return flat
+def _host_array(leaf) -> np.ndarray:
+    t = torch.as_tensor(leaf).detach()
+    # np.savez cannot store bfloat16; store it as float32 (restore casts
+    # back to the example leaf's dtype, exactly)
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()
 
 
 def save(ckpt_dir, step: int, tree) -> str:
+    """Write the snapshot of `step`.  The file is the `.npz` that
+    `np.savez` writes (one stored `<path>.npy` member per leaf), written
+    one leaf at a time, so the host holds one leaf's copy at most."""
     d = pathlib.Path(ckpt_dir)
     d.mkdir(parents=True, exist_ok=True)
     path = d / f"step_{step:08d}.npz"
     tmp = d / f"step_{step:08d}.npz.tmp"
-    buf = io.BytesIO()
-    np.savez(buf, **_flatten(tree))
     with open(tmp, "wb") as f:
-        f.write(buf.getvalue())
+        with zipfile.ZipFile(f, "w", zipfile.ZIP_STORED,
+                             allowZip64=True) as zf:
+            for key, leaf in leaves_with_paths(tree):
+                with zf.open(key + ".npy", "w", force_zip64=True) as member:
+                    np.lib.format.write_array(member, _host_array(leaf),
+                                              allow_pickle=False)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
@@ -76,27 +80,28 @@ def latest_step(ckpt_dir) -> int | None:
     return best
 
 
-def restore(ckpt_dir, step: int, example_tree):
+def restore(ckpt_dir, step: int, example_tree, into: bool = False):
     """The snapshot in the structure of `example_tree`: each leaf takes
-    the dtype and the device of the example's leaf at its path."""
+    the dtype and the device of the example's leaf at its path.  With
+    into=True each leaf is copied into the example's own tensor, which
+    is returned, so no second copy of the tree is made on its device.
+    Leaves are read one at a time."""
     path = pathlib.Path(ckpt_dir) / f"step_{step:08d}.npz"
     with np.load(path) as data:
-        flat = dict(data)
-
-    def load(tree, key: str):
-        if isinstance(tree, dict):
-            return {k: load(v, f"{key}/{k}" if key else str(k))
-                    for k, v in tree.items()}
-        return torch.from_numpy(np.array(flat[key])).to(
-            device=tree.device, dtype=tree.dtype)
-    return load(example_tree, "")
+        def load(key, leaf):
+            got = torch.from_numpy(data[key])
+            if into:
+                return leaf.copy_(got)
+            return got.to(device=leaf.device, dtype=leaf.dtype)
+        got = [load(k, leaf) for k, leaf in leaves_with_paths(example_tree)]
+    return example_tree if into else unflatten(example_tree, got)
 
 
-def restore_latest(ckpt_dir, example_tree):
+def restore_latest(ckpt_dir, example_tree, into: bool = False):
     step = latest_step(ckpt_dir)
     if step is None:
         return None, None
-    return step, restore(ckpt_dir, step, example_tree)
+    return step, restore(ckpt_dir, step, example_tree, into)
 
 
 def gc_keep_n(ckpt_dir, keep: int = 3):

@@ -1,5 +1,6 @@
 """Carrying weights and train states across from the reference package:
-CapsNet params, train states and quantized nets, and LM param trees.
+CapsNet params, train states and quantized nets, LM param trees and LM
+train states.
 
 The functions take and give plain NumPy arrays and JSON (what the
 reference's arrays and `plan_to_json` give), so this module imports
@@ -107,3 +108,41 @@ def lm_params_to_reference(tree):
         return tuple(lm_params_to_reference(v) for v in tree)
     t = tree.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def lm_train_state_from_reference(np_state: dict, device=None) -> dict:
+    """A reference LM train state ({"params", "opt": {"m", "v", "step"},
+    "step"(, "err")}, NumPy leaves) -> the port's: the trees leaf for
+    leaf through `lm_params_from_reference` (bf16 params, float32
+    moments and error buffer), the steps 0-d int32 tensors, on `device`."""
+    device = resolve_device(device)
+
+    def step(a):
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32,
+                            device=device)
+    opt = np_state["opt"]
+    out = {"params": lm_params_from_reference(np_state["params"], device),
+           "opt": {"m": lm_params_from_reference(opt["m"], device),
+                   "v": lm_params_from_reference(opt["v"], device),
+                   "step": step(opt["step"])},
+           "step": step(np_state["step"])}
+    if "err" in np_state:
+        out["err"] = lm_params_from_reference(np_state["err"], device)
+    return out
+
+
+def lm_train_state_to_reference(state: dict) -> dict:
+    """The port's LM train state -> NumPy leaves in the reference's
+    structure (what `lm_train_state_from_reference` reads); bf16 params
+    come back as float32 (exact), the steps as 0-d int32 arrays."""
+    def step(t):
+        return np.asarray(int(t), np.int32)
+    opt = state["opt"]
+    out = {"params": lm_params_to_reference(state["params"]),
+           "opt": {"m": lm_params_to_reference(opt["m"]),
+                   "v": lm_params_to_reference(opt["v"]),
+                   "step": step(opt["step"])},
+           "step": step(state["step"])}
+    if "err" in state:
+        out["err"] = lm_params_to_reference(state["err"])
+    return out

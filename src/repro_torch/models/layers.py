@@ -73,9 +73,12 @@ def dense(x, w, b=None):
 
 
 def _matmul(x, w):
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-        return torch.matmul(x.float(), w.float()).to(x.dtype)
-    return torch.matmul(x, w)
+    """x @ w in the promoted dtype of the two, as jnp promotes them (a
+    bf16 input against a float32 weight gives float32)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if x.device.type == "cpu" and dt == torch.bfloat16:
+        return torch.matmul(x.float(), w.float()).to(dt)
+    return torch.matmul(x.to(dt), w.to(dt))
 
 
 def init_dense(gen, d_in: int, d_out: int, bias: bool = False,

@@ -2,16 +2,37 @@
 `repro.models.scan_utils`.
 
 The reference nests two `lax.scan`s, the inner one rematerialized, so
-that training saves one carry per chunk.  The port serves only (LM
-training is not ported yet, ROADMAP Queue A), so `chunked_scan` is a Python
-loop over time with no remat; it keeps the reference's precondition on
-the chunk.  `pick_chunk` is the reference's exactly: `mlstm_apply` uses
-it to choose between the closed form and the recurrence, so it changes
-the numbers.
+that training saves one carry per chunk.  `chunked_scan` is a Python
+loop over time; when autograd records (grad enabled) and S is longer
+than the chunk, each chunk of steps runs under `checkpoint` (this
+module's wrapper of `torch.utils.checkpoint`, which the transformer's
+stacks and loss use too), so the backward keeps the carry at each chunk
+boundary and recomputes the steps inside, as the reference's remat
+does.  Without grad (serving) it is the plain loop.  The values are the
+same either way.  `pick_chunk` is the reference's exactly:
+`mlstm_apply` uses it to choose between the closed form and the
+recurrence, so it changes the numbers.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint as _checkpoint
+
+
+def rematerializing() -> bool:
+    """Whether a remat point recomputes in the backward: autograd is
+    recording."""
+    return torch.is_grad_enabled()
+
+
+def checkpoint(fn, *args):
+    """fn(*args) under `torch.utils.checkpoint` (non-reentrant) when
+    `rematerializing()`, else fn(*args).  The RNG state is not kept: the
+    models draw no random numbers."""
+    if not rematerializing():
+        return fn(*args)
+    return _checkpoint(fn, *args, use_reentrant=False,
+                       preserve_rng_state=False)
 
 
 def _stack(ys):
@@ -20,20 +41,37 @@ def _stack(ys):
     return torch.stack(ys)
 
 
+def _cat(parts):
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(col) for col in zip(*parts))
+    return torch.cat(parts)
+
+
+def _steps(body, carry, xs, many: bool, t0: int, t1: int):
+    ys = []
+    for t in range(t0, t1):
+        carry, y = body(carry, tuple(x[t] for x in xs) if many else xs[t])
+        ys.append(y)
+    return carry, _stack(ys)
+
+
 def chunked_scan(body, carry, xs, chunk: int = 64):
     """Like lax.scan(body, carry, xs) over the leading axis S of every
     leaf of `xs` (a tensor or a tuple of them): returns (carry, ys
     stacked on a new leading axis).  S must be at most `chunk` or
-    divisible by it, as in the reference."""
+    divisible by it, as in the reference.  With grad enabled and S >
+    chunk, every chunk is rematerialized in the backward."""
     many = isinstance(xs, tuple)
     S = (xs[0] if many else xs).shape[0]
     if S > chunk and S % chunk:
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
-    ys = []
-    for t in range(S):
-        carry, y = body(carry, tuple(x[t] for x in xs) if many else xs[t])
-        ys.append(y)
-    return carry, _stack(ys)
+    if S <= chunk or not rematerializing():
+        return _steps(body, carry, xs, many, 0, S)
+    parts = []
+    for t0 in range(0, S, chunk):
+        carry, ys = checkpoint(_steps, body, carry, xs, many, t0, t0 + chunk)
+        parts.append(ys)
+    return carry, _cat(parts)
 
 
 def pick_chunk(S: int, target: int = 64) -> int:

@@ -24,6 +24,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mamba, moe, xlstm
 from repro_torch.models.layers import init_norm, rms_norm
+from repro_torch.models.scan_utils import checkpoint
+from repro_torch.tree import leaves, unflatten
 
 MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
@@ -67,6 +69,14 @@ def _map_pair(fn, a, b):
 def _cycle(tree, ci: int):
     """Per-cycle views of a stacked [C, ...] tree."""
     return _map(lambda a: a[ci], tree)
+
+
+def _cycles(tree) -> list:
+    """Per cycle, the views of a stacked [C, ...] tree (`unbind`, so the
+    gradients of the C views are stacked once in the backward)."""
+    parts = [a.unbind(0) for a in leaves(tree)]
+    return [unflatten(tree, [p[ci] for p in parts])
+            for ci in range(len(parts[0]))]
 
 
 # ---------------------------------------------------------------------------
@@ -131,12 +141,15 @@ def block_apply(cfg, kind, p, x, *, mode, cache, pos, prefix_len):
     return x, new_cache, aux
 
 
-def _n_cycles(stack_params) -> int:
-    """The leading (cycle) length of a stacked param tree."""
-    while not isinstance(stack_params, torch.Tensor):
-        stack_params = next(iter(stack_params.values())) \
-            if isinstance(stack_params, dict) else stack_params[0]
-    return stack_params.shape[0]
+def _run_cycle(cfg, blocks, params, x, aux, mode, caches, pos,
+               prefix_len):
+    """One pattern cycle: each block in turn, its aux summed."""
+    for i, kind in enumerate(blocks):
+        x, _, a = block_apply(cfg, kind, params[i], x, mode=mode,
+                              cache=None if caches is None else caches[i],
+                              pos=pos, prefix_len=prefix_len)
+        aux = aux + a
+    return x, aux
 
 
 def run_stack(cfg, blocks, stack_params, x, *, mode, caches=None,
@@ -147,17 +160,16 @@ def run_stack(cfg, blocks, stack_params, x, *, mode, caches=None,
     stack_params: tuple (per pattern position) of param trees with a
     leading cycle axis.  caches: tuple over cycles of tuples (per
     pattern position) of cache dicts, or None; each block writes its own
-    in place.  Returns (x, caches, aux_sum).
+    in place.  In mode "train" each cycle is rematerialized in the
+    backward (`scan_utils.checkpoint`), as the reference's scan body is.
+    Returns (x, caches, aux_sum).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for ci in range(_n_cycles(stack_params)):
-        for i, kind in enumerate(blocks):
-            p = _cycle(stack_params[i], ci)
-            x, _, a = block_apply(
-                cfg, kind, p, x, mode=mode,
-                cache=None if caches is None else caches[ci][i], pos=pos,
-                prefix_len=prefix_len)
-            aux = aux + a
+    for ci, params in enumerate(_cycles(stack_params)):
+        args = (cfg, blocks, params, x, aux, mode,
+                None if caches is None else caches[ci], pos, prefix_len)
+        x, aux = checkpoint(_run_cycle, *args) if mode == "train" \
+            else _run_cycle(*args)
     return x, caches, aux
 
 
@@ -183,8 +195,22 @@ def _init_stack(gen, cfg, blocks, cycles, device):
 # ---------------------------------------------------------------------------
 # chunked LM loss (bounded memory at 256k vocab)
 # ---------------------------------------------------------------------------
+def _xent_chunk(xc, head_w, tc, mc):
+    """(sum of the masked nll, sum of the mask) over one chunk."""
+    B, c, D = xc.shape
+    xc = xc.float()
+    logits = torch.einsum("bcd,dv->bcv", xc, head_w.float())
+    m = torch.amax(logits, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    lab = torch.index_select(head_w.transpose(0, 1), 0, tc.reshape(-1))
+    lab_logit = torch.einsum("bcd,bcd->bc", xc, lab.reshape(B, c, D).float())
+    return torch.sum((lse - lab_logit) * mc), torch.sum(mc)
+
+
 def lm_loss(x, head_w, targets, mask=None, seq_chunk: int = 512):
-    """x [B,S,D], head_w [D,V], targets [B,S] -> mean xent (fp32)."""
+    """x [B,S,D], head_w [D,V], targets [B,S] -> mean xent (fp32).  Each
+    chunk of the sequence is rematerialized in the backward, so its
+    [B, chunk, V] logits are never kept."""
     B, S, D = x.shape
     c = min(seq_chunk, S)
     while S % c:
@@ -192,21 +218,13 @@ def lm_loss(x, head_w, targets, mask=None, seq_chunk: int = 512):
     targets = torch.as_tensor(targets, device=x.device)
     mask = torch.ones((B, S), dtype=torch.float32, device=x.device) \
         if mask is None else torch.as_tensor(mask, device=x.device).float()
-    wt = head_w.transpose(0, 1)                          # [V, D]
-    hw = head_w.float()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, S, c):
-        xc = x[:, s0:s0 + c].float()
-        tc, mc = targets[:, s0:s0 + c], mask[:, s0:s0 + c]
-        logits = torch.einsum("bcd,dv->bcv", xc, hw)
-        m = torch.amax(logits, dim=-1)
-        lse = m + torch.log(torch.sum(torch.exp(logits - m[..., None]),
-                                      dim=-1))
-        lab = torch.index_select(wt, 0, tc.reshape(-1)).reshape(B, c, D)
-        lab_logit = torch.einsum("bcd,bcd->bc", xc, lab.float())
-        tot = tot + torch.sum((lse - lab_logit) * mc)
-        cnt = cnt + torch.sum(mc)
+        nll, n = checkpoint(_xent_chunk, x[:, s0:s0 + c], head_w,
+                            targets[:, s0:s0 + c], mask[:, s0:s0 + c])
+        tot = tot + nll
+        cnt = cnt + n
     return tot / torch.clamp_min(cnt, 1.0)
 
 
@@ -377,6 +395,10 @@ def dec_block(cfg, p, x, enc_out, *, mode, cache=None, pos=None):
                                              cfg.norm_eps))
 
 
+def _dec_block(cfg, p, x, enc_out, mode, cache, pos):
+    return dec_block(cfg, p, x, enc_out, mode=mode, cache=cache, pos=pos)
+
+
 class EncDecLM:
     """The encoder-decoder: frame embeddings [B, S_src, D] through a
     dense frontend and bidirectional encoder blocks, then a token decoder
@@ -424,13 +446,15 @@ class EncDecLM:
         return rms_norm(x, params["enc_norm"]["scale"], cfg.norm_eps)
 
     def _dec_stack(self, params, x, enc_out, *, mode, caches=None, pos=None):
-        """The decoder's blocks over its cycles (`dec_block`)."""
-        stacked = params["dec_blocks"][0]
-        for ci in range(_n_cycles(stacked)):
-            x = dec_block(self.cfg, _cycle(stacked, ci), x, enc_out,
-                          mode=mode, pos=pos,
-                          cache=None if caches is None
-                          else _cycle(caches[0], ci))
+        """The decoder's blocks over its cycles (`dec_block`), each cycle
+        rematerialized in the backward in mode "train"."""
+        per_cycle = _cycles(params["dec_blocks"][0])
+        cache_cycles = None if caches is None else _cycles(caches[0])
+        for ci, p in enumerate(per_cycle):
+            args = (self.cfg, p, x, enc_out, mode,
+                    None if caches is None else cache_cycles[ci], pos)
+            x = checkpoint(_dec_block, *args) if mode == "train" \
+                else _dec_block(*args)
         return x, caches
 
     @layers.full_bf16_sums()

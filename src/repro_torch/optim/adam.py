@@ -17,7 +17,7 @@ from typing import Callable, Union
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves, tree_map, unflatten
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -43,9 +43,13 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
 
 
+def _clip_scale(norm, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
                     tree), norm
 
@@ -86,38 +90,80 @@ class AdamW:
         return {"m": _zeros(params), "v": _zeros(params),
                 "step": _step0(params)}
 
+    def _scalars(self, step):
+        lr = _lr(self.lr, step)
+        bc1 = 1 - self.b1 ** step.to(torch.float32)
+        bc2 = 1 - self.b2 ** step.to(torch.float32)
+        return lr, bc1, bc2
+
+    def _leaf(self, p, g, m, v, lr, bc1, bc2):
+        """One leaf's (new p, new m, new v)."""
+        b1, b2 = self.b1, self.b2
+        g = g.to(torch.float32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        mh = m / bc1
+        vh = v / bc2
+        delta = mh / (torch.sqrt(vh) + self.eps)
+        if self.weight_decay:
+            delta = delta + self.weight_decay * p.to(torch.float32)
+        new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        return new_p, m, v
+
     @torch.no_grad()
     def update(self, grads, state, params):
         """(grads, state, params) -> (params, state, {"grad_norm", "lr"})."""
         step = state["step"] + 1
         grads, gnorm = _clip_or_norm(grads, self.clip_norm)
-        b1, b2 = self.b1, self.b2
-        lr = _lr(self.lr, step)
-        bc1 = 1 - b1 ** step.to(torch.float32)
-        bc2 = 1 - b2 ** step.to(torch.float32)
+        lr, bc1, bc2 = self._scalars(step)
+        out = [self._leaf(p, g, m, v, lr, bc1, bc2) for p, g, m, v in zip(
+            leaves(params), leaves(grads), leaves(state["m"]),
+            leaves(state["v"]))]
+        new_state = {"m": _pick(params, out, 1), "v": _pick(params, out, 2),
+                     "step": step}
+        return _pick(params, out, 0), new_state, {"grad_norm": gnorm,
+                                                  "lr": lr}
 
-        def upd(p, g, m, v):
-            g = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
-            mh = m / bc1
-            vh = v / bc2
-            delta = mh / (torch.sqrt(vh) + self.eps)
-            if self.weight_decay:
-                delta = delta + self.weight_decay * p.to(torch.float32)
-            new_p = (p.to(torch.float32) - lr * delta).to(p.dtype)
-            return new_p, m, v
+    @torch.no_grad()
+    def update_(self, grads: list, state, params,
+                chunk: int = 1 << 24) -> dict:
+        """`update` in place: `grads` a flat list in `leaves(params)`
+        order, consumed (each entry set to None once applied); every
+        param, m and v is overwritten and state["step"] advanced, so no
+        second copy of the state is ever held.  The work runs `chunk`
+        elements at a time; every op is elementwise, so the bits are
+        `update`'s.  Returns {"grad_norm", "lr"}."""
+        step = state["step"] + 1
+        if self.clip_norm > 0:
+            gnorm = global_norm(grads)
+            scale = _clip_scale(gnorm, self.clip_norm)
+        else:
+            gnorm, scale = global_norm(grads), None
+        lr, bc1, bc2 = self._scalars(step)
+        for i, (p, m, v) in enumerate(zip(leaves(params), leaves(state["m"]),
+                                          leaves(state["v"]))):
+            g = grads[i]
+            grads[i] = None
+            pf, mf, vf = (t.view(-1) for t in (p, m, v))
+            gf = g.reshape(-1)
+            for s in range(0, pf.numel(), chunk):
+                sl = slice(s, s + chunk)
+                gs = gf[sl]
+                if scale is not None:
+                    gs = (gs.to(torch.float32) * scale).to(gs.dtype)
+                new_p, new_m, new_v = self._leaf(pf[sl], gs, mf[sl], vf[sl],
+                                                 lr, bc1, bc2)
+                pf[sl].copy_(new_p)
+                mf[sl].copy_(new_m)
+                vf[sl].copy_(new_v)
+        state["step"] = step
+        return {"grad_norm": gnorm, "lr": lr}
 
-        out = tree_map(upd, params, grads, state["m"], state["v"])
-        new_state = {"m": _pick(out, 1), "v": _pick(out, 2), "step": step}
-        return _pick(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
 
-
-def _pick(tree, i: int):
-    """The i-th member of every tuple leaf."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+def _pick(tree, out: list, i: int):
+    """A tree of `tree`'s structure holding the i-th member of each
+    tuple in `out` (one tuple per leaf, in leaf order)."""
+    return unflatten(tree, [o[i] for o in out])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +185,8 @@ class SGDM:
             m = self.momentum * m + g.to(torch.float32)
             return (p.to(torch.float32) - lr * m).to(p.dtype), m
 
-        out = tree_map(upd, params, grads, state["m"])
-        return _pick(out, 0), {"m": _pick(out, 1), "step": step}, \
+        out = [upd(p, g, m) for p, g, m in zip(
+            leaves(params), leaves(grads), leaves(state["m"]))]
+        return _pick(params, out, 0), {"m": _pick(params, out, 1),
+                                       "step": step}, \
             {"grad_norm": gnorm, "lr": lr}

@@ -1,21 +1,32 @@
-"""Nested dicts of tensors as trees: the port's counterpart of the few
-`jax.tree_util` calls the training code makes.
+"""Nested dicts and tuples of tensors as trees: the port's counterpart of
+the few `jax.tree_util` calls the training code makes.
 
-Leaves are visited in sorted key order, as `jax.tree_util` flattens a
-dict, and an empty dict holds no leaf; a leaf's path is its keys joined
-by "/", the form `repro.ckpt` writes into a checkpoint.
+Leaves are visited as `jax.tree_util` flattens a tree: a dict in sorted
+key order, a tuple (or list) in index order; an empty dict or tuple
+holds no leaf.  A leaf's path is its keys and indices joined by "/"
+(`params/blocks/0/attn/wq`), the form `repro.ckpt` writes into a
+checkpoint.  `tree_map` keeps tuples as tuples.
 """
 from __future__ import annotations
 
 
+def _children(tree):
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    return [(str(i), v) for i, v in enumerate(tree)]
+
+
+def is_leaf(tree) -> bool:
+    return not isinstance(tree, (dict, tuple, list))
+
+
 def leaves_with_paths(tree, prefix: str = "") -> list:
-    """[(path, leaf), ...] in sorted key order."""
-    if not isinstance(tree, dict):
+    """[(path, leaf), ...] in flattening order."""
+    if is_leaf(tree):
         return [(prefix, tree)]
     out = []
-    for k in sorted(tree):
-        out += leaves_with_paths(tree[k], f"{prefix}/{k}" if prefix
-                                 else str(k))
+    for k, sub in _children(tree):
+        out += leaves_with_paths(sub, f"{prefix}/{k}" if prefix else k)
     return out
 
 
@@ -26,10 +37,13 @@ def leaves(tree) -> list:
 def tree_map(fn, tree, *rest):
     """fn over the leaves of `tree` and the matching leaves of `rest`
     (same structure), in a tree of `tree`'s structure; leaves are
-    visited in sorted key order."""
+    visited in flattening order."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 

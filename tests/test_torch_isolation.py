@@ -86,13 +86,16 @@ def test_default_device_without_a_gpu_raises(no_gpu):
 
 def test_the_lm_entry_points_default_to_the_card(no_gpu):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, steps, train
     from repro_torch.launch.train import reduced
     from repro_torch.models.transformer import build_model
     cfg = reduced(get_config("qwen3_14b"), d_model=64)
     for call in (lambda: serve.serve(cfg, requests=1, prompt_len=4, gen=2),
                  lambda: serve.main(["--requests", "1", "--gen", "2"]),
-                 lambda: build_model(cfg).init(torch.Generator())):
+                 lambda: build_model(cfg).init(torch.Generator()),
+                 lambda: train.main(["--reduce", "--d-model", "64",
+                                     "--steps", "1"]),
+                 lambda: steps.init_train_state(cfg, torch.Generator())):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
