@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (`src/repro_torch`) on one GPU.
 
     python3 chip_smoke.py                  # every phase below
-    python3 chip_smoke.py --device-times   # phase 1 and phase 8's times
+    python3 chip_smoke.py --device-times   # phase 1, phase 8's times and
+                                           # the W8A8 faces' [device] lines
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --train-lm
                                            # phase 16 alone
     python3 chip_smoke.py --forward-pairs PARENT_TREE
@@ -182,9 +183,12 @@ Phases, each raising on failure:
    6144), (5120, 1024), (6144, 5120), (5120, 17408), (17408, 5120),
    (5120, 152064); gemma3_12b: d 3840, lm_head N 262144; stablelm_3b: d
    2560, d_ff 6912, vocab 50432 padded), for M = 8 (a decode step) and
-   512 (a prefill of 8 x 64), a ragged (7, 100, 33) on mma.sync and a
-   split-K (4, 2048, 8), one `[lm]` line each with its configs, route,
-   tile and split; qwen3_14b at full width and
+   512 (a prefill of 8 x 64), a ragged (7, 100, 33) on mma.sync, a
+   (4, 2048, 8) of one tile cut between blocks, and M = 1, 8, 16, 64 and
+   65 at qwen3_14b's (17408, 5120) (both sides of the small-M switch to
+   the stream-K schedule), W stored K-major as the port's W8A8 leaf
+   holds it, one `[lm]` line each with its configs, route, tile and
+   schedule; qwen3_14b at full width and
    depth (40 layers, 15.19 B parameters) serving 8 requests x 64 prompt
    tokens for 32 greedy tokens, float then W8A8, finite logits required,
    `w8a8_dense` counted from 0 just before the W8A8 run and required to
@@ -192,7 +196,9 @@ Phases, each raising on failure:
    lm_head, per forward, 1 prefill + 31 decode steps), the float run's
    decode after prefill(64) held against prefill(65) within the CPU
    tests' atol 0.15 + rtol 0.05, and the share of greedy tokens W8A8
-   and float agree on printed; gemma3_12b at full width, one pattern
+   and float agree on printed; every W8A8 run of phases 12-15 must
+   launch no `transpose_kn` (counted before and after it: W is stored
+   K-major); gemma3_12b at full width, one pattern
    cycle (5 SWA + 1 global layer, its SWA caches a ring of 512 slots),
    float (consistency gated) and W8A8 (printed); paligemma_3b at full
    width and depth with its 256 zero image embeds, float, its
@@ -209,7 +215,9 @@ Phases, each raising on failure:
    parameter MiB and peak device GiB of each run beside the card's name
    and power limit, and `[time]`/`[device]` lines `w8a8_dense` at (8,
    17408, 5120) and (512, 5120, 17408) beside its plain version, its
-   bound and `torch._int_mm`.
+   bound, its share of the bound and `torch._int_mm`, and a `[library]`
+   line of each shape's plan (on the stream-K schedule, the blocks'
+   shares of iterations and of W's bytes, and their spread).
 13. (run after phase 12, before phase 9) the MoE FFN,
    `repro_torch.models.moe` with `lm_quant.q_einsum` on `w8a8_bmm`, the
    batched face of `w8a8_dense`, with every earlier phase's tensors
@@ -240,8 +248,9 @@ Phases, each raising on failure:
    parameter MiB, peak device GiB and the assignments each layer drops
    at a prefill, beside the card's name and power limit; `[time]` and
    `[device]` lines `w8a8_bmm` at (16, 4, 4096, 6400) and (16, 96, 4096,
-   6400) beside its plain version, its bound and (at the second) 16
-   calls of `torch._int_mm`.
+   6400) beside its plain version, its bound, its share of the bound and
+   (at the second) 16 calls of `torch._int_mm`, and their `[library]`
+   plan lines.
 14. (run after phase 13, before phase 9) the SSM and hybrid LMs,
    `repro_torch.models.{mamba,xlstm}` (plain torch: the recurrences are
    Python loops over time, as the reference's are `lax.scan`s, not
@@ -1846,7 +1855,10 @@ QWEN_DENSE_KN = ((5120, 1024), (5120, 6144), (5120, 17408), (5120, 152064),
                  (6144, 5120), (17408, 5120))
 LM_DENSE_M = (8, 512)                  # a decode step, a prefill (8 x 64)
 LM_RAGGED = (7, 100, 33)               # K % 16 != 0: the mma.sync loop
-LM_SPLIT = (4, 2048, 8)                # one output tile: split K
+LM_SPLIT = (4, 2048, 8)                # one output tile, K cut between blocks
+# M on both sides of gemm_plan's small-M switch (SMALL_M = 64), at
+# qwen3_14b's down projection (K, N)
+LM_SWEEP_M, LM_SWEEP_KN = (1, 8, 16, 64, 65), (17408, 5120)
 LM_REQUESTS, LM_PROMPT, LM_GEN = 8, 64, 32
 # the timed shapes of the JSON record: a decode step's down projection
 # (the headline) and a prefill's gate/up projection
@@ -1888,14 +1900,54 @@ def dense_bound(M: int, K: int, N: int):
 
 
 def dense_operands(M: int, K: int, N: int, g, dev):
-    """Random int8 operands and exponents, drawn on the card from `g`."""
+    """Random int8 operands and exponents, drawn on the card from `g`: xq
+    [M, K] and W stored K-major as the W8A8 leaf holds it, wt [N, K]."""
     import torch
     z = dict(generator=g, device=dev)
     xq = torch.randint(-128, 128, (M, K), dtype=torch.int8, **z)
-    wq = torch.randint(-128, 128, (K, N), dtype=torch.int8, **z)
+    wt = torch.randint(-128, 128, (N, K), dtype=torch.int8, **z)
     xe = torch.randint(-24, 25, (), **z).float()
     n = torch.randint(-24, 25, (N,), dtype=torch.int32, **z)
-    return xq, wq, xe, n
+    return xq, wt, xe, n
+
+
+def tree_w(wt):
+    """W as this tree's w8a8_dense takes it: K-major wt [..., N, K] where
+    its weight argument is `wt`, else (a tree from before W was stored
+    K-major, timed by `--device-times`) W [..., K, N]."""
+    import inspect
+    from repro_torch.kernels import w8a8_dense as kd
+    if "wt" in inspect.signature(kd.w8a8_dense).parameters:
+        return wt
+    return wt.transpose(-1, -2).contiguous()
+
+
+def plan_line(what: str, shape, xq, wt) -> str:
+    """The `[library]` line of a W8A8 call's plan; on the stream-K
+    schedule, each block's share of the (tile, K block) iterations and of
+    W's bytes (a K block of a tile: 128 x 128 bytes of W, fewer on a
+    ragged edge), the least and the most, and their spread."""
+    from repro_torch.kernels import q7_matmul as kq
+    plan = kq.plan_for(xq, wt, b_kmajor=True)
+    line = (f"[library] {what} {tuple(shape)}: route {plan.route}, tile "
+            f"{plan.tile}, schedule {plan.schedule}")
+    if plan.schedule != "stream-k":
+        return line + f", split {plan.split}"
+    M, K = xq.shape[-2:]
+    N, batch = wt.shape[-2], xq.numel() // (M * K)
+    kb, n_tiles = -(-K // kq.K_BLOCK), -(-N // 128)
+    iters = kq.streamk_iterations(M, K, N, batch)
+
+    def w_bytes(i):
+        nt, k = (i // kb) % n_tiles, i % kb
+        return min(128, N - 128 * nt) * min(kq.K_BLOCK, K - kq.K_BLOCK * k)
+    shares = kq.streamk_shares(iters, plan.ctas)
+    sizes = [e - b for b, e in shares]
+    loads = [sum(map(w_bytes, range(b, e))) for b, e in shares]
+    return (line + f" on {plan.ctas} blocks: {min(sizes)}-{max(sizes)} "
+            f"(tile, K block) iterations a block of {iters}, W bytes a block "
+            f"{min(loads):,}-{max(loads):,} (spread "
+            f"{(max(loads) - min(loads)) / min(loads):.2%})")
 
 
 def dense_kn(cfg) -> list:
@@ -1911,8 +1963,8 @@ def dense_kn(cfg) -> list:
     out = set()
 
     def walk(t):
-        if is_qweight(t):
-            out.add(tuple(t["q"].shape[-2:]))
+        if is_qweight(t):             # qt [..., N, K]: W stored K-major
+            out.add(tuple(t["qt"].shape[-1:-3:-1]))
         elif isinstance(t, dict):
             for v in t.values():
                 walk(v)
@@ -1926,8 +1978,10 @@ def dense_kn(cfg) -> list:
 def check_dense(dev, cfgs, tag: str = "[lm]") -> float:
     """w8a8_dense against its plain version on the card, bit for bit, at
     every product of the W8A8 configs `cfgs` (those a phase serves; M 8
-    and 512: a decode step and a prefill of 8 x 64), a ragged shape and
-    a split-K one; returns the largest |difference| (0)."""
+    and 512: a decode step and a prefill of 8 x 64), a ragged shape, a
+    one-tile shape whose K is cut between blocks, and M across the
+    small-M switch at one qwen3_14b product, W stored K-major; returns
+    the largest |difference| (0)."""
     import torch
     from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import w8a8_dense as kd
@@ -1941,22 +1995,24 @@ def check_dense(dev, cfgs, tag: str = "[lm]") -> float:
     g = torch.Generator(dev).manual_seed(SEED + 12)
     cases = [(M, K, N, "/".join(names)) for (K, N), names in users.items()
              for M in LM_DENSE_M]
-    cases += [(*LM_RAGGED, "ragged"), (*LM_SPLIT, "split K")]
+    cases += [(*LM_RAGGED, "ragged"), (*LM_SPLIT, "one tile, K cut")]
+    cases += [(M, *LM_SWEEP_KN, "small-M switch") for M in LM_SWEEP_M]
     worst = 0.0
     for M, K, N, who in cases:
-        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
-        plan = kq.plan_for(xq, wq)
-        got = kd.w8a8_dense(xq, wq, xe, n)
-        want = kd.w8a8_dense_plain(xq, wq, xe, n)
+        xq, wt, xe, n = dense_operands(M, K, N, g, dev)
+        plan = kq.plan_for(xq, wt, b_kmajor=True)
+        got = kd.w8a8_dense(xq, wt, xe, n)
+        want = kd.w8a8_dense_plain(xq, wt, xe, n)
         torch.cuda.synchronize()
         if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
             raise AssertionError(f"w8a8_dense {(M, K, N)} ({plan}) differs "
                                  "from its plain version")
         worst = max(worst, float((got.float() - want.float()).abs().max()))
         log(f"{tag} w8a8_dense {(M, K, N)} ({who}): route {plan.route}, "
-            f"tile {plan.tile}, split {plan.split}: bit-exact against the "
+            f"tile {plan.tile}, {plan.schedule}, split {plan.split}, "
+            f"blocks {plan.ctas or 'a tile each'}: bit-exact against the "
             f"plain version (bf16 out)")
-        del xq, wq, got, want
+        del xq, wt, got, want
     if not {"wgmma", "mma.sync"} <= {
             r for r, c in kd.w8a8_dense.launches_by_route.items() if c}:
         raise AssertionError(f"w8a8_dense left a route unused: "
@@ -2148,19 +2204,25 @@ def serve_lm(cfg, dev, card: str, quant: str, consist: str,
     Returns the tokens, the numbers and the serve call's w8a8_dense and
     w8a8_bmm launches, with the model and params dropped."""
     import torch
+    from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import w8a8_dense as kd
     from repro_torch.launch.serve import serve
     torch.cuda.reset_peak_memory_stats()
     n0, b0 = kd.w8a8_dense.launches, kd.w8a8_bmm.launches
+    t0 = kq.transpose_kn.launches
     res = serve(cfg, LM_REQUESTS, LM_PROMPT, LM_GEN, quant, dev, seed=SEED,
                 log=lambda *a: log(tag, *a))
     launches = kd.w8a8_dense.launches - n0
     bmm_launches = kd.w8a8_bmm.launches - b0
+    transposes = kq.transpose_kn.launches - t0
     if not torch.isfinite(res["logits"].float()).all():
         raise AssertionError(f"{cfg.name} {quant}: non-finite logits")
+    if transposes:
+        raise AssertionError(f"{cfg.name} {quant}: transpose_kn launched "
+                             f"{transposes} times (W is stored K-major)")
     steps = LM_GEN - 1
     out = dict(tokens=res["tokens"], launches=launches,
-               bmm_launches=bmm_launches,
+               bmm_launches=bmm_launches, transposes=transposes,
                prefill_ms=res["prefill_s"] * 1e3,
                decode_ms_step=res["decode_s"] * 1e3 / steps,
                tok_per_s=res["tok_per_s"],
@@ -2178,7 +2240,8 @@ def serve_lm(cfg, dev, card: str, quant: str, consist: str,
         f"{out['warm_decode_ms_step']:.3f} ms a step "
         f"({out['warm_tok_per_s']:.1f} tok/s); params "
         f"{out['param_mib']:.1f} MiB, peak {out['peak_gib']:.2f} GiB, "
-        f"w8a8_dense launches {launches}"
+        f"w8a8_dense launches {launches}, transpose_kn launches "
+        f"{transposes}"
         + (f", w8a8_bmm launches {bmm_launches}" if cfg.num_experts else ""))
     if cfg.num_experts:
         out["dropped"] = prefill_drops(res, cfg)
@@ -2318,14 +2381,15 @@ def time_dense(dev, card: str) -> dict:
     g = torch.Generator(dev).manual_seed(SEED + 13)
     rows = []
     for M, K, N in LM_TIMED:
-        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
+        xq, wt, xe, n = dense_operands(M, K, N, g, dev)
         bound, by = dense_bound(M, K, N)
+        log(f"{plan_line('w8a8_dense', (M, K, N), xq, wt)} | {card}")
         rows.append(dict(
-            shape=[M, K, N], ms=cuda_ms(lambda: kd.w8a8_dense(xq, wq, xe, n)),
-            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wq, xe, n),
+            shape=[M, K, N], ms=cuda_ms(lambda: kd.w8a8_dense(xq, wt, xe, n)),
+            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wt, xe, n),
                              iters=5),
-            bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms(xq, wq),
-            plan=str(tuple(kq.plan_for(xq, wq)))))
+            bound_ms=bound, bound_by=by, int_mm_ms=int_mm_ms(xq, wt.t()),
+            plan=str(tuple(kq.plan_for(xq, wt, b_kmajor=True)))))
         yard = "n/a (M <= 16)" if rows[-1]["int_mm_ms"] is None \
             else f"{rows[-1]['int_mm_ms']:.4f} ms"
         log(f"[time] {card} | w8a8_dense {[M, K, N]} ({rows[-1]['plan']}): "
@@ -2335,25 +2399,33 @@ def time_dense(dev, card: str) -> dict:
     return dict(rows[0], shapes=rows)
 
 
+def kernel_parts(parts: dict) -> str:
+    return ", ".join(f"{k.split('(')[0].split('<')[0].split('::')[-1]}"
+                     f" {v:.5f}" for k, v in parts.items())
+
+
 def dense_device_times(dev, card: str, rows: list) -> None:
-    """Profiler device time of w8a8_dense at each LM_TIMED shape, summed
-    over every kernel of the call (the transpose of W, the product, a
-    split-K reduction), into `rows`."""
+    """Profiler device time of w8a8_dense at each row's shape, summed
+    over every kernel of the call (the product, and a split-K reduction
+    or the stream-K schedule's zeroed counts; a tree from before W was
+    stored K-major also its transpose), into `rows`, beside the bound and
+    the share of it the call reaches."""
     import torch
     from repro_torch.kernels import w8a8_dense as kd
     g = torch.Generator(dev).manual_seed(SEED + 13)
     for row in rows:
         M, K, N = row["shape"]
-        xq, wq, xe, n = dense_operands(M, K, N, g, dev)
+        xq, wt, xe, n = dense_operands(M, K, N, g, dev)
+        w = tree_w(wt)
         parts = {}
-        row["device_ms"] = device_ms(lambda: kd.w8a8_dense(xq, wq, xe, n),
+        row["device_ms"] = device_ms(lambda: kd.w8a8_dense(xq, w, xe, n),
                                      None, calls=20, parts=parts)
-        row["int_mm_device_ms"] = int_mm_device_ms(xq, wq)
-        split = ", ".join(f"{k.split('(')[0].split('<')[0].split('::')[-1]}"
-                          f" {v:.5f}" for k, v in parts.items())
+        row["int_mm_device_ms"] = int_mm_device_ms(xq, wt.t())
         log(f"[device] {card} | w8a8_dense {row['shape']}: "
-            f"{row['device_ms']:.5f} ms, every kernel of the call ({split}); "
-            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+            f"{row['device_ms']:.5f} ms, every kernel of the call "
+            f"({kernel_parts(parts)}); bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.1%}"
+            f" of it")
 
 
 # ---------------------------------------------------------------------------
@@ -2362,7 +2434,8 @@ def dense_device_times(dev, card: str, rows: list) -> None:
 # depth cuts: phi35_moe's bf16 tree is 83.6 GB at its 32 layers, over the
 # card's 80 GB; mixtral_8x22b holds ~5 GB of bf16 a layer
 MOE_LAYERS = {"phi35_moe": 16, "mixtral_8x22b": 4}
-# (E, M, K, N): K % 16 != 0, the mma.sync loop; one tile an expert, split K
+# (E, M, K, N): K % 16 != 0, the mma.sync loop; one tile an expert, its K
+# cut between blocks
 MOE_RAGGED = (3, 7, 100, 33)
 MOE_SPLIT = (4, 4, 2048, 8)
 # M of the expert products: C at a decode step of 8 rows (one group), and
@@ -2396,7 +2469,7 @@ def expert_ekn(cfg) -> list:
     cycle = dataclasses.replace(cfg, num_layers=len(cfg.blocks))
     tree = quantize_lm_params(build_model(cycle).init(torch.Generator(),
                                                       "meta"))
-    return sorted({tuple(b["moe"][k]["q"].shape[-3:])
+    return sorted({tuple(b["moe"][k]["qt"].shape[i] for i in (-3, -1, -2))
                    for b in tree["blocks"] if "moe" in b
                    for k in ("w_gate", "w_up", "w_down")})
 
@@ -2412,15 +2485,15 @@ def bmm_bound(E: int, M: int, K: int, N: int):
 
 
 def bmm_operands(E: int, M: int, K: int, N: int, g, dev):
-    """Random int8 operands and exponents on the card from `g`, every
-    expert's n its own draw."""
+    """Random int8 operands and exponents on the card from `g`, W stored
+    K-major (wt [E, N, K]), every expert's n its own draw."""
     import torch
     z = dict(generator=g, device=dev)
     xq = torch.randint(-128, 128, (E, M, K), dtype=torch.int8, **z)
-    wq = torch.randint(-128, 128, (E, K, N), dtype=torch.int8, **z)
+    wt = torch.randint(-128, 128, (E, N, K), dtype=torch.int8, **z)
     xe = torch.randint(-24, 25, (), **z).float()
     n = torch.randint(-24, 25, (E, N), dtype=torch.int32, **z)
-    return xq, wq, xe, n
+    return xq, wt, xe, n
 
 
 def check_bmm(dev, cfgs, tag: str = "[moe]") -> float:
@@ -2451,21 +2524,21 @@ def check_bmm(dev, cfgs, tag: str = "[moe]") -> float:
     cases += [(*MOE_RAGGED, "ragged"), (*MOE_SPLIT, "split K")]
     worst = 0.0
     for E, M, K, N, who in cases:
-        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
-        want = kd.w8a8_dense_plain(xq, wq, xe, n)
-        if torch.equal(want, kd.w8a8_dense_plain(xq, wq, xe,
+        xq, wt, xe, n = bmm_operands(E, M, K, N, g, dev)
+        want = kd.w8a8_dense_plain(xq, wt, xe, n)
+        if torch.equal(want, kd.w8a8_dense_plain(xq, wt, xe,
                                                  n[:1].expand(E, N))):
             raise AssertionError(f"{(E, M, K, N)}: the experts' exponents "
                                  "do not tell them apart")
-        plan = kq.plan_for(xq, wq)
+        plan = kq.plan_for(xq, wt, b_kmajor=True)
         other = kq.GemmPlan("mma.sync", (kq.TILE_M, 128), 1) \
             if plan.route == "wgmma" else None
         if other is None and K % 16 == 0:
             other = kq.gemm_plan(M, K, N, E, 0)
-        runs = [("planned", plan, kd.w8a8_bmm(xq, wq, xe, n))]
+        runs = [("planned", plan, kd.w8a8_bmm(xq, wt, xe, n))]
         if other is not None:
             runs.append(("forced", other,
-                         kd._launch(xq, wq, xe, n, torch.bfloat16,
+                         kd._launch(xq, wt, xe, n, torch.bfloat16,
                                     other)[0]))
         torch.cuda.synchronize()
         for what, p, got in runs:
@@ -2475,11 +2548,12 @@ def check_bmm(dev, cfgs, tag: str = "[moe]") -> float:
             worst = max(worst, float((got.float() - want.float()).abs()
                                      .max()))
         log(f"{tag} w8a8_bmm {(E, M, K, N)} ({who}): "
-            + "; ".join(f"{what} route {p.route}, tile {p.tile}, split "
-                        f"{p.split}" for what, p, _ in runs)
+            + "; ".join(f"{what} route {p.route}, tile {p.tile}, "
+                        f"{p.schedule}, split {p.split}, blocks "
+                        f"{p.ctas or 'a tile each'}" for what, p, _ in runs)
             + ": bit-exact against the plain version (bf16 out), per-expert "
             "exponents")
-        del xq, wq, want, runs
+        del xq, wt, want, runs
     if not {"wgmma", "mma.sync"} <= {
             r for r, c in kd.w8a8_bmm.launches_by_route.items() if c}:
         raise AssertionError(f"w8a8_bmm left a route unused: "
@@ -3187,53 +3261,72 @@ def time_bmm(dev, card: str) -> dict:
     g = torch.Generator(dev).manual_seed(SEED + 21)
     rows = []
     for E, M, K, N in MOE_TIMED:
-        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
+        xq, wt, xe, n = bmm_operands(E, M, K, N, g, dev)
         bound, by = bmm_bound(E, M, K, N)
+        log(f"{plan_line('w8a8_bmm', (E, M, K, N), xq, wt)} | {card}")
         yard = None if M <= 16 else cuda_ms(
-            lambda: [torch._int_mm(xq[e], wq[e]) for e in range(E)])
+            lambda: [torch._int_mm(xq[e], wt[e].t()) for e in range(E)])
         rows.append(dict(
-            shape=[E, M, K, N], ms=cuda_ms(lambda: kd.w8a8_bmm(xq, wq, xe,
+            shape=[E, M, K, N], ms=cuda_ms(lambda: kd.w8a8_bmm(xq, wt, xe,
                                                                 n)),
-            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wq, xe, n),
+            plain_ms=cuda_ms(lambda: kd.w8a8_dense_plain(xq, wt, xe, n),
                              iters=5),
             bound_ms=bound, bound_by=by, int_mm_ms=yard,
-            plan=str(tuple(kq.plan_for(xq, wq)))))
+            plan=str(tuple(kq.plan_for(xq, wt, b_kmajor=True)))))
         yard = "n/a (M <= 16)" if yard is None \
             else f"{yard:.4f} ms ({E} calls)"
         log(f"[time] {card} | w8a8_bmm {[E, M, K, N]} ({rows[-1]['plan']}): "
             f"kernel {rows[-1]['ms']:.4f} ms, plain "
             f"{rows[-1]['plain_ms']:.4f} ms, bound {bound:.6f} ms ({by}), "
             f"torch._int_mm yardstick {yard}")
-        del xq, wq
+        del xq, wt
     return dict(rows[0], shapes=rows)
 
 
 def bmm_device_times(dev, card: str, rows: list) -> None:
-    """Profiler device time of w8a8_bmm at each MOE_TIMED shape, summed
-    over every kernel of the call (the transpose of every expert's W, the
-    product, a split-K reduction), and of the E torch._int_mm calls, into
-    `rows`."""
+    """Profiler device time of w8a8_bmm at each row's shape, summed over
+    every kernel of the call (the product, and a split-K reduction or the
+    stream-K schedule's zeroed counts; a tree from before W was stored
+    K-major also the transpose of every expert's W), and of the E
+    torch._int_mm calls, into `rows`, beside the bound and the share of
+    it the call reaches."""
     import torch
     from repro_torch.kernels import w8a8_dense as kd
     g = torch.Generator(dev).manual_seed(SEED + 21)
     for row in rows:
         E, M, K, N = row["shape"]
-        xq, wq, xe, n = bmm_operands(E, M, K, N, g, dev)
+        xq, wt, xe, n = bmm_operands(E, M, K, N, g, dev)
+        w = tree_w(wt)
         parts = {}
-        row["device_ms"] = device_ms(lambda: kd.w8a8_bmm(xq, wq, xe, n),
+        row["device_ms"] = device_ms(lambda: kd.w8a8_bmm(xq, w, xe, n),
                                      None, calls=20, parts=parts)
         row["int_mm_device_ms"] = None if M <= 16 else device_ms(
-            lambda: [torch._int_mm(xq[e], wq[e]) for e in range(E)], None,
-            calls=20)
-        split = ", ".join(f"{k.split('(')[0].split('<')[0].split('::')[-1]}"
-                          f" {v:.5f}" for k, v in parts.items())
+            lambda: [torch._int_mm(xq[e], wt[e].t()) for e in range(E)],
+            None, calls=20)
         yard = "n/a" if row["int_mm_device_ms"] is None \
             else f"{row['int_mm_device_ms']:.5f} ms"
         log(f"[device] {card} | w8a8_bmm {row['shape']}: "
-            f"{row['device_ms']:.5f} ms, every kernel of the call ({split}); "
-            f"bound {row['bound_ms']:.6f} ms ({row['bound_by']}); "
-            f"{E} torch._int_mm calls {yard}")
-        del xq, wq
+            f"{row['device_ms']:.5f} ms, every kernel of the call "
+            f"({kernel_parts(parts)}); bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['device_ms']:.1%}"
+            f" of it; {E} torch._int_mm calls {yard}")
+        del xq, wt, w
+
+
+def w8a8_device_times(dev, card: str) -> dict:
+    """`--device-times`'s W8A8 rows: both faces' device ms at the timed
+    shapes (LM_TIMED, MOE_TIMED) and w8a8_dense's across the small-M
+    switch (LM_SWEEP_M at LM_SWEEP_KN), each beside its bound."""
+    dense = [dict(shape=list(s), **dict(zip(("bound_ms", "bound_by"),
+                                            dense_bound(*s))))
+             for s in LM_TIMED + tuple((M, *LM_SWEEP_KN)
+                                       for M in LM_SWEEP_M)]
+    bmm = [dict(shape=list(s), **dict(zip(("bound_ms", "bound_by"),
+                                          bmm_bound(*s))))
+           for s in MOE_TIMED]
+    dense_device_times(dev, card, dense)
+    bmm_device_times(dev, card, bmm)
+    return {"w8a8_dense": dense, "w8a8_bmm": bmm}
 
 
 # ---------------------------------------------------------------------------
@@ -3389,12 +3482,13 @@ def within(what: str, got, want, rtol: float, atol: float) -> float:
 
 
 def gemm_route(a, b) -> str:
-    """The route, tile and split that gemm_plan picks for these operands,
-    as one line's words."""
+    """The route, tile, split and schedule that gemm_plan picks for these
+    operands, as one line's words."""
     from repro_torch.kernels import q7_matmul as kq
     plan = kq.plan_for(a.contiguous(), b.contiguous())
     return f"route {plan.route} tile {plan.tile[0]}x{plan.tile[1]} " \
-        f"split {plan.split}"
+        f"split {plan.split} {plan.schedule}" \
+        + (f" on {plan.ctas} blocks" if plan.ctas else "")
 
 
 def counted_route(fn, route: str, call):
@@ -3667,9 +3761,7 @@ def log_device_times(card: str, dt: dict) -> None:
                 bound, by = gemm_bound(*dims, extra)
             yard = dt["int_mm"].get(key)
             yard = "n/a" if yard is None else f"{yard:.5f} ms"
-            split = ", ".join(
-                f"{k.split('(')[0].split('<')[0].split('::')[-1]} "
-                f"{v:.5f}" for k, v in dt["parts"][f"{name} {key}"].items())
+            split = kernel_parts(dt["parts"][f"{name} {key}"])
             log(f"[device] {card} | {name} {key}: {ms:.5f} ms, every kernel "
                 f"of the call ({split}); bound {bound:.6f} ms ({by}); "
                 f"torch._int_mm yardstick {yard}")
@@ -3751,6 +3843,7 @@ def main(argv=None) -> int:
     if argv == ["--device-times"]:
         dt = device_times(dev)
         log_device_times(card, dt)
+        dt.update(w8a8_device_times(dev, card))
         log(card)
         log(json.dumps({"device_times": dt}))
         return 0

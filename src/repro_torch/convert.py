@@ -86,10 +86,15 @@ def lm_params_from_reference(np_tree, device=None):
     """A reference LM param tree (nested dicts and tuples of NumPy
     leaves: stacked [C, ...] block leaves, {"q","n"} W8A8 leaves) -> the
     port's, leaf for leaf: bfloat16, float32, int8 and int32 kept as they
-    are, on `device`."""
+    are, on `device`; a W8A8 leaf's q [..., K, N] becomes the port's
+    K-major qt [..., N, K] (`quant.lm_quant`)."""
     device = resolve_device(device)
 
     def conv(tree):
+        if isinstance(tree, dict) and set(tree) == {"q", "n"}:
+            qt = np.ascontiguousarray(np.swapaxes(np.asarray(tree["q"]),
+                                                  -1, -2))
+            return {"qt": _lm_leaf_from(qt, device), "n": conv(tree["n"])}
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
         if isinstance(tree, (tuple, list)):
@@ -101,7 +106,12 @@ def lm_params_from_reference(np_tree, device=None):
 def lm_params_to_reference(tree):
     """The port's LM param tree -> NumPy leaves in the reference's
     structure; bfloat16 leaves come back as float32 (exact), the rest in
-    their own dtype, for the reference to cast to its leaf's dtype."""
+    their own dtype, for the reference to cast to its leaf's dtype; a
+    W8A8 leaf's qt [..., N, K] as the reference's q [..., K, N]."""
+    if isinstance(tree, dict) and set(tree) == {"qt", "n"}:
+        return {"q": np.ascontiguousarray(np.swapaxes(
+            lm_params_to_reference(tree["qt"]), -1, -2)),
+            "n": lm_params_to_reference(tree["n"])}
     if isinstance(tree, dict):
         return {k: lm_params_to_reference(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):

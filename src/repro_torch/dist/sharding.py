@@ -30,8 +30,18 @@ def _leaf_spec(leaf) -> tuple:
 
 
 def param_specs(tree):
-    """One spec per parameter leaf (ndim-matched, see policy)."""
-    return tree_map(_leaf_spec, tree)
+    """One spec per parameter leaf (ndim-matched, see policy).  A W8A8
+    leaf {"qt", "n"} stores W K-major ([..., N, K]), so its qt shards
+    the same output axis as the reference's q [..., K, N]."""
+    if isinstance(tree, dict) and set(tree) == {"qt", "n"}:
+        spec = _leaf_spec(tree["qt"].transpose(-1, -2))   # q's spec
+        return {"n": _leaf_spec(tree["n"]),
+                "qt": spec and spec[:-2] + (spec[-1], spec[-2])}
+    if isinstance(tree, dict):
+        return {k: param_specs(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return tuple(param_specs(v) for v in tree)
+    return _leaf_spec(tree)
 
 
 def _structure(tree):

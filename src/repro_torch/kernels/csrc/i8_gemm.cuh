@@ -4,10 +4,11 @@
 // type `Epi::Out` (int8 for the shift epilogues, bfloat16 or float32 for
 // w8a8_dense's dequantization).
 //
-// A is row-major [M, K], B row-major [K, N], C row-major [M, N] Epi::Out,
-// with an optional batch on gridDim.z (one [M,K] x [K,N] product per z,
-// operands packed back to back).  Each block computes one kBM x kBN
-// output tile; the K loop runs inside the block.
+// A is row-major [M, K], B row-major [K, N] or, with the template flag
+// kBKMajor, stored K-major as Bt [N, K] (w8a8_dense's weights), C
+// row-major [M, N] Epi::Out, with an optional batch on gridDim.z (one
+// product per z, operands packed back to back).  Each block computes one
+// kBM x kBN output tile; the K loop runs inside the block.
 //
 // This loop keeps the shapes TMA cannot describe (K % 16 != 0, an
 // operand not 16-byte aligned): kernels/q7_matmul.py::gemm_plan sends
@@ -23,9 +24,10 @@
 //     .s32` WITHOUT `.satfinite`: XLA's int32 dot wraps on overflow, and
 //     so does this sum (integer adds are exact modulo 2^32, so the order
 //     of the K sum cannot change the result).
-//   * Per K step of kBK = 64, the A tile [kBM][kBK] and the B tile,
-//     transposed to [kBN][kBK] so that each thread's fragment is 4
-//     consecutive k bytes, are staged in shared memory.  Rows are padded
+//   * Per K step of kBK = 64, the A tile [kBM][kBK] and the B tile as
+//     [kBN][kBK], so that each thread's fragment is 4 consecutive k
+//     bytes, are staged in shared memory (a row-major B transposed on its
+//     way in, a K-major one copied 16 bytes at a time).  Rows are padded
 //     to kLd = 80 bytes (20 words): the 8 rows x 4 words a fragment load
 //     touches fall in 32 distinct banks.
 //   * The block masks ragged edges itself: out-of-range A/B bytes are
@@ -89,13 +91,13 @@ __device__ __forceinline__ uint4 load16(const int8_t* __restrict__ p,
 // `apply(acc, col, tile)` maps one accumulator of output column n0 + col
 // to its output value (converted to Epi::Out by the store).
 
-template <class Epi>
+template <class Epi, bool kBKMajor>
 __global__ void __launch_bounds__(kThreads, 2)
     gemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                 typename Epi::Out* __restrict__ C, int M, int N, int K,
                 bool vec_a, bool vec_b, Epi epi) {
   __shared__ __align__(16) int8_t As[kBM * kLd];
-  __shared__ __align__(16) int8_t Bs[kBN * kLd];   // transposed: [n][k]
+  __shared__ __align__(16) int8_t Bs[kBN * kLd];   // [n][k]
   __shared__ int32_t epi_tile[kBN];
 
   const int64_t z = blockIdx.z;
@@ -128,17 +130,24 @@ __global__ void __launch_bounds__(kThreads, 2)
       const uint4 v = load16(A, m0 + r, M, k0 + kk, K, K, vec_a);
       *reinterpret_cast<uint4*>(&As[r * kLd + kk]) = v;
     }
-    // B tile: kBK rows x kBN bytes, stored transposed
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int chunk = tid + c * kThreads;
-      const int kr = chunk / (kBN / 16), nn = (chunk % (kBN / 16)) * 16;
-      const uint4 v = load16(B, k0 + kr, K, n0 + nn, N, N, vec_b);
-      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      if constexpr (kBKMajor) {
+        // B tile: kBN rows of Bt x kBK bytes, copied as they are
+        const int r = chunk / (kBK / 16), kk = (chunk % (kBK / 16)) * 16;
+        const uint4 v = load16(B, n0 + r, N, k0 + kk, K, K, vec_b);
+        *reinterpret_cast<uint4*>(&Bs[r * kLd + kk]) = v;
+      } else {
+        // B tile: kBK rows x kBN bytes, stored transposed
+        const int kr = chunk / (kBN / 16), nn = (chunk % (kBN / 16)) * 16;
+        const uint4 v = load16(B, k0 + kr, K, n0 + nn, N, N, vec_b);
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        Bs[(nn + j) * kLd + kr] =
-            static_cast<int8_t>((w[j / 4] >> (8 * (j % 4))) & 0xffu);
+        for (int j = 0; j < 16; ++j)
+          Bs[(nn + j) * kLd + kr] =
+              static_cast<int8_t>((w[j / 4] >> (8 * (j % 4))) & 0xffu);
+      }
     }
     __syncthreads();
 
@@ -184,9 +193,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
 }
 
-// Launch one product per batch entry (gridDim.z); returns
-// cudaGetLastError() after the launch.
-template <class Epi>
+// Launch one product per batch entry (gridDim.z), B row-major [K, N] or
+// with kBKMajor K-major [N, K]; returns cudaGetLastError() after the
+// launch.
+template <class Epi, bool kBKMajor = false>
 int launch(const void* a, const void* b, void* c, int batch, int M, int N,
            int K, Epi epi, void* stream) {
   if (batch <= 0 || M <= 0 || N <= 0) return static_cast<int>(cudaSuccess);
@@ -194,9 +204,10 @@ int launch(const void* a, const void* b, void* c, int batch, int M, int N,
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   const bool vec_a = K % 16 == 0 && aligned(a);
-  const bool vec_b = N % 16 == 0 && aligned(b);
+  const bool vec_b = (kBKMajor ? K : N) % 16 == 0 && aligned(b);
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
-  gemm_kernel<Epi><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gemm_kernel<Epi, kBKMajor>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
       static_cast<typename Epi::Out*>(c), M, N, K, vec_a, vec_b, epi);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,5 @@
-// Hopper int8 x int8 -> int32 GEMM main loop: wgmma fed by a TMA ring,
-// split K for thin products.  Shared by q7_matmul.cu, w8a8_matmul.cu and
+// Hopper int8 x int8 -> int32 GEMM main loops: wgmma fed by a TMA ring,
+// on two schedules.  Shared by q7_matmul.cu, w8a8_matmul.cu and
 // w8a8_dense.cu and templated on the same epilogue functors as
 // i8_gemm.cuh, the mma.sync loop that keeps the shapes TMA cannot
 // describe; the functor's `Out` is the output element type (int8, or
@@ -13,38 +13,55 @@
 // Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
 // M*K + K*N + M*N bytes at 3.35 TB/s.  Large square products are bound
 // by operations (4096^3: 0.0694 ms), which only wgmma reaches; thin ones
-// (small M*N, long K) by bytes, which only many SMs at once can move.
+// (small M, long K or wide N: an LM's decode step) by the bytes of B,
+// which only every SM streaming at once can move.
 //
-// Design (simple first; a persistent grid, clusters with TMA multicast
-// and a TMA-store epilogue are later work):
+// Design:
 //   * Operands.  wgmma takes .s8 operands K-major only (its transpose
 //     flags are for 16-bit types), so A [batch, M, K] is read as it is
-//     and B [batch, K, N] first goes through transpose_kernel into a
-//     scratch Bt [batch, N, K] that the wrapper allocates.
-//   * Copies.  One producer thread keeps a ring of kStages stages of
-//     (A tile kBM x kBK, B tile BN x kBK) in flight with 3-D TMA loads
-//     (batch, rows, K) in the 128-byte swizzle, each kBK = 128 bytes of
-//     K wide; "full" mbarriers count the bytes in, "empty" mbarriers
-//     count the consumer warps out.  TMA fills rows and K beyond the
-//     operands with zeros, which is exact in integer arithmetic, so M
-//     below wgmma's 64 rows and a ragged last K block need no masking.
-//   * Products.  Two consumer warpgroups each own 64 rows of the kBM =
-//     128-row tile and issue wgmma.mma_async m64n128k32 .s32.s8.s8 (BN /
-//     128 of them per 32 bytes of K) with int32 accumulators in
+//     and B as Bt [batch, N, K]: w8a8_dense's weights are stored so, and
+//     q7_matmul's and w8a8_matmul's B [batch, K, N] first goes through
+//     transpose_kernel into a scratch the wrapper allocates.
+//   * Copies.  TMA keeps a ring of stages of (A tile rows x kBK, B tile
+//     BN x kBK) in flight with 3-D loads (batch, rows, K) in the 128-byte
+//     swizzle, each kBK = 128 bytes of K wide; "full" mbarriers count the
+//     bytes in, "empty" mbarriers count the consumer warps out.  TMA
+//     fills rows and K beyond the operands with zeros, which is exact in
+//     integer arithmetic, so M below wgmma's 64 rows and a ragged last K
+//     block need no masking.
+//   * Products.  wgmma.mma_async m64n128k32 .s32.s8.s8 (BN / 128 of them
+//     per 32 bytes of K and 64 rows) with int32 accumulators in
 //     registers, WITHOUT .satfinite: XLA's int32 dot wraps on overflow,
 //     and so does this sum.  One wgmma group stays in flight while the
-//     stage of the one before is handed back to the producer.
-//   * Split K.  When the output has fewer tiles than the card has SMs
-//     and K is long, the wrapper asks for `split` > 1 blocks per tile,
-//     each over a contiguous run of K blocks; each writes its int32
-//     partial sums into a workspace [batch, split, M, N] the wrapper
-//     allocates, and splitk_reduce_kernel adds them and runs the
-//     epilogue once per output.  The adds are uint32, i.e. modulo 2^32,
-//     like the wrapping accumulators: integer addition modulo 2^32 is
-//     associative and commutative, so neither the cut of K nor the
-//     order of the partials can change a bit of the result.
-//   * Epilogue.  The functor maps each accumulator to int8 in registers;
-//     rows and columns beyond the output are not stored.
+//     stage of the one before is handed back.
+//   * Tiles (M > 64; wgmma_gemm_kernel): a block per kBM = 128-row tile
+//     and, when the output has fewer tiles than the card has SMs and K is
+//     long, per K part (`split` > 1, each a contiguous run of K blocks).
+//     A producer warpgroup's one thread issues the copies; two consumer
+//     warpgroups each own 64 rows.  The parts write int32 partial sums
+//     into a workspace [batch, split, M, N], and splitk_reduce_kernel
+//     adds them and runs the epilogue once per output.
+//   * Stream-K (M <= 64; wgmma_streamk_kernel): the product is bound by
+//     the bytes of B, so no shared memory goes to padding rows of A and
+//     no SM idles in a tail wave.  Tiles are kSkBM = 64 rows (one wgmma)
+//     x 128, and one warpgroup both issues the copies (thread 0) and
+//     multiplies: a stage is 24 KB, so kSkStages = 8 of them keep 128 KB
+//     of B in flight per SM.  A persistent grid of `ctas` blocks (one
+//     per SM) cuts the tiles x K blocks iterations into equal contiguous
+//     shares; a block walks its share tile by tile, K block by K block,
+//     the ring running on across tile boundaries.  A tile whose K blocks
+//     all lie in one share is stored by its block; the blocks of a tile
+//     cut between shares each add their int32 partial sums into the
+//     tile's sum tile in the workspace (reductions, no return) and count
+//     themselves in on its arrival count (both zeroed by the launch), and
+//     the last to arrive reads the sum back and stores the tile.  No block
+//     waits for another.
+//   * Sums.  The partials of both schedules are added as uint32, i.e.
+//     modulo 2^32, like the wrapping accumulators: integer addition
+//     modulo 2^32 is associative and commutative, so neither the cut of
+//     K nor the order of the partials can change a bit of the result.
+//   * Epilogue.  The functor maps each accumulator to its output in
+//     registers; rows and columns beyond the output are not stored.
 #pragma once
 
 #include <cuda.h>            // CUtensorMap and the driver's enums (types only)
@@ -191,6 +208,41 @@ __device__ __forceinline__ void wgmma_m64n128k32(int32_t (&d)[64],
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// One warp's share of a 64 x 128 tile of stream-K sums, epilogue applied,
+// into C [batch, M, N]: sum 4j + r sits at row row0 (+8 for r >= 2) and
+// column 8j + 2 (lane % 4) + (r & 1) of the tile that starts at column
+// n0.  Rows and columns beyond the output are not stored.
+template <class Epi>
+__device__ __forceinline__ void store_block(
+    const int32_t (&acc)[64], typename Epi::Out* __restrict__ C, int64_t z,
+    int M, int N, int row0, int n0, int lane, const Epi& epi,
+    const int32_t* epi_tile) {
+  using Out = typename Epi::Out;
+  const bool pairs = N % 2 == 0;   // two outputs in one aligned store
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + 8 * half;
+      const int col = 8 * j + 2 * (lane % 4);   // in the tile
+      const int n = n0 + col;
+      if (row >= M || n >= N) continue;
+      Out* p = C + (z * M + row) * static_cast<int64_t>(N) + n;
+      const Out c0 = static_cast<Out>(
+          epi.apply(acc[4 * j + 2 * half], col, epi_tile));
+      if (n + 1 < N) {
+        const Out c1 = static_cast<Out>(
+            epi.apply(acc[4 * j + 2 * half + 1], col + 1, epi_tile));
+        if (pairs) {
+          store_pair(p, c0, c1);
+          continue;
+        }
+        p[1] = c1;
+      }
+      p[0] = c0;
+    }
 }
 
 // Bt[z, n, k] = B[z, k, n] for B [batch, K, N] at any alignment, one
@@ -424,6 +476,182 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
+// stream-K, for M <= 64
+// ---------------------------------------------------------------------------
+constexpr int kSkBM = kWgRows;         // rows of a stream-K tile
+constexpr int kSkBN = 128;             // columns of a stream-K tile
+constexpr int kSkStages = 8;           // 8 x 24 KB
+constexpr int kSkThreads = 128;        // one warpgroup
+constexpr int kSkStage = (kSkBM + kSkBN) * kBK;
+constexpr int kSkSmem = kSkStages * kSkStage + 1024;   // + alignment slack
+
+// first iteration of block c's share of `iters` over `ctas` blocks
+__device__ __forceinline__ int64_t sk_begin(int c, int64_t iters,
+                                            int ctas) {
+  return c * iters / ctas;
+}
+
+// the block whose share holds iteration i: the last c with sk_begin <= i
+__device__ __forceinline__ int sk_owner(int64_t i, int64_t iters, int ctas) {
+  return static_cast<int>(((i + 1) * ctas - 1) / iters);
+}
+
+// TMA loads of K block kb of tile t into stage s of the ring, counted in
+// bytes on its full barrier
+__device__ __forceinline__ void sk_load(const CUtensorMap* map_a,
+                                        const CUtensorMap* map_b,
+                                        uint32_t ring, uint64_t* full_bar,
+                                        int s, int t, int kb, int m_tiles,
+                                        int n_tiles) {
+  const int z = t / (m_tiles * n_tiles), mn = t % (m_tiles * n_tiles);
+  const uint32_t full = smem_u32(&full_bar[s]);
+  mbar_expect_tx(full, kSkStage);
+  tma_load(ring + s * kSkStage, map_a, full, kb * kBK, mn / n_tiles * kSkBM,
+           z);
+  tma_load(ring + s * kSkStage + kSkBM * kBK, map_b, full, kb * kBK,
+           mn % n_tiles * kSkBN, z);
+}
+
+// Block `blockIdx.x` of `gridDim.x` walks iterations [sk_begin(c),
+// sk_begin(c + 1)) of the tiles x kblocks iterations, iteration i being K
+// block i % kblocks of tile i / kblocks, tile t = (z * m_tiles + mt) *
+// n_tiles + nt.  A tile cut between blocks is indexed by its first owner
+// (each block is the first owner of at most one cut tile: the one its
+// share ends inside, or begins at and ends inside): `work` holds an
+// arrival count a block (int32 [ctas]) and then a sum tile a block
+// ([ctas][rows][128], rows = min(M, 64)), all zero at launch.  Each owner
+// adds its partial sums into the tile's sum with reductions (red.add,
+// modulo 2^32: exact in any order), then arrives; the last to arrive
+// reads the whole sum back and stores the tile.
+template <class Epi>
+__global__ void __launch_bounds__(kSkThreads, 1)
+    wgmma_streamk_kernel(const __grid_constant__ CUtensorMap tma_a,
+                         const __grid_constant__ CUtensorMap tma_b,
+                         typename Epi::Out* __restrict__ C,
+                         int32_t* __restrict__ work, int batch, int M, int N,
+                         int K, Epi epi) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[kSkStages];
+  __shared__ int32_t epi_tile[kSkBN];
+
+  const int kblocks = (K + kBK - 1) / kBK;
+  const int m_tiles = (M + kSkBM - 1) / kSkBM;
+  const int n_tiles = (N + kSkBN - 1) / kSkBN;
+  const int64_t iters = static_cast<int64_t>(batch) * m_tiles * n_tiles *
+                        kblocks;
+  const int ctas = gridDim.x, cta = blockIdx.x;
+  const int64_t begin = sk_begin(cta, iters, ctas);
+  const int count = static_cast<int>(sk_begin(cta + 1, iters, ctas) - begin);
+  const int rows = min(M, kSkBM);           // of a sum tile
+  int32_t* counts = work;
+  int32_t* sums = work + ctas;
+  // stage s: A tile at ring + s * kSkStage, B tile kSkBM * kBK further,
+  // each 1024-byte aligned for the 128-byte swizzle
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  // the consumers' (tile, K block), and the producer's, kSkStages - 1 ahead
+  int t = static_cast<int>(begin / kblocks);
+  int kb = static_cast<int>(begin % kblocks);
+  int lt = t, lkb = kb;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSkStages; ++s) mbar_init(smem_u32(&full_bar[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int li = 0; li < kSkStages && li < count; ++li) {
+      sk_load(&tma_a, &tma_b, ring, full_bar, li, lt, lkb, m_tiles, n_tiles);
+      if (++lkb == kblocks) lkb = 0, ++lt;
+    }
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row_in_tile = 16 * warp + lane / 4;   // (+8 for r >= 2)
+  int32_t acc[64];
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0;
+  for (int li = 0; li < count; ++li) {
+    const int s = li % kSkStages;
+    mbar_wait(smem_u32(&full_bar[s]), (li / kSkStages) & 1);
+    const uint32_t a = ring + s * kSkStage;
+    const uint32_t b = a + kSkBM * kBK;
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kBK / 32; ++kk)
+      wgmma_m64n128k32(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the group before this one is done in every warp once all are past
+    // the barrier: its stage takes the load of iteration li - 1 +
+    // kSkStages (a barrier, not an mbarrier thread 0 spins on: a wait
+    // loop on a divergent path serialises the wgmmas, ptxas C7518)
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    fence_acc(acc);
+    __syncthreads();
+    if (threadIdx.x == 0 && li > 0 && li - 1 + kSkStages < count) {
+      sk_load(&tma_a, &tma_b, ring, full_bar, (li - 1) % kSkStages, lt, lkb,
+              m_tiles, n_tiles);
+      if (++lkb == kblocks) lkb = 0, ++lt;
+    }
+
+    const bool tile_end = kb == kblocks - 1;
+    const int tile = t;
+    if (++kb == kblocks) kb = 0, ++t;
+    if (!tile_end && li != count - 1) continue;
+    // the share leaves the tile here: its sums leave the accumulators,
+    // then the tile is stored, or its partial sums added to the tile's sum
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    int32_t out[64];
+#pragma unroll
+    for (int r = 0; r < 64; ++r) {
+      out[r] = acc[r];
+      acc[r] = 0;
+    }
+    const int64_t t0 = static_cast<int64_t>(tile) * kblocks;
+    const int z = tile / (m_tiles * n_tiles);
+    const int mn = tile % (m_tiles * n_tiles);
+    const int m0 = mn / n_tiles * kSkBM, n0 = mn % n_tiles * kSkBN;
+    int last_in = 1;          // a block stores the tiles it holds whole
+    if (t0 < begin || !tile_end) {
+      // a tile cut between shares: add to its sum tile, arrive; the last
+      // block in stores the sum
+      const int first = sk_owner(t0, iters, ctas);
+      const int owners = sk_owner(t0 + kblocks - 1, iters, ctas) - first + 1;
+      int32_t* sum = sums + static_cast<int64_t>(first) * rows * kSkBN;
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        const int row = row_in_tile + 8 * ((r >> 1) & 1);
+        const int col = 8 * (r / 4) + 2 * (lane % 4) + (r & 1);
+        if (m0 + row < M && n0 + col < N)
+          atomicAdd(reinterpret_cast<uint32_t*>(sum + row * kSkBN + col),
+                    static_cast<uint32_t>(out[r]));
+      }
+      __syncthreads();        // every thread's additions, then one fence
+      last_in = 0;
+      if (threadIdx.x == 0) {
+        __threadfence();
+        last_in = atomicAdd(&counts[first], 1) == owners - 1;
+      }
+      last_in = __syncthreads_or(last_in);
+      __threadfence();
+#pragma unroll
+      for (int r = 0; r < 64; ++r) {
+        const int row = row_in_tile + 8 * ((r >> 1) & 1);
+        const int col = 8 * (r / 4) + 2 * (lane % 4) + (r & 1);
+        if (last_in && m0 + row < M && n0 + col < N)
+          out[r] = __ldcg(sum + row * kSkBN + col);
+      }
+    }
+    __syncthreads();          // the last tile's epilogue is done with epi_tile
+    epi.stage(epi_tile, z, n0, N);                // all threads
+    // a block that is not the last in stores nothing: its rows start at M
+    // (predicated, not branched around: a branch back to the wgmmas on a
+    // path ptxas cannot prove uniform serialises them, C7518)
+    store_block(out, C, z, M, N, last_in ? m0 + row_in_tile : M, n0, lane,
+                epi, epi_tile);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -535,6 +763,44 @@ int launch_product(const void* a, const void* bt, void* c, void* work,
     return launch_product_bn<256>(a, bt, c, work, batch, M, N, K, split, epi,
                                   s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The stream-K product over A [batch, M, K] and Bt [batch, N, K] (both
+// 16-byte aligned, K % 16 == 0) on `ctas` persistent blocks, into C; work
+// holds ctas * (1 + min(M, 64) * 128) int32, zeroed here on the stream.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for what it does not take.
+template <class Epi>
+int launch_streamk(const void* a, const void* bt, void* c, void* work,
+                   int batch, int M, int N, int K, int ctas, Epi epi,
+                   void* stream) {
+  if (batch <= 0 || M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 ||
+      ctas < 1 || work == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t iters = static_cast<int64_t>(batch) *
+                        ((M + kSkBM - 1) / kSkBM) *
+                        ((N + kSkBN - 1) / kSkBN) * ((K + kBK - 1) / kBK);
+  if (ctas > iters || iters > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_a, map_b;
+  if (!make_map(&map_a, a, batch, M, K, kSkBM) ||
+      !make_map(&map_b, bt, batch, N, K, kSkBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      wgmma_streamk_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSkSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const size_t ints = static_cast<size_t>(ctas) *
+                      (1 + static_cast<size_t>(M < kSkBM ? M : kSkBM) *
+                               kSkBN);
+  const cudaError_t zero = cudaMemsetAsync(work, 0, ints * sizeof(int32_t),
+                                           s);
+  if (zero != cudaSuccess) return static_cast<int>(zero);
+  wgmma_streamk_kernel<Epi><<<ctas, kSkThreads, kSkSmem, s>>>(
+      map_a, map_b, static_cast<typename Epi::Out*>(c),
+      static_cast<int32_t*>(work), batch, M, N, K, epi);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // C = epilogue(sum of the split partials in work); returns

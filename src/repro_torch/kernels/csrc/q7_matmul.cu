@@ -14,9 +14,10 @@
 // up are bound by operations, thin ones (small M or N) by bytes.  Two
 // main loops, chosen per call by kernels/q7_matmul.py::gemm_plan from
 // the shape and the operands' alignment alone: i8_gemm_sm90.cuh (wgmma
-// fed by a TMA ring, split K for thin products; B transposed first by
-// i8_transpose_launch) wherever TMA can describe A (K % 16 == 0, A
-// 16-byte aligned), and i8_gemm.cuh (mma.sync m16n8k32) for the rest.
+// fed by a TMA ring, B transposed first by i8_transpose_launch; stream-K
+// for M <= 64, split K for other thin products) wherever TMA can
+// describe A (K % 16 == 0, A 16-byte aligned), and i8_gemm.cuh (mma.sync
+// m16n8k32) for the rest.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,8 +54,9 @@ extern "C" int q7_matmul_launch(const void* a, const void* b, void* c,
 // The wgmma route, one launch each: Bt [batch, N, K] = B transposed;
 // the product over A [batch, M, K] and Bt on tiles 128 x bn, into C
 // (split == 1) or into the int32 partials work [batch, split, M, N];
-// and C from those partials.  Each returns cudaGetLastError() after its
-// launch.
+// C from those partials; and the stream-K product on `ctas` blocks, work
+// holding its arrival counts and partial tiles.  Each returns
+// cudaGetLastError() after its launch.
 extern "C" int i8_transpose_launch(const void* b, void* bt, int batch, int K,
                                    int N, void* stream) {
   return i8sm90::launch_transpose(b, bt, batch, K, N, stream);
@@ -73,4 +75,13 @@ extern "C" int q7_matmul_reduce_launch(const void* work, void* c, int batch,
                                        int nearest, void* stream) {
   return i8sm90::launch_reduce(work, c, batch, M, N, split,
                                ScalarShift{shift, nearest != 0}, stream);
+}
+
+extern "C" int q7_matmul_streamk_launch(const void* a, const void* bt,
+                                        void* c, void* work, int batch,
+                                        int M, int N, int K, int ctas,
+                                        int shift, int nearest,
+                                        void* stream) {
+  return i8sm90::launch_streamk(a, bt, c, work, batch, M, N, K, ctas,
+                                ScalarShift{shift, nearest != 0}, stream);
 }

@@ -1,11 +1,12 @@
 // W8A8 dense product with a power-of-two dequantizing epilogue: Y [M, N]
-// = out(float(A @ W) * 2^-(xe + n[col])), A [M, K] and W [K, N] row-major
-// int8, xe the activation's exponent (one int32 in device memory), n [N]
-// int32 the weight's per-column exponents, out bfloat16 (round to nearest
-// even) or float32.  The batched face takes `batch` such products packed
-// back to back, A [batch, M, K], W [batch, K, N], n [batch, N] (each
-// entry its own exponents, one xe for all) -> Y [batch, M, N]: the MoE's
-// expert products, one expert a batch entry.
+// = out(float(A @ W) * 2^-(xe + n[col])), A [M, K] row-major int8, W
+// stored K-major as Wt [N, K] int8 (the port's W8A8 leaf, laid out once
+// at quantization), xe the activation's exponent (one int32 in device
+// memory), n [N] int32 the weight's per-column exponents, out bfloat16
+// (round to nearest even) or float32.  The batched face takes `batch`
+// such products packed back to back, A [batch, M, K], Wt [batch, N, K],
+// n [batch, N] (each entry its own exponents, one xe for all) -> Y
+// [batch, M, N]: the MoE's expert products, one expert a batch entry.
 //
 // No TPU kernel: the reference computes these with XLA's int8
 // dot_general and einsum and an elementwise dequantization,
@@ -23,11 +24,13 @@
 // bound by the bytes of W, a prefill (M = 512) by operations for the
 // wide products.  It runs on the same two main loops as q7_matmul.cu and
 // w8a8_matmul.cu, chosen the same way by kernels/q7_matmul.py::gemm_plan,
-// the batch on the grid's z: i8_gemm_sm90.cuh (wgmma, TMA ring, split K;
-// W transposed first by q7_matmul.cu's i8_transpose_launch, one extra
-// read and write of W a call) where TMA can describe A, and i8_gemm.cuh
-// (mma.sync) elsewhere.  Each block that runs the epilogue stages xe + n
-// of its batch entry's output columns in shared memory once, as
+// reading Wt as it is stored (no transpose launch): i8_gemm_sm90.cuh
+// where TMA can describe A and Wt (wgmma; for M <= 64, the decode
+// products, the stream-K schedule: 64-row tiles, a deep ring of W and
+// one persistent block per SM, each an equal share of W's bytes; above,
+// 128-row tiles and split K), and i8_gemm.cuh (mma.sync, its K-major B
+// copied straight into shared memory) elsewhere.  Each block stages xe + n
+// of its batch entry's output columns in shared memory once a tile, as
 // w8a8_matmul.cu's ColumnShift stages its shifts; split K runs the same
 // functor in the reduction.
 #include <cuda_bf16.h>
@@ -78,22 +81,23 @@ Dequant<T> dequant(const void* xe, const void* n) {
 // (1: bfloat16, 0: float32), and `batch` products run on the grid's z.
 // Each returns cudaGetLastError() after its launch; 0 means the launch
 // was accepted.
-extern "C" int w8a8_dense_launch(const void* a, const void* w,
+extern "C" int w8a8_dense_launch(const void* a, const void* wt,
                                  const void* xe, const void* n, void* c,
                                  int batch, int M, int N, int K,
                                  int out_bf16, void* stream) {
   if (out_bf16)
-    return i8gemm::launch(a, w, c, batch, M, N, K,
-                          dequant<__nv_bfloat16>(xe, n), stream);
-  return i8gemm::launch(a, w, c, batch, M, N, K, dequant<float>(xe, n),
-                        stream);
+    return i8gemm::launch<Dequant<__nv_bfloat16>, true>(
+        a, wt, c, batch, M, N, K, dequant<__nv_bfloat16>(xe, n), stream);
+  return i8gemm::launch<Dequant<float>, true>(
+      a, wt, c, batch, M, N, K, dequant<float>(xe, n), stream);
 }
 
-// The wgmma route: the product over A [batch, M, K] and Wt [batch, N, K]
-// (W transposed by i8_transpose_launch) on tiles 128 x bn, into C (split
-// == 1) or into the int32 partials work [batch, split, M, N]; and C from
-// those partials.  The arguments follow w8a8_matmul.cu's entries, the
-// epilogue's last (xe, n [batch, N], out_bf16).
+// The wgmma route over A [batch, M, K] and Wt [batch, N, K]: the product
+// on tiles 128 x bn, into C (split == 1) or into the int32 partials work
+// [batch, split, M, N]; C from those partials; and the stream-K product
+// on `ctas` blocks, work holding its arrival counts and partial tiles.
+// The arguments follow w8a8_matmul.cu's entries, the epilogue's last (xe,
+// n [batch, N], out_bf16).
 extern "C" int w8a8_dense_wgmma_launch(const void* a, const void* wt, void* c,
                                        void* work, int batch, int M, int N,
                                        int K, int bn, int split,
@@ -115,4 +119,16 @@ extern "C" int w8a8_dense_reduce_launch(const void* work, void* c, int batch,
                                  dequant<__nv_bfloat16>(xe, n), stream);
   return i8sm90::launch_reduce(work, c, batch, M, N, split,
                                dequant<float>(xe, n), stream);
+}
+
+extern "C" int w8a8_dense_streamk_launch(const void* a, const void* wt,
+                                         void* c, void* work, int batch,
+                                         int M, int N, int K, int ctas,
+                                         const void* xe, const void* n,
+                                         int out_bf16, void* stream) {
+  if (out_bf16)
+    return i8sm90::launch_streamk(a, wt, c, work, batch, M, N, K, ctas,
+                                  dequant<__nv_bfloat16>(xe, n), stream);
+  return i8sm90::launch_streamk(a, wt, c, work, batch, M, N, K, ctas,
+                                dequant<float>(xe, n), stream);
 }

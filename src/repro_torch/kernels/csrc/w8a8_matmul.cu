@@ -11,10 +11,10 @@
 // Bound on the H100: 2*M*K*N int8 operations at 1,979 TOP/s against
 // M*K + K*N + M*N + 4*N bytes at 3.35 TB/s, as q7_matmul.cu, on the
 // same two main loops, chosen the same way: i8_gemm_sm90.cuh (wgmma, TMA
-// ring, split K; W transposed by q7_matmul.cu's i8_transpose_launch)
-// where TMA can describe A, i8_gemm.cuh (mma.sync) elsewhere.  Each block
-// that runs the epilogue loads the shifts of its output columns into
-// shared memory once.
+// ring, stream-K or split K; W transposed by q7_matmul.cu's
+// i8_transpose_launch) where TMA can describe A, i8_gemm.cuh (mma.sync)
+// elsewhere.  Each block that runs the epilogue loads the shifts of its
+// output columns into shared memory once a tile.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -59,9 +59,10 @@ extern "C" int w8a8_matmul_launch(const void* a, const void* w,
 
 // The wgmma route: the product over A [batch, M, K] and Wt [batch, N, K]
 // (W transposed by i8_transpose_launch) on tiles 128 x bn, into C (split
-// == 1) or into the int32 partials work [batch, split, M, N]; and C from
-// those partials.  The arguments follow q7_matmul.cu's entries, the
-// epilogue's last.  Each returns cudaGetLastError() after its launch.
+// == 1) or into the int32 partials work [batch, split, M, N]; C from
+// those partials; and the stream-K product on `ctas` blocks.  The
+// arguments follow q7_matmul.cu's entries, the epilogue's last.  Each
+// returns cudaGetLastError() after its launch.
 extern "C" int w8a8_matmul_wgmma_launch(const void* a, const void* wt,
                                         void* c, void* work, int batch,
                                         int M, int N, int K, int bn,
@@ -79,6 +80,17 @@ extern "C" int w8a8_matmul_reduce_launch(const void* work, void* c,
                                          void* stream) {
   return i8sm90::launch_reduce(
       work, c, batch, M, N, split,
+      ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
+      stream);
+}
+
+extern "C" int w8a8_matmul_streamk_launch(const void* a, const void* wt,
+                                          void* c, void* work, int batch,
+                                          int M, int N, int K, int ctas,
+                                          const void* col_shift, int nearest,
+                                          void* stream) {
+  return i8sm90::launch_streamk(
+      a, wt, c, work, batch, M, N, K, ctas,
       ColumnShift{static_cast<const int32_t*>(col_shift), nearest != 0},
       stream);
 }

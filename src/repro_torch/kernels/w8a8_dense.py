@@ -1,21 +1,24 @@
 """W8A8 dense product with a power-of-two dequantizing epilogue: the CUDA
 kernel's wrappers and their plain version.
 
-`w8a8_dense(xq, wq, xe, n, out_dtype)` takes int8 xq [M, K], int8 wq
-[K, N], the activation's exponent xe (a one-element tensor, its value an
-integer) and int32 n [N], and returns out_dtype(float32(xq @ wq) *
-2^-(xe + n[col])): the product `repro.quant.lm_quant.q_dense` computes
-with XLA's int8 dot_general.  `w8a8_bmm(xq, wq, xe, n, out_dtype)` is
-its batched face, xq [E, M, K], wq [E, K, N] and n [E, N] (each batch
-entry its own column exponents, one xe for all) -> [E, M, N]: the MoE
-expert products `repro.quant.lm_quant.q_einsum` computes with XLA's
-int8 einsum.  No TPU kernel computes either (the reference leaves them
-to XLA); on the card both are `csrc/w8a8_dense.cu`, the batch on the
-grid's z, on the same two GEMM main loops and the same `gemm_plan` as
-`q7_matmul` and `w8a8_matmul`, each wrapper counted in its own
-`launches` and `launches_by_route`.  A tensor on the CPU goes to the
-plain version; a CUDA tensor goes to the kernel or raises.  xe is read
-on the card by the kernel, so a call never waits for the device.
+`w8a8_dense(xq, wt, xe, n, out_dtype)` takes int8 xq [M, K], int8 W
+stored K-major as wt [N, K] (the port's W8A8 leaf "qt",
+`quant.lm_quant`), the activation's exponent xe (a one-element tensor,
+its value an integer) and int32 n [N], and returns out_dtype(float32(xq
+@ wt^T) * 2^-(xe + n[col])): the product `repro.quant.lm_quant.q_dense`
+computes with XLA's int8 dot_general from W [K, N].
+`w8a8_bmm(xq, wt, xe, n, out_dtype)` is its batched face, xq [E, M, K],
+wt [E, N, K] and n [E, N] (each batch entry its own column exponents,
+one xe for all) -> [E, M, N]: the MoE expert products
+`repro.quant.lm_quant.q_einsum` computes with XLA's int8 einsum.  No TPU
+kernel computes either (the reference leaves them to XLA); on the card
+both are `csrc/w8a8_dense.cu`, the batch on the grid, on the same two
+GEMM main loops and the same `gemm_plan` as `q7_matmul` and
+`w8a8_matmul`, with W read as it is stored (no transpose launch), each
+wrapper counted in its own `launches` and `launches_by_route`.  A
+tensor on the CPU goes to the plain version; a CUDA tensor goes to the
+kernel or raises.  xe is read on the card by the kernel, so a call
+never waits for the device.
 
 Both build the scale 2^-(xe + n) from its float32 exponent bits, exact
 for exponents in [-126, 127] (the quantizers clip xe and n to [-24,
@@ -43,22 +46,24 @@ def pow2(e):
     return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
 
 
-def w8a8_dense_plain(xq, wq, xe, n, out_dtype=torch.bfloat16):
-    """The kernel's arithmetic in torch, over [..., M, K] x [..., K, N]
-    with n [..., N] (equal leading axes, none for the 2-D face): the
-    int32 product (exact, wrapping), float32, times 2^-(xe + n), one
-    rounding to out_dtype."""
-    acc = q.einsum_i32("...mk,...kn->...mn", xq, wq)
+def w8a8_dense_plain(xq, wt, xe, n, out_dtype=torch.bfloat16):
+    """The kernel's arithmetic in torch, over [..., M, K] and the
+    K-major [..., N, K] with n [..., N] (equal leading axes, none for the
+    2-D face): the int32 product (exact, wrapping), float32, times
+    2^-(xe + n), one rounding to out_dtype."""
+    acc = q.einsum_i32("...mk,...nk->...mn", xq, wt)
     e = xe.reshape(()).to(torch.int32) + n.to(torch.int32)[..., None, :]
     return (acc.to(torch.float32) * pow2(-e)).to(out_dtype)
 
 
-def _check(what: str, dims: int, xq, wq, xe, n, out_dtype) -> None:
+def _check(what: str, dims: int, xq, wt, xe, n, out_dtype) -> None:
+    """Raise for what the kernel does not take; wt is K-major [..., N,
+    K], checked as its [..., K, N] view."""
     if xq.dim() != dims:
         raise ValueError(f"{what} takes {dims}-D operands, got "
                          f"{tuple(xq.shape)}")
-    check_operands(what, xq, wq, "floor")
-    n_shape = tuple(wq.shape[:-2]) + (wq.shape[-1],)
+    check_operands(what, xq, wt.transpose(-1, -2), "floor")
+    n_shape = tuple(wt.shape[:-1])
     if n.dtype != torch.int32 or tuple(n.shape) != n_shape \
             or n.device != xq.device:
         raise ValueError(f"{what}: n must be int32 {list(n_shape)} on "
@@ -72,53 +77,54 @@ def _check(what: str, dims: int, xq, wq, xe, n, out_dtype) -> None:
         raise TypeError(f"{what} writes {OUT_DTYPES}, not {out_dtype}")
 
 
-def _launch(xq, wq, xe, n, out_dtype, plan: GemmPlan | None = None):
-    """[batch, M, K] x [batch, K, N] (or [M, K] x [K, N]) with the
-    exponents -> out_dtype [batch, M, N] on the route of `plan`
-    (gemm_plan's when None); returns the output and the plan."""
-    xq, wq, n = xq.contiguous(), wq.contiguous(), n.contiguous()
+def _launch(xq, wt, xe, n, out_dtype, plan: GemmPlan | None = None):
+    """[batch, M, K] and the K-major [batch, N, K] (or [M, K] and [N,
+    K]) with the exponents -> out_dtype [batch, M, N] on the route of
+    `plan` (gemm_plan's when None); returns the output and the plan."""
+    xq, wt, n = xq.contiguous(), wt.contiguous(), n.contiguous()
     xe = xe.reshape(()).to(torch.int32)       # on the card, no wait
     M, K = xq.shape[-2:]
-    N = wq.shape[-1]
+    N = wt.shape[-2]
     out = torch.empty(xq.shape[:-1] + (N,), dtype=out_dtype,
                       device=xq.device)
     epi = (xe.data_ptr(), n.data_ptr(), int(out_dtype == torch.bfloat16))
     with torch.cuda.device(xq.device):
-        plan = plan_for(xq, wq) if plan is None else plan
+        plan = plan_for(xq, wt, b_kmajor=True) if plan is None else plan
         if plan.route == "wgmma":
-            wgmma_route("w8a8_dense", plan, xq, wq, out, epi)
+            wgmma_route("w8a8_dense", plan, xq, wt, out, epi, b_kmajor=True)
         else:
             err = entry("w8a8_dense", "w8a8_dense_launch")(
-                xq.data_ptr(), wq.data_ptr(), *epi[:2], out.data_ptr(),
+                xq.data_ptr(), wt.data_ptr(), *epi[:2], out.data_ptr(),
                 math.prod(xq.shape[:-2]), M, N, K, epi[2],
                 torch.cuda.current_stream().cuda_stream)
             build.check(err, "w8a8_dense")
     return out, plan
 
 
-def w8a8_dense(xq, wq, xe, n, out_dtype=torch.bfloat16):
-    """[M, K] x [K, N] int8, exponents xe and n [N] -> out_dtype [M, N]."""
+def w8a8_dense(xq, wt, xe, n, out_dtype=torch.bfloat16):
+    """int8 [M, K] and K-major [N, K], exponents xe and n [N] ->
+    out_dtype [M, N]."""
     if xq.device.type == "cpu":
-        return w8a8_dense_plain(xq, wq, xe, n, out_dtype)
+        return w8a8_dense_plain(xq, wt, xe, n, out_dtype)
     if xq.device.type != "cuda":
         raise NotImplementedError(f"w8a8_dense on {xq.device}")
-    _check("w8a8_dense", 2, xq, wq, xe, n, out_dtype)
-    out, plan = _launch(xq, wq, xe, n, out_dtype)
+    _check("w8a8_dense", 2, xq, wt, xe, n, out_dtype)
+    out, plan = _launch(xq, wt, xe, n, out_dtype)
     w8a8_dense.launches += 1
     w8a8_dense.launches_by_route[plan.route] += 1
     return out
 
 
-def w8a8_bmm(xq, wq, xe, n, out_dtype=torch.bfloat16):
-    """[E, M, K] x [E, K, N] int8, exponents xe and n [E, N] ->
-    out_dtype [E, M, N], product e dequantized by n[e], the E products in
-    one launch of each kernel of its route."""
+def w8a8_bmm(xq, wt, xe, n, out_dtype=torch.bfloat16):
+    """int8 [E, M, K] and K-major [E, N, K], exponents xe and n [E, N]
+    -> out_dtype [E, M, N], product e dequantized by n[e], the E products
+    in one launch of each kernel of its route."""
     if xq.device.type == "cpu":
-        return w8a8_dense_plain(xq, wq, xe, n, out_dtype)
+        return w8a8_dense_plain(xq, wt, xe, n, out_dtype)
     if xq.device.type != "cuda":
         raise NotImplementedError(f"w8a8_bmm on {xq.device}")
-    _check("w8a8_bmm", 3, xq, wq, xe, n, out_dtype)
-    out, plan = _launch(xq, wq, xe, n, out_dtype)
+    _check("w8a8_bmm", 3, xq, wt, xe, n, out_dtype)
+    out, plan = _launch(xq, wt, xe, n, out_dtype)
     w8a8_bmm.launches += 1
     w8a8_bmm.launches_by_route[plan.route] += 1
     return out

@@ -59,10 +59,11 @@ def full_bf16_sums():
 
 def dense(x, w, b=None):
     """Dense projection; dispatches to the W8A8 path when `w` is a
-    quantized leaf {"q","n"} (repro_torch.quant.lm_quant).  A bf16
+    quantized leaf {"qt","n"} (repro_torch.quant.lm_quant; a leaf of
+    the reference's {"q","n"} layout raises there).  A bf16
     product on the card assumes `full_bf16_sums` is in force (the `LM`
     entry points enter it); outside it cuBLAS may round partial sums."""
-    if isinstance(w, dict) and "q" in w:
+    if isinstance(w, dict):
         from repro_torch.quant.lm_quant import q_dense
         y = q_dense(x, w, out_dtype=x.dtype)
     else:

@@ -83,10 +83,10 @@ def route(params: dict, xg, cfg) -> Routing:
 
 
 def _expert_mm(spec: str, x, w):
-    """One expert product; a W8A8 leaf {"q","n"} goes to q_einsum.  A bf16
+    """One expert product; a W8A8 leaf {"qt","n"} goes to q_einsum.  A bf16
     product on the CPU runs in float32 and is cast once, as XLA rounds
     it (`layers._matmul`)."""
-    if isinstance(w, dict) and "q" in w:
+    if isinstance(w, dict):
         from repro_torch.quant.lm_quant import q_einsum
         return q_einsum(spec, x, w, out_dtype=x.dtype)
     if x.device.type == "cpu" and x.dtype == torch.bfloat16:

@@ -5,10 +5,16 @@ framework applied to LM serving; the counterpart of
 Weights: int8 with per-output-channel power-of-two exponents, reduced
 over the contraction dim (axis -2) only.  Activations: dynamic
 per-tensor power-of-two quantization at matmul entry.  A quantized
-weight leaf is a dict {"q": int8 [..., out], "n": int32 [..., out]};
-`models.layers.dense` and the MoE expert products (`models.moe`)
-dispatch on that structure, so the same model code runs both float and
-W8A8 (`launch/serve.py --quant w8a8`).
+weight leaf is a dict {"qt": int8 [..., out, in], "n": int32 [..., out]}:
+W stored K-major (its contraction dim last), once, at quantization, the
+layout the kernels' wgmma loop reads, where the reference keeps {"q":
+int8 [..., in, out], "n"} (`convert.lm_params_{from,to}_reference`
+turn one into the other).  The key differs from the reference's so that
+a leaf of the other layout raises (`is_qweight`) instead of giving a
+transposed product: many products are square.  `models.layers.dense`
+and the MoE expert products (`models.moe`) dispatch on that structure,
+so the same model code runs both float and W8A8 (`launch/serve.py
+--quant w8a8`).
 
 Exponents are the reference's, floor(log2(127 / max(max_abs, 1e-30)))
 clipped to [-24, 24]; every scale is an exact power of two
@@ -42,6 +48,13 @@ def exponent(max_abs):
         127.0 / torch.clamp_min(max_abs.float(), 1e-30))), -24, 24)
 
 
+OLD_LAYOUT = ("a W8A8 leaf {'q', 'n'} holds W as [..., K, N], the "
+              "reference's layout; the port stores it K-major, {'qt': "
+              "[..., N, K], 'n'}: quantize with quantize_lm_params, or "
+              "carry a reference tree across with "
+              "convert.lm_params_from_reference")
+
+
 def _quantize_2d(w):
     """[K, N] -> (int8 [K, N], int32 [N])."""
     wf = w.float()
@@ -51,16 +64,19 @@ def _quantize_2d(w):
 
 
 def _quantize_weight(w) -> dict:
-    """[..., K, N] -> {"q" int8, "n" int32 [..., N]}: per-output-channel
-    power-of-two exponents over the contraction dim, so stacked-cycle
-    leading dims are kept; quantized one [K, N] slice at a time, so a
-    stacked leaf never has a float32 copy."""
+    """[..., K, N] -> {"qt" int8 [..., N, K], "n" int32 [..., N]}:
+    per-output-channel power-of-two exponents over the contraction dim,
+    so stacked-cycle leading dims are kept; quantized one [K, N] slice at
+    a time and written transposed, so a stacked leaf never has a float32
+    copy nor a second int8 one."""
     K, N = w.shape[-2:]
-    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    qt = torch.empty(w.shape[:-2] + (N, K), dtype=torch.int8,
+                     device=w.device)
     n = torch.empty(w.shape[:-2] + (N,), dtype=torch.int32, device=w.device)
     for idx in itertools.product(*map(range, w.shape[:-2])):
-        q[idx], n[idx] = _quantize_2d(w[idx])
-    return {"q": q, "n": n}
+        q, n[idx] = _quantize_2d(w[idx])
+        qt[idx] = q.t()
+    return {"qt": qt, "n": n}
 
 
 def quantize_lm_params(params, quantize_head: bool = True,
@@ -89,7 +105,18 @@ def quantize_lm_params(params, quantize_head: bool = True,
 
 
 def is_qweight(w) -> bool:
-    return isinstance(w, dict) and set(w) >= {"q", "n"}
+    """Whether `w` is a W8A8 leaf {"qt", "n"}; a dict of the reference's
+    layout {"q", "n"} raises ValueError (its product would come out
+    transposed, or not at all)."""
+    if isinstance(w, dict) and "q" in w:
+        raise ValueError(OLD_LAYOUT)
+    return isinstance(w, dict) and set(w) >= {"qt", "n"}
+
+
+def _check_leaf(w) -> None:
+    if not is_qweight(w):
+        raise ValueError(f"not a W8A8 leaf {{'qt', 'n'}}: keys "
+                         f"{sorted(w) if isinstance(w, dict) else type(w)}")
 
 
 def quantize_activation(x):
@@ -102,29 +129,31 @@ def quantize_activation(x):
 
 
 def q_dense(x, w: dict, out_dtype=torch.bfloat16):
-    """W8A8 dense: x [..., K] float, w {"q" [K, N], "n" [N]} -> out_dtype
-    [..., N] = out(float32(q(x) @ q) * 2^-(xe + n))."""
+    """W8A8 dense: x [..., K] float, w {"qt" [N, K], "n" [N]} ->
+    out_dtype [..., N] = out(float32(q(x) @ qt^T) * 2^-(xe + n))."""
+    _check_leaf(w)
     xq, xe = quantize_activation(x)
-    K, N = w["q"].shape
-    y = w8a8_dense(xq.reshape(-1, K), w["q"], xe, w["n"], out_dtype)
+    N, K = w["qt"].shape
+    y = w8a8_dense(xq.reshape(-1, K), w["qt"], xe, w["n"], out_dtype)
     return y.reshape(x.shape[:-1] + (N,))
 
 
 def q_einsum(spec: str, x, w: dict, out_dtype=torch.bfloat16):
     """Quantized einsum of the MoE expert products (`EINSUM_SPECS`):
-    x [G, E, C, K] float, w {"q" [E, K, N], "n" [E, N]} -> out_dtype
-    [G, E, C, N] = out(float32(q(x)[g, e] @ q[e]) * 2^-(xe + n[e])).
+    x [G, E, C, K] float, w {"qt" [E, N, K], "n" [E, N]} -> out_dtype
+    [G, E, C, N] = out(float32(q(x)[g, e] @ qt[e]^T) * 2^-(xe + n[e])).
     The activation is quantized per tensor over the whole buffer, its
     empty slots' zeros included, as the reference does; the products
-    run as one [E, G*C, K] x [E, K, N] `w8a8_bmm` (one copy of the int8
+    run as one [E, G*C, K] x [E, N, K] `w8a8_bmm` (one copy of the int8
     activation into expert-major order), and the output is a view of
     [E, G, C, N] in the reference's order."""
     if spec not in EINSUM_SPECS:
         raise ValueError(f"q_einsum computes {EINSUM_SPECS}, not {spec!r}")
+    _check_leaf(w)
     xq, xe = quantize_activation(x)
     G, E, C, K = xq.shape
     xq = xq.permute(1, 0, 2, 3).contiguous().view(E, G * C, K)
-    y = w8a8_bmm(xq, w["q"], xe, w["n"], out_dtype)
+    y = w8a8_bmm(xq, w["qt"], xe, w["n"], out_dtype)
     return y.view(E, G, C, -1).permute(1, 0, 2, 3)
 
 

@@ -79,6 +79,18 @@ def ref_structs(tree) -> list:
             for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
+def reference_layout(tree):
+    """The port's W8A8 leaves {"qt" [..., N, K], "n"} as the reference's
+    {"q" [..., K, N], "n"} (views; meta tensors stay on meta)."""
+    if isinstance(tree, dict) and set(tree) == {"qt", "n"}:
+        return {"n": tree["n"], "q": tree["qt"].transpose(-1, -2)}
+    if isinstance(tree, dict):
+        return {k: reference_layout(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(reference_layout(v) for v in tree)
+    return tree
+
+
 def same_structs(want, got):
     from repro_torch.tree import leaves
     gl = leaves(got)
@@ -215,6 +227,28 @@ def test_batch_and_cache_specs_match_the_reference(arch, dp):
                                     port_mesh(dp), stacked=stacked))
 
 
+@pytest.mark.parametrize("arch", ["stablelm_3b", "phi35_moe"])
+def test_param_specs_of_a_w8a8_tree_shard_the_reference_axis(arch):
+    """The reference shards q [..., K, N] on its output axis N; the port's
+    qt [..., N, K] shards the same axis, its second to last, and every
+    other leaf as the reference does."""
+    rcfg, tcfg = cfgs(arch)
+    want = RS.input_specs(rcfg, SHAPES["prefill"], quant=True)["params"]
+    got = TS.input_specs(tcfg, tshape(SHAPES["prefill"]),
+                         quant=True)["params"]
+    specs = port_specs(sharding.param_specs(got))
+    ref = ref_specs(rshd.param_specs(want))
+    assert len(specs) == len(ref)
+    n_q = 0
+    for (path, w), g in zip(ref, specs):
+        if path.endswith("['q']"):
+            n_q += 1
+            assert g == w[:-2] + (w[-1], w[-2]) and g[-2] == "model", path
+        else:
+            assert g == w, path
+    assert n_q > 0
+
+
 def test_to_shardings_on_one_device_and_more():
     ref = rmesh(AXES)
     port = make_host_mesh(AXES, device="cpu")
@@ -233,7 +267,8 @@ def test_to_shardings_on_one_device_and_more():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_batch_input_and_cache_structs_match_the_reference(arch):
     """Every struct's shape and dtype, for train, prefill and decode (the
-    W8A8 param tree at prefill too); the port's hold no storage."""
+    W8A8 param tree at prefill too, the port's K-major qt leaves seen in
+    the reference's layout); the port's hold no storage."""
     rcfg, tcfg = cfgs(arch)
     for kind, shape in SHAPES.items():
         same_structs(RS.batch_structs(rcfg, shape),
@@ -244,8 +279,8 @@ def test_batch_input_and_cache_structs_match_the_reference(arch):
                  TS.cache_structs(tcfg, tshape(SHAPES["decode"])))
     if rcfg.family != "ssm":
         same_structs(RS.input_specs(rcfg, SHAPES["prefill"], quant=True),
-                     TS.input_specs(tcfg, tshape(SHAPES["prefill"]),
-                                    quant=True))
+                     reference_layout(TS.input_specs(
+                         tcfg, tshape(SHAPES["prefill"]), quant=True)))
 
 
 @pytest.mark.parametrize("arch", ["stablelm_3b", "seamless_m4t_medium",

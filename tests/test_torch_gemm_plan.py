@@ -1,9 +1,19 @@
-"""The int8 GEMM's route choice and its split-K arithmetic, on the CPU.
+"""The int8 GEMM's route choice and its split-K and stream-K arithmetic,
+on the CPU.
 
 * `gemm_plan` sends every shape TMA can describe (K % 16 == 0, A 16-byte
-  aligned) to the wgmma loop and the rest to the mma.sync loop, and cuts
-  K exactly where the output has fewer tiles than the card has SMs and
-  K is long;
+  aligned, and a B read K-major as it is aligned too) to the wgmma loop
+  and the rest to the mma.sync loop; on the wgmma loop it takes the
+  stream-K schedule exactly at M <= 64, and above it cuts K exactly where
+  the output has fewer tiles than the card has SMs and K is long;
+* the stream-K shares cover every (tile, K block) iteration exactly
+  once, contiguous, non-empty and within one iteration of each other
+  (every SM's share of B's bytes within 10 % at the LM's decode shapes);
+* a numpy mirror of the stream-K schedule (each block's share cut at
+  tile boundaries, a whole tile stored by its block, a cut tile's
+  partials added modulo 2^32 into the sum tile of its first owner, one
+  cut tile a first owner) equals the int32 accumulator of both packages, on
+  random, all -128 and wrap-and-return operands, batched and not;
 * a numpy mirror of the split-K decomposition (K cut as the kernel cuts
   it, each part an int32 sum, the parts added modulo 2^32) equals the
   int32 accumulator of both packages for every split count from 1 to 8,
@@ -17,6 +27,8 @@
 
 The CUDA kernels themselves run only on a GPU (tests/test_torch_gpu.py).
 """
+import collections
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -86,6 +98,56 @@ def split_k_mirror(a, b, split: int):
     return total.view(np.int32)
 
 
+def streamk_mirror(a, b, ctas: int):
+    """a [batch, M, K] x b [batch, K, N] int8 -> int32, as
+    wgmma_streamk_kernel sums it on `ctas` blocks: block c walks its share
+    of the (tile, K block) iterations tile by tile; a tile whose K blocks
+    all lie in the share is its block's; every owner of a tile cut between
+    shares adds its int32 partial, as uint32, to the sum tile of the
+    tile's first owner sk_owner(t0), and no two cut tiles share one."""
+    batch, M, K = a.shape
+    N = b.shape[-1]
+    BM, BN = kq.SK_TILE
+    kb = -(-K // kq.K_BLOCK)
+    m_tiles, n_tiles = -(-M // BM), -(-N // BN)
+    iters = batch * m_tiles * n_tiles * kb
+    assert iters == kq.streamk_iterations(M, K, N, batch)
+    shares = kq.streamk_shares(iters, ctas)
+    out = np.zeros((batch, M, N), np.uint32)
+    sums, owners = {}, collections.defaultdict(list)
+
+    def block(t):
+        z, mn = divmod(t, m_tiles * n_tiles)
+        mt, nt = divmod(mn, n_tiles)
+        return z, slice(mt * BM, (mt + 1) * BM), slice(nt * BN, (nt + 1) * BN)
+
+    for c, (begin, end) in enumerate(shares):
+        i = begin
+        while i < end:
+            t = i // kb
+            t0, stop = t * kb, min(end, (t + 1) * kb)
+            z, rows, cols = block(t)
+            ks = slice((i - t0) * kq.K_BLOCK, (stop - t0) * kq.K_BLOCK)
+            part = to_i32(a[z, rows, ks].astype(np.int64)
+                          @ b[z, ks, cols].astype(np.int64)).view(np.uint32)
+            if i == t0 and stop == t0 + kb:
+                out[z, rows, cols] = part
+            else:
+                first = ((t0 + 1) * ctas - 1) // iters        # sk_owner
+                assert shares[first][0] <= t0 < shares[first][1]
+                key = sums.setdefault(first, (t, np.zeros_like(part)))
+                assert key[0] == t, (first, key[0], t)   # one cut tile each
+                sums[first] = (t, key[1] + part)
+                owners[t].append(c)
+            i = stop
+    for first, (t, total) in sums.items():
+        last = ((t * kb + kb) * ctas - 1) // iters
+        assert owners[t] == list(range(first, last + 1)), (t, owners[t])
+        z, rows, cols = block(t)
+        out[z, rows, cols] = total
+    return out.view(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # route choice
 # ---------------------------------------------------------------------------
@@ -96,7 +158,8 @@ def split_k_mirror(a, b, split: int):
 def test_gemm_plan_takes_wgmma_where_tma_describes_a(mknb):
     M, K, N, batch = mknb
     plan = kq.gemm_plan(M, K, N, batch, ALIGNED)
-    assert plan.route == "wgmma" and plan.tile[0] == kq.TILE_M
+    assert plan.route == "wgmma" and plan.tile[0] == \
+        (kq.SK_TILE[0] if M <= kq.SMALL_M else kq.TILE_M)
     assert plan.tile[1] in (128, 256) and plan.split >= 1
 
 
@@ -113,6 +176,16 @@ def test_gemm_plan_keeps_mma_sync_for_a_misaligned_a(offset):
     assert kq.gemm_plan(4096, 784, 64, 1, ALIGNED + 16).route == "wgmma"
 
 
+@pytest.mark.parametrize("offset", [1, 8, 15])
+def test_gemm_plan_keeps_mma_sync_for_a_misaligned_k_major_b(offset):
+    """A B read K-major as it is must be 16-byte aligned too."""
+    for M in (8, 512):
+        assert kq.gemm_plan(M, 784, 64, 1, ALIGNED,
+                            b_ptr=ALIGNED + offset).route == "mma.sync"
+        assert kq.gemm_plan(M, 784, 64, 1, ALIGNED,
+                            b_ptr=ALIGNED + 16).route == "wgmma"
+
+
 def test_gemm_plan_keeps_mma_sync_for_empty_and_too_wide_products():
     for mknb in ((0, 16, 8, 1), (8, 0, 8, 1), (8, 16, 0, 1), (8, 16, 8, 0),
                  (8, 16, kq.MAX_TRANSPOSE_N + 1, 1)):
@@ -126,19 +199,36 @@ def test_the_headline_shapes_plan():
         kq.GemmPlan("wgmma", (128, 256), 1)
     assert plan(4096, 784, 64, 1, ALIGNED) == kq.GemmPlan("wgmma",
                                                           (128, 128), 3)
-    assert plan(4, 140_000, 8, 1, ALIGNED) == kq.GemmPlan("wgmma",
-                                                          (128, 128), 132)
+    assert plan(4, 140_000, 8, 1, ALIGNED) == kq.GemmPlan(
+        "wgmma", (64, 128), 1, "stream-k", 132)
     assert plan(256, 256, 256, 8, ALIGNED) == kq.GemmPlan("wgmma",
                                                           (128, 128), 1)
+    # the LM's W8A8 products: qwen3_14b's down projection at a decode
+    # step and its gate/up at a prefill, phi35_moe's experts at both
+    assert plan(8, 17408, 5120, 1, ALIGNED, b_ptr=ALIGNED) == kq.GemmPlan(
+        "wgmma", (64, 128), 1, "stream-k", 132)
+    assert plan(512, 5120, 17408, 1, ALIGNED, b_ptr=ALIGNED) == \
+        kq.GemmPlan("wgmma", (128, 256), 1)
+    assert plan(4, 4096, 6400, 16, ALIGNED, b_ptr=ALIGNED) == kq.GemmPlan(
+        "wgmma", (64, 128), 1, "stream-k", 132)
+    assert plan(96, 4096, 6400, 16, ALIGNED, b_ptr=ALIGNED) == \
+        kq.GemmPlan("wgmma", (128, 256), 1)
 
 
 @pytest.mark.parametrize("sms", [132, 114, 8])
 def test_split_exactly_where_tiles_are_fewer_than_sms_and_k_is_long(sms):
-    for M in (1, 64, 128, 129, 1000, 4096, 20_000):
+    """Above SMALL_M rows (at or below it the stream-K schedule takes
+    every shape, and never splits)."""
+    for M in (1, 64, 65, 128, 129, 1000, 4096, 20_000):
         for N in (8, 128, 256, 300, 4096):
             for K in (16, 256, 384, 512, 784, 4096, 140_000):
                 for batch in (1, 3):
                     plan = kq.gemm_plan(M, K, N, batch, ALIGNED, sms)
+                    if M <= kq.SMALL_M:
+                        assert plan.schedule == "stream-k" and \
+                            plan.split == 1, (M, K, N, batch, plan)
+                        continue
+                    assert plan.schedule == "tiles" and plan.ctas == 0
                     tiles = batch * -(-M // 128) * -(-N // plan.tile[1])
                     kblocks = -(-K // kq.K_BLOCK)
                     long_k = kblocks >= 2 * kq.MIN_SPLIT_KBLOCKS
@@ -152,8 +242,72 @@ def test_split_exactly_where_tiles_are_fewer_than_sms_and_k_is_long(sms):
                         assert N >= 256 and tiles >= sms
 
 
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 64, 65, 96, 512])
+def test_gemm_plan_takes_stream_k_exactly_at_small_m(M):
+    """Both sides of the switch, at a qwen3_14b decode shape: 64 x 128
+    tiles on min(sms, iterations // MIN_SPLIT_KBLOCKS) blocks at M <= 64,
+    128-row tiles above."""
+    for K, N, batch in ((17408, 5120, 1), (5120, 1024, 1), (4096, 6400, 16),
+                        (256, 8, 1), (16, 8, 3)):
+        for sms in (132, 114, 8):
+            plan = kq.gemm_plan(M, K, N, batch, ALIGNED, sms, ALIGNED)
+            if M > kq.SMALL_M:
+                assert plan.schedule == "tiles" and plan.tile[0] == 128
+                continue
+            iters = kq.streamk_iterations(M, K, N, batch)
+            assert plan == kq.GemmPlan(
+                "wgmma", kq.SK_TILE, 1, "stream-k",
+                min(sms, max(1, iters // kq.MIN_SPLIT_KBLOCKS)))
+            assert iters == batch * -(-N // 128) * -(-K // kq.K_BLOCK)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_stream_k_shares_cover_every_iteration_once_and_balance(sms):
+    for M in (1, 8, 64):
+        for N in (8, 128, 300, 5120, 17408):
+            for K in (16, 256, 784, 5120, 17408, 140_000):
+                for batch in (1, 3, 16):
+                    plan = kq.gemm_plan(M, K, N, batch, ALIGNED, sms)
+                    iters = kq.streamk_iterations(M, K, N, batch)
+                    shares = kq.streamk_shares(iters, plan.ctas)
+                    assert 1 <= plan.ctas <= sms
+                    assert shares[0][0] == 0 and shares[-1][1] == iters
+                    assert all(e == b for (_, e), (b, _) in
+                               zip(shares, shares[1:]))
+                    sizes = [e - b for b, e in shares]
+                    assert min(sizes) >= 1
+                    assert max(sizes) - min(sizes) <= 1
+                    if iters >= sms * kq.MIN_SPLIT_KBLOCKS:
+                        assert plan.ctas == sms
+                    if iters >= kq.MIN_SPLIT_KBLOCKS:
+                        assert min(sizes) >= kq.MIN_SPLIT_KBLOCKS
+                    assert kq.streamk_work_ints(plan, M) == \
+                        plan.ctas * (1 + M * 128)
+
+
+@pytest.mark.parametrize("mknb", [(8, 17408, 5120, 1), (8, 5120, 17408, 1),
+                                  (8, 5120, 152064, 1), (4, 4096, 6400, 16),
+                                  (4, 6400, 4096, 16), (8, 1024, 256256, 1)],
+                         ids=str)
+def test_stream_k_balances_the_bytes_of_b_at_the_decode_shapes(mknb):
+    """Every block's share of B's bytes (a K block of a tile is 128 x 128
+    bytes of B, fewer on a ragged edge) within 10 % of every other's."""
+    M, K, N, batch = mknb
+    plan = kq.gemm_plan(M, K, N, batch, ALIGNED, b_ptr=ALIGNED)
+    kb, n_tiles = -(-K // kq.K_BLOCK), -(-N // 128)
+
+    def b_bytes(i):
+        nt, k = (i // kb) % n_tiles, i % kb
+        return min(128, N - 128 * nt) * min(kq.K_BLOCK, K - kq.K_BLOCK * k)
+    iters = kq.streamk_iterations(M, K, N, batch)
+    loads = [sum(map(b_bytes, range(b, e)))
+             for b, e in kq.streamk_shares(iters, plan.ctas)]
+    assert plan.ctas == kq.H100_SMS and sum(loads) == batch * K * N
+    assert max(loads) <= 1.1 * min(loads), (min(loads), max(loads))
+
+
 # ---------------------------------------------------------------------------
-# split-K arithmetic
+# split-K and stream-K arithmetic
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("split", range(1, 9))
 @pytest.mark.parametrize("kind", ["random", "all -128", "wrap-and-return"])
@@ -167,6 +321,29 @@ def test_split_k_mirror_equals_the_int32_accumulator(kind, split):
         .numpy())
     if split == 1:
         np.testing.assert_array_equal(got, split_k_mirror(a, b, 132))
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 7, 49, 132])
+@pytest.mark.parametrize("kind", ["random", "all -128", "wrap-and-return",
+                                  "batched"])
+def test_stream_k_mirror_equals_the_int32_accumulator(kind, ctas):
+    if kind == "batched":
+        rng = np.random.default_rng(8)
+        a = rng.integers(-128, 128, (3, 40, 1296)).astype(np.int8)
+        b = rng.integers(-128, 128, (3, 1296, 300)).astype(np.int8)
+    else:
+        a, b = (x[None] for x in operands(kind))
+    iters = kq.streamk_iterations(a.shape[1], a.shape[2], b.shape[2],
+                                  a.shape[0])
+    ctas = min(ctas, iters)
+    got = streamk_mirror(a, b, ctas)
+    for z in range(a.shape[0]):
+        want = np.asarray(R.matmul_q7_acc(jnp.asarray(a[z]),
+                                          jnp.asarray(b[z])))
+        np.testing.assert_array_equal(got[z], want)
+        np.testing.assert_array_equal(
+            got[z], T.matmul_q7_acc(torch.from_numpy(a[z]),
+                                    torch.from_numpy(b[z])).numpy())
 
 
 def test_the_wrap_and_return_pair_needs_wrapping_everywhere():

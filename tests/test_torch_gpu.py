@@ -349,14 +349,17 @@ def test_cuda_transpose_kn_matches_the_plain_transpose(cuda):
 @pytest.mark.gpu
 def test_cuda_wrap_and_return_on_every_route(cuda):
     """The running int32 sum overflows partway through K and comes back:
-    the split-K plan gemm_plan picks, one wgmma block per tile and the
-    mma.sync loop all wrap, so all equal the plain version."""
+    the stream-K plan gemm_plan picks (K cut between 132 blocks), a
+    split-K plan, one wgmma block per tile and the mma.sync loop all
+    wrap, so all equal the plain version."""
     a, b = wrap_and_return(8, 265_296, 16, np.random.default_rng(11))
     ad, bd = a.to(cuda), b.to(cuda)
     sh = torch.arange(-8, 8, dtype=torch.int32)
     planned = kq.plan_for(ad, bd)
-    assert planned.route == "wgmma" and planned.split > 1
-    for plan in (None, kq.GemmPlan("wgmma", (128, 128), 1),
+    assert planned.route == "wgmma" and planned.schedule == "stream-k" \
+        and planned.ctas > 1
+    for plan in (None, kq.GemmPlan("wgmma", (128, 128), 8),
+                 kq.GemmPlan("wgmma", (128, 128), 1),
                  kq.GemmPlan("mma.sync", (128, 128), 1)):
         for shift in (0, 20, 31):
             got, _ = kq._launch(ad, bd, shift, "floor", plan)
@@ -585,10 +588,11 @@ def test_cuda_search_candidates_equal_the_torch_backends(cuda):
 # the LM path: w8a8_dense and a reduced qwen3_14b
 # ---------------------------------------------------------------------------
 def dense_operands(rng, M, K, N):
-    xq, wq = i8(rng, (M, K)), i8(rng, (K, N))
+    """xq [M, K], W stored K-major (wt [N, K]) and the exponents."""
+    xq, wt = i8(rng, (M, K)), i8(rng, (N, K))
     xe = torch.tensor(float(rng.integers(-24, 25)))
     n = torch.from_numpy(rng.integers(-24, 25, (N,)).astype(np.int32))
-    return xq, wq, xe, n
+    return xq, wt, xe, n
 
 
 @pytest.mark.gpu
@@ -598,21 +602,24 @@ def dense_operands(rng, M, K, N):
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=str)
 def test_cuda_w8a8_dense_matches_plain_on_each_route(cuda, mkn_offset, out):
     """Bit for bit on the route gemm_plan names (A `offset` bytes past a
-    16-byte boundary takes mma.sync), one launch counted per call."""
+    16-byte boundary takes mma.sync), one launch counted per call, no
+    transpose of W."""
     from repro_torch.kernels import w8a8_dense as kd
     M, K, N, offset = mkn_offset
     rng = np.random.default_rng(M + K + N + offset)
-    xq, wq, xe, n = dense_operands(rng, M, K, N)
+    xq, wt, xe, n = dense_operands(rng, M, K, N)
     buf = torch.zeros(M * K + 16, dtype=torch.int8, device=cuda)
     xd = buf[offset:offset + M * K].view(M, K)
     xd.copy_(xq)
-    plan = kq.plan_for(xd, wq.to(cuda))
+    plan = kq.plan_for(xd, wt.to(cuda), b_kmajor=True)
     before = dict(kd.w8a8_dense.launches_by_route)
-    got = ops.w8a8_dense(xd, wq.to(cuda), xe.to(cuda), n.to(cuda), out)
+    t0 = kq.transpose_kn.launches
+    got = ops.w8a8_dense(xd, wt.to(cuda), xe.to(cuda), n.to(cuda), out)
     before[plan.route] += 1
     assert kd.w8a8_dense.launches_by_route == before
+    assert kq.transpose_kn.launches == t0
     assert got.dtype == out
-    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wq, xe, n, out))
+    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wt, xe, n, out))
 
 
 @pytest.mark.gpu
@@ -624,13 +631,77 @@ def test_cuda_w8a8_dense_every_tile_and_split(cuda, tile_split):
     plan = kq.GemmPlan("wgmma", (128, tile_n), split)
     rng = np.random.default_rng(tile_n * split)
     for M, K, N in ((8, 2048, 8), (200, 784, 300), (129, 1040, 257)):
-        xq, wq, xe, n = dense_operands(rng, M, K, N)
+        xq, wt, xe, n = dense_operands(rng, M, K, N)
         for out in (torch.bfloat16, torch.float32):
-            got, used = kd._launch(xq.to(cuda), wq.to(cuda), xe.to(cuda),
+            got, used = kd._launch(xq.to(cuda), wt.to(cuda), xe.to(cuda),
                                    n.to(cuda), out, plan)
             assert used == plan
             assert torch.equal(got.cpu(),
-                               kd.w8a8_dense_plain(xq, wq, xe, n, out))
+                               kd.w8a8_dense_plain(xq, wt, xe, n, out))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 4, 8, 16, 64, 65, 512])
+def test_cuda_w8a8_faces_across_the_small_m_switch_on_both_routes(cuda, M):
+    """Both faces on K-major W at M on both sides of the stream-K switch,
+    on the route gemm_plan picks and on mma.sync (forced), bit for bit;
+    no call launches transpose_kn."""
+    from repro_torch.kernels import w8a8_dense as kd
+    rng = np.random.default_rng(M)
+    mma = kq.GemmPlan("mma.sync", (128, 128), 1)
+    t0 = kq.transpose_kn.launches
+    for K, N in ((2048, 640), (1040, 257)):
+        xq, wt, xe, n = dense_operands(rng, M, K, N)
+        args = [t.to(cuda) for t in (xq, wt, xe, n)]
+        plan = kq.plan_for(args[0], args[1], b_kmajor=True)
+        assert plan.route == "wgmma"
+        assert plan.schedule == ("stream-k" if M <= 64 else "tiles")
+        want = kd.w8a8_dense_plain(xq, wt, xe, n)
+        assert torch.equal(ops.w8a8_dense(*args).cpu(), want)
+        assert torch.equal(kd._launch(*args, torch.bfloat16, mma)[0].cpu(),
+                           want)
+        E = 3
+        xq, wt, xe, n = bmm_operands(rng, E, M, K, N)
+        args = [t.to(cuda) for t in (xq, wt, xe, n)]
+        want = kd.w8a8_dense_plain(xq, wt, xe, n)
+        assert torch.equal(ops.w8a8_bmm(*args).cpu(), want)
+        assert torch.equal(kd._launch(*args, torch.bfloat16, mma)[0].cpu(),
+                           want)
+    assert kq.transpose_kn.launches == t0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctas", [1, 2, 7, 50, 132])
+def test_cuda_stream_k_any_block_count_matches_plain(cuda, ctas):
+    """The stream-K schedule on any number of blocks (every tile whole,
+    tiles cut between two blocks, tiles cut between many, shares across
+    tile and batch boundaries) gives the plain version's bits, in all
+    four libraries that share it."""
+    from repro_torch.kernels import w8a8_dense as kd
+    rng = np.random.default_rng(ctas)
+    for E, M, K, N in ((1, 8, 2048, 300), (3, 64, 1040, 257),
+                       (2, 1, 4096, 8)):
+        iters = kq.streamk_iterations(M, K, N, E)
+        plan = kq.GemmPlan("wgmma", kq.SK_TILE, 1, "stream-k",
+                           min(ctas, iters))
+        xq, wt, xe, n = bmm_operands(rng, E, M, K, N)
+        for out in (torch.bfloat16, torch.float32):
+            got, used = kd._launch(xq.to(cuda), wt.to(cuda), xe.to(cuda),
+                                   n.to(cuda), out, plan)
+            assert used == plan
+            assert torch.equal(got.cpu(),
+                               kd.w8a8_dense_plain(xq, wt, xe, n, out))
+        a, b = xq[0], wt[0].t().contiguous()
+        sh = torch.from_numpy(rng.integers(-40, 41, (N,)).astype(np.int32))
+        plan = plan._replace(ctas=min(ctas, kq.streamk_iterations(M, K, N,
+                                                                  1)))
+        got, _ = kq._launch(a.to(cuda), b.to(cuda), 11, "nearest", plan)
+        assert torch.equal(got.cpu(), kq.matmul_q7_plain(a, b, 11,
+                                                         "nearest"))
+        got, _ = kw._launch(a.to(cuda), b.to(cuda), sh.to(cuda), "floor",
+                            plan)
+        assert torch.equal(got.cpu(), kw.w8a8_matmul_plain(a, b, sh,
+                                                           "floor"))
 
 
 def lm_setup(quant: str):
@@ -729,11 +800,12 @@ def test_cuda_reduced_qwen3_w8a8_blocks_match_the_cpu(cuda, f32_sums):
 # phi35_moe
 # ---------------------------------------------------------------------------
 def bmm_operands(rng, E, M, K, N):
-    """Operands of E expert products, each expert its own exponents."""
-    xq, wq = i8(rng, (E, M, K)), i8(rng, (E, K, N))
+    """Operands of E expert products, W stored K-major (wt [E, N, K]),
+    each expert its own exponents."""
+    xq, wt = i8(rng, (E, M, K)), i8(rng, (E, N, K))
     xe = torch.tensor(float(rng.integers(-24, 25)))
     n = torch.from_numpy(rng.integers(-24, 25, (E, N)).astype(np.int32))
-    return xq, wq, xe, n
+    return xq, wt, xe, n
 
 
 @pytest.mark.gpu
@@ -748,18 +820,20 @@ def test_cuda_w8a8_bmm_matches_plain_on_each_route(cuda, emkn, out):
     would differ (checked)."""
     from repro_torch.kernels import w8a8_dense as kd
     rng = np.random.default_rng(sum(emkn))
-    xq, wq, xe, n = bmm_operands(rng, *emkn)
-    args = [t.to(cuda) for t in (xq, wq, xe, n)]
-    plan = kq.plan_for(args[0], args[1])
+    xq, wt, xe, n = bmm_operands(rng, *emkn)
+    args = [t.to(cuda) for t in (xq, wt, xe, n)]
+    plan = kq.plan_for(args[0], args[1], b_kmajor=True)
     before = dict(kd.w8a8_bmm.launches_by_route)
+    t0 = kq.transpose_kn.launches
     got = ops.w8a8_bmm(*args, out)
     before[plan.route] += 1
     assert kd.w8a8_bmm.launches_by_route == before
-    want = kd.w8a8_dense_plain(xq, wq, xe, n, out)
+    assert kq.transpose_kn.launches == t0
+    want = kd.w8a8_dense_plain(xq, wt, xe, n, out)
     assert got.dtype == out and torch.equal(got.cpu(), want)
     if emkn[0] > 1:
         assert not torch.equal(want, kd.w8a8_dense_plain(
-            xq, wq, xe, n[:1].expand_as(n), out))
+            xq, wt, xe, n[:1].expand_as(n), out))
 
 
 @pytest.mark.gpu
@@ -774,11 +848,11 @@ def test_cuda_w8a8_bmm_every_tile_and_split(cuda, tile_split):
     rng = np.random.default_rng(tile_n + split)
     for E, M, K, N in ((4, 8, 2048, 8), (3, 200, 784, 300),
                        (2, 129, 1040, 257)):
-        xq, wq, xe, n = bmm_operands(rng, E, M, K, N)
-        got, used = kd._launch(xq.to(cuda), wq.to(cuda), xe.to(cuda),
+        xq, wt, xe, n = bmm_operands(rng, E, M, K, N)
+        got, used = kd._launch(xq.to(cuda), wt.to(cuda), xe.to(cuda),
                                n.to(cuda), torch.bfloat16, plan)
         assert used == plan
-        assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wq, xe, n))
+        assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wt, xe, n))
 
 
 @pytest.mark.gpu
@@ -845,9 +919,9 @@ def test_cuda_w8a8_dense_at_the_ssm_and_encdec_products(cuda, kn):
     lm_head) at a decode step's M = 8, bit for bit."""
     from repro_torch.kernels import w8a8_dense as kd
     K, N = kn
-    xq, wq, xe, n = dense_operands(np.random.default_rng(K + N), 8, K, N)
-    got = ops.w8a8_dense(xq.to(cuda), wq.to(cuda), xe.to(cuda), n.to(cuda))
-    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wq, xe, n))
+    xq, wt, xe, n = dense_operands(np.random.default_rng(K + N), 8, K, N)
+    got = ops.w8a8_dense(xq.to(cuda), wt.to(cuda), xe.to(cuda), n.to(cuda))
+    assert torch.equal(got.cpu(), kd.w8a8_dense_plain(xq, wt, xe, n))
 
 
 def mixer_case(name):

@@ -223,20 +223,21 @@ def test_q_einsum_refuses_another_spec():
 @pytest.mark.parametrize("out", [torch.bfloat16, torch.float32], ids=str)
 def test_batched_plain_is_a_loop_of_the_2d_plain(out):
     """w8a8_bmm's plain version (and ops.w8a8_bmm on the CPU) equals the
-    2-D plain version run expert by expert, each with its own n."""
+    2-D plain version run expert by expert, each with its own n, on W
+    stored K-major ([E, N, K])."""
     rng = np.random.default_rng(4)
     E, M, K, N = 3, 7, 100, 33
     xq = torch.from_numpy(rng.integers(-128, 128, (E, M, K)).astype(np.int8))
-    wq = torch.from_numpy(rng.integers(-128, 128, (E, K, N)).astype(np.int8))
+    wt = torch.from_numpy(rng.integers(-128, 128, (E, N, K)).astype(np.int8))
     n = torch.from_numpy(rng.integers(-24, 25, (E, N)).astype(np.int32))
     xe = torch.tensor(-3.0)
-    want = torch.stack([kd.w8a8_dense_plain(xq[e], wq[e], xe, n[e], out)
+    want = torch.stack([kd.w8a8_dense_plain(xq[e], wt[e], xe, n[e], out)
                         for e in range(E)])
     for fn in (kd.w8a8_dense_plain, ops.w8a8_bmm):
-        got = fn(xq, wq, xe, n, out)
+        got = fn(xq, wt, xe, n, out)
         assert got.dtype == out and torch.equal(got, want)
     # each expert's exponents matter: expert 0's n everywhere differs
-    wrong = kd.w8a8_dense_plain(xq, wq, xe, n[:1].expand(E, N), out)
+    wrong = kd.w8a8_dense_plain(xq, wt, xe, n[:1].expand(E, N), out)
     assert not torch.equal(wrong, want)
 
 
@@ -251,7 +252,8 @@ def test_w8a8_bmm_refuses_what_it_does_not_take():
 def test_moe_params_cross_the_converter_both_ways(arch):
     """The float32 router, bf16 [C, E, d, f] experts and the W8A8
     {"q", "n"} experts (n [C, E, N]) come across leaf for leaf, and
-    `quantize_lm_params` quantizes the expert leaves as the reference."""
+    `quantize_lm_params` quantizes the expert leaves as the reference,
+    its qt [C, E, N, K] the reference's q [C, E, K, N] transposed."""
     from repro_torch.convert import lm_params_to_reference
     cfg = reduced(rget(arch), d_model=64)
     rp = RT.build_model(cfg).init(jax.random.key(0))
@@ -270,9 +272,10 @@ def test_moe_params_cross_the_converter_both_ways(arch):
     tq = TQ.quantize_lm_params(tp)["blocks"][0]["moe"]
     for k in ("w_gate", "w_up", "w_down"):
         assert tuple(tq[k]["n"].shape) == (C, E, moe_t[k].shape[-1])
-        for leaf in ("q", "n"):
-            assert np.array_equal(tq[k][leaf].numpy(),
-                                  np.asarray(rq["blocks"][0]["moe"][k][leaf]))
+        want = rq["blocks"][0]["moe"][k]
+        assert np.array_equal(tq[k]["qt"].swapaxes(-1, -2).numpy(),
+                              np.asarray(want["q"]))
+        assert np.array_equal(tq[k]["n"].numpy(), np.asarray(want["n"]))
     assert tq["router"].dtype == torch.float32
 
 

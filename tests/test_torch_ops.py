@@ -253,9 +253,10 @@ def _calls(dev):
         "bmm_q7": lambda: ops.bmm_q7(a[None], b[None], 3),
         "w8a8_matmul": lambda: ops.w8a8_matmul(a, b, sh),
         "w8a8_dense": lambda: ops.w8a8_dense(
-            a, b, torch.zeros((), device=dev), sh),
+            a, b.t().contiguous(), torch.zeros((), device=dev), sh),
         "w8a8_bmm": lambda: ops.w8a8_bmm(
-            a[None], b[None], torch.zeros((), device=dev), sh[None]),
+            a[None], b.t().contiguous()[None], torch.zeros((), device=dev),
+            sh[None]),
         "squash_q7": lambda: ops.squash_q7(a.reshape(32, 4), in_frac=5),
         "squash_float": lambda: ops.squash_float(
             torch.zeros((8, 4), device=dev)),
