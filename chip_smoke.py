@@ -319,6 +319,26 @@ Phases, each raising on failure:
    loss and grad norm within `LM_TRAIN_CPU_RTOL` of the port's CPU step
    on the same weights, and the learning check (`[train-lm]` lines).  It
    launches none of the port's kernels.
+17. (run last, after phase 16) the one-card dry run,
+   `repro_torch.launch.dryrun` (every cell's real step on meta tensors
+   under `dist.op_analysis`'s trip-weighted counter, on the host's CPU,
+   no card): (a) `python -m repro_torch.launch.dryrun --all --mesh
+   single` and the same with `--quant`, into build/dryrun_smoke/, each
+   exit 0 with every record `ok` or `skipped` with the reference's
+   reason, a `[dryrun]` line a cell (dominant term, bound ms, GiB a
+   card, whether it fits the card's memory) and the grids' seconds
+   (target 180 s together, printed); (b) the cells this script ran on
+   the card dry-run in process: qwen3_14b decode at phase 12's 8 rows
+   and 512-slot cache, float and W8A8, and stablelm_3b train at phase
+   16's B 8 x S 256, a `[roofline]` line each with flops, bytes, each
+   term, the bound beside the measured ms (phase 12's warm decode ms a
+   step, phase 16's median step) and the share bound / measured, which
+   must be at most 1.05 (a bound above the measured time means a wrong
+   count); the meta-counted `w8a8_dense` calls of a W8A8 decode step
+   must equal phase 12's launches a step (8,992 / 32 = 281), and the dry
+   run's training GiB must lie within 25 % of phase 16's
+   `torch.cuda.max_memory_allocated`.  It launches nothing and times
+   nothing of its own.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -343,8 +363,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-INT8_OPS_PER_S = 1.979e15          # H100 SXM dense int8 tensor-core rate
+# the H100 SXM's HBM rate and dense int8 and bf16 tensor-core rates, bound
+# by main() from repro_torch.launch.roofline (HBM_BW, PEAK_INT8, PEAK_BF16)
+HBM_BYTES_PER_S = INT8_OPS_PER_S = BF16_OPS_PER_S = None
 F32_OPS_PER_S = 67e12              # H100 SXM float32 outside tensor cores
 # int32 multiply-adds on the CUDA cores (2 ops each): an SM has 64 int32
 # lanes against 128 float32 lanes, so half the float32 rate
@@ -2802,7 +2823,6 @@ def encdec_phase(dev, card: str) -> dict:
 # its own (deterministic algorithms, CUBLAS_WORKSPACE_CONFIG)
 # ---------------------------------------------------------------------------
 LM_TRAIN_DIR = ROOT / "build" / "lm_train_smoke"
-BF16_OPS_PER_S = 989e12            # H100 SXM dense bf16 tensor-core rate
 LM_TRAIN_ARGV = ["--arch", "stablelm_3b", "--steps", "12", "--batch", "8",
                  "--seq", "256", "--log-every", "1"]
 # (b): the same width cut to 4 of 32 layers (0.57 B parameters), so that
@@ -3777,6 +3797,142 @@ def log_device_times(card: str, dt: dict) -> None:
             f"{bound / ms:.1%} of it{vs_floor}")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the one-card dry run (repro_torch.launch.dryrun, meta tensors
+# on the host's CPU) and its bounds against the card's measured steps
+# ---------------------------------------------------------------------------
+DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
+DRYRUN_TARGET_S = 180         # both grids together (printed, not gated)
+ROOFLINE_SHARE_MAX = 1.05     # bound / measured: above it the count is wrong
+DRYRUN_PEAK_RTOL = 0.25       # the dry run's training peak against the card's
+
+
+def dryrun_grid(card: str, quant: bool, card_gib: float) -> float:
+    """`python -m repro_torch.launch.dryrun --all --mesh single` (and
+    --quant) into DRYRUN_DIR, exit 0 required, every record `ok` or
+    `skipped` with a reason, a `[dryrun]` line a cell; its seconds."""
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    args = ["--all", "--mesh", "single", "--force", "--out",
+            str(DRYRUN_DIR)] + (["--quant"] if quant else [])
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=900)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.dryrun {args}: exit {proc.returncode}"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    recs = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            name = f"{arch}__{shape}__single{'__w8a8' if quant else ''}.json"
+            rec = json.loads((DRYRUN_DIR / name).read_text())
+            recs.append(rec)
+            what = f"[dryrun] {card} | {arch} x {shape}" + (
+                " w8a8" if quant else "")
+            if rec["status"] == "skipped" and rec.get("reason"):
+                log(f"{what}: skipped: {rec['reason']}")
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"{what}: {rec['status']} "
+                                     f"{rec.get('error')}")
+            gib = rec["hbm_gib_per_dev"]
+            log(f"{what}: dominant {rec['dominant']}, bound "
+                f"{rec['step_time_lower_bound_s'] * 1e3:.3f} ms, "
+                f"{gib:.2f} GiB a card, fits one card's {card_gib:.2f} GiB: "
+                f"{'yes' if gib <= card_gib else 'no'}")
+    log(f"[dryrun] {card} | the {'W8A8 ' if quant else ''}grid: "
+        f"{sum(r['status'] == 'ok' for r in recs)} cells ok, "
+        f"{sum(r['status'] == 'skipped' for r in recs)} skipped, in "
+        f"{secs:.1f} s (process included)")
+    return secs
+
+
+def dryrun_phase(card: str, lm: dict, train_lm: dict) -> dict:
+    """Phase 17: (a) both grids; (b) the cells the card ran, dry-run in
+    this process, each bound held against the step the card measured
+    (phase 12's warm decode ms a step, phase 16's median step): a share
+    above ROOFLINE_SHARE_MAX fails; the meta-counted `w8a8_dense` calls
+    of a W8A8 decode step must equal phase 12's launches a step, and the
+    dry run's training peak must lie within DRYRUN_PEAK_RTOL of phase
+    16's `torch.cuda.max_memory_allocated`."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import analyze_step
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    secs = [dryrun_grid(card, q, card_gib) for q in (False, True)]
+    log(f"[dryrun] {card} | both grids in {sum(secs):.1f} s (target "
+        f"{DRYRUN_TARGET_S} s, the chip host's CPU)")
+
+    qwen, stablelm = get_config("qwen3_14b"), get_config("stablelm_3b")
+    # phase 12 decodes 8 rows at positions LM_PROMPT .. LM_PROMPT + LM_GEN
+    # - 2 of a decode_alloc(LM_PROMPT + LM_GEN) = 512-slot cache; the dry
+    # run decodes at the shape's last slot, seq_len - 1
+    decode = ShapeSpec("phase12_decode", "decode", LM_PROMPT + LM_GEN - 1,
+                       LM_REQUESTS)
+    train = ShapeSpec("phase16_train", "train", task_seq(stablelm),
+                      task_batch(stablelm))
+    per_step = lm["qwen_w8a8"]["launches"] / LM_GEN
+    rows = []
+    for what, cfg, shape, quant, measured in (
+            ("qwen3_14b decode float", qwen, decode, False,
+             lm["qwen_float"]["warm_decode_ms_step"]),
+            ("qwen3_14b decode w8a8", qwen, decode, True,
+             lm["qwen_w8a8"]["warm_decode_ms_step"]),
+            ("stablelm_3b train", stablelm, train, False,
+             train_lm["stablelm_3b"]["ms"])):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rec, cost = analyze_step(cfg, shape, quant=quant)
+        bound = rec["step_time_lower_bound_s"] * 1e3
+        t = rec["terms"]
+        row = dict(what=what, flops=rec["flops_per_dev"],
+                   bytes=rec["bytes_per_dev"],
+                   terms_ms={k: v * 1e3 for k, v in t.items()},
+                   dominant=rec["dominant"], bound_ms=bound,
+                   measured_ms=measured, share=bound / measured,
+                   gib=rec["hbm_gib_per_dev"], seconds=rec["compile_s"])
+        extra = ""
+        if quant:
+            row["w8a8_dense_a_step"] = cost.ops.get("w8a8_dense", 0)
+            row["card_launches_a_step"] = per_step
+            extra = (f"; w8a8_dense counted {row['w8a8_dense_a_step']} a "
+                     f"step on meta, the card launched "
+                     f"{lm['qwen_w8a8']['launches']} over {LM_GEN} forwards "
+                     f"({per_step:g} a step)")
+        if shape.kind == "train":
+            row["card_peak_gib"] = train_lm["stablelm_3b"]["peak_gib"]
+            row["peak_rel"] = row["gib"] / row["card_peak_gib"] - 1
+            extra = (f"; peak {row['gib']:.2f} GiB dry-run against "
+                     f"{row['card_peak_gib']:.2f} GiB max_memory_allocated "
+                     f"({row['peak_rel']:+.1%})")
+        log(f"[roofline] {card} | {what} (B {shape.global_batch}, S "
+            f"{shape.seq_len}): {row['flops']:.4e} flops, "
+            f"{row['bytes']:.4e} bytes; compute {t['compute_s'] * 1e3:.3f} "
+            f"ms, memory {t['memory_s'] * 1e3:.3f} ms, collective "
+            f"{t['collective_s'] * 1e3:.3f} ms; bound {bound:.3f} ms "
+            f"({rec['dominant']}) against {measured:.3f} ms measured: share "
+            f"{row['share']:.3f}" + extra)
+        if row["share"] > ROOFLINE_SHARE_MAX:
+            raise AssertionError(f"{what}: bound {bound:.3f} ms above the "
+                                 f"measured {measured:.3f} ms: the count is "
+                                 "wrong")
+        if quant and row["w8a8_dense_a_step"] != per_step:
+            raise AssertionError(f"{what}: w8a8_dense counted "
+                                 f"{row['w8a8_dense_a_step']} a step on "
+                                 f"meta, the card launched {per_step}")
+        if shape.kind == "train" and abs(row["peak_rel"]) > DRYRUN_PEAK_RTOL:
+            raise AssertionError(f"{what}: dry-run peak {row['gib']:.2f} GiB "
+                                 f"against the card's "
+                                 f"{row['card_peak_gib']:.2f}")
+        rows.append(row)
+    return dict(grid_s=secs, rows=rows)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--device-times"], ["--forward-worker"],
@@ -3797,6 +3953,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    global HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S
+    try:
+        from repro_torch.launch import roofline
+        HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = \
+            roofline.HBM_BW, roofline.PEAK_INT8, roofline.PEAK_BF16
+    except ImportError:  # a tree older than the module (--device-times)
+        HBM_BYTES_PER_S, INT8_OPS_PER_S, BF16_OPS_PER_S = \
+            3.35e12, 1.979e15, 989e12
     if argv[:1] == ["--forward-pairs"]:
         card = card_line()
         forward_pairs(Path(argv[1]).resolve(), card)
@@ -4034,9 +4198,14 @@ def main(argv=None) -> int:
             row["int_mm_device_ms"] = dt["int_mm"].get(
                 shape_key(row["shape"]))
 
-    # phase 16, last: LM training in a process of its own; it launches
-    # none of the kernels, and no profiler session follows it
+    # phase 16: LM training in a process of its own; it launches none of
+    # the kernels, and no profiler session follows it
     train_lm = train_lm_phase(card)
+
+    # phase 17, last: the one-card dry run on the host's CPU, its bounds
+    # held against the steps phases 12 and 16 measured (no launch, no
+    # timing of its own)
+    dryrun = dryrun_phase(card, lm, train_lm)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
@@ -4128,6 +4297,7 @@ def main(argv=None) -> int:
     log("kernels: " + ", ".join(f"{k['name']} x{k['launches']}"
                                 for k in record["kernels"]))
     log(f"[train-lm] summary {json.dumps(train_lm)}")
+    log(f"[dryrun] summary {json.dumps(dryrun)}")
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "
         f"the build included")
     log(card)

@@ -7,7 +7,11 @@ Submodules:
   sharding — the spec rules for params, optimizer state, batches and
              caches; `to_shardings` for a mesh of one device.
   fault    — `choose_mesh`, `run_with_restarts` and `StepTimer`.
+  op_analysis — the counterpart of `hlo_analysis`: a trip-weighted
+             count of a step's flops, bytes, collective bytes and ops,
+             and its peak live bytes, read off the aten ops it
+             dispatches (the port has no HLO).
 
-`hlo_analysis` is not ported, and a mesh of more than one device raises
-NotImplementedError (ROADMAP Queue A).
+A mesh of more than one device raises NotImplementedError (ROADMAP
+Queue A, multi-card).
 """

@@ -17,8 +17,11 @@ GEMM main loops and the same `gemm_plan` as `q7_matmul` and
 `w8a8_matmul`, with W read as it is stored (no transpose launch), each
 wrapper counted in its own `launches` and `launches_by_route`.  A
 tensor on the CPU goes to the plain version; a CUDA tensor goes to the
-kernel or raises.  xe is read on the card by the kernel, so a call
-never waits for the device.
+kernel or raises; a meta tensor gets the output's shape and dtype (a
+dry run's face).  Under an `op_analysis` counter each call is one
+kernel in the tally, 2 M N K int8 operations a batch entry and the bytes
+of xq, wt, n, xe and the output.  xe is read on the card by the kernel,
+so a call never waits for the device.
 
 Both build the scale 2^-(xe + n) from its float32 exponent bits, exact
 for exponents in [-126, 127] (the quantizers clip xe and n to [-24,
@@ -32,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.dist import op_analysis
 from repro_torch.kernels import build
 from repro_torch.kernels.q7_matmul import (ROUTES, GemmPlan, check_operands,
                                            entry, plan_for, wgmma_route)
@@ -101,33 +105,59 @@ def _launch(xq, wt, xe, n, out_dtype, plan: GemmPlan | None = None):
     return out, plan
 
 
+def _cost(xq, wt, xe, n, out_dtype) -> tuple:
+    """(int8 operations, bytes) of one call: 2 M N K a batch entry; xq,
+    wt, n and xe read once, the output written once."""
+    M, K = xq.shape[-2:]
+    N = wt.shape[-2]
+    batch = math.prod(xq.shape[:-2])
+    out = batch * M * N * torch.finfo(out_dtype).bits // 8
+    return 2.0 * batch * M * N * K, float(
+        xq.numel() * xq.element_size() + wt.numel() * wt.element_size()
+        + n.numel() * n.element_size() + xe.numel() * xe.element_size()
+        + out)
+
+
+def _call(fn, dims: int, xq, wt, xe, n, out_dtype):
+    """The plain version on the CPU, the output's struct on the meta
+    device, the kernel on the card (counted in fn's launches); any other
+    device raises.  Under an `op_analysis` counter the call is one
+    kernel in its tally, with its flops and bytes, whatever the device."""
+    if op_analysis.active is not None:
+        op_analysis.record_kernel(fn.__name__,
+                                  *_cost(xq, wt, xe, n, out_dtype))
+        with op_analysis.active.quiet():
+            return _run(fn, dims, xq, wt, xe, n, out_dtype)
+    return _run(fn, dims, xq, wt, xe, n, out_dtype)
+
+
+def _run(fn, dims, xq, wt, xe, n, out_dtype):
+    what = fn.__name__
+    if xq.device.type == "cpu":
+        return w8a8_dense_plain(xq, wt, xe, n, out_dtype)
+    if xq.device.type not in ("cuda", "meta"):
+        raise NotImplementedError(f"{what} on {xq.device}")
+    _check(what, dims, xq, wt, xe, n, out_dtype)
+    if xq.device.type == "meta":
+        return torch.empty(xq.shape[:-1] + (wt.shape[-2],), dtype=out_dtype,
+                           device=xq.device)
+    out, plan = _launch(xq, wt, xe, n, out_dtype)
+    fn.launches += 1
+    fn.launches_by_route[plan.route] += 1
+    return out
+
+
 def w8a8_dense(xq, wt, xe, n, out_dtype=torch.bfloat16):
     """int8 [M, K] and K-major [N, K], exponents xe and n [N] ->
     out_dtype [M, N]."""
-    if xq.device.type == "cpu":
-        return w8a8_dense_plain(xq, wt, xe, n, out_dtype)
-    if xq.device.type != "cuda":
-        raise NotImplementedError(f"w8a8_dense on {xq.device}")
-    _check("w8a8_dense", 2, xq, wt, xe, n, out_dtype)
-    out, plan = _launch(xq, wt, xe, n, out_dtype)
-    w8a8_dense.launches += 1
-    w8a8_dense.launches_by_route[plan.route] += 1
-    return out
+    return _call(w8a8_dense, 2, xq, wt, xe, n, out_dtype)
 
 
 def w8a8_bmm(xq, wt, xe, n, out_dtype=torch.bfloat16):
     """int8 [E, M, K] and K-major [E, N, K], exponents xe and n [E, N]
     -> out_dtype [E, M, N], product e dequantized by n[e], the E products
     in one launch of each kernel of its route."""
-    if xq.device.type == "cpu":
-        return w8a8_dense_plain(xq, wt, xe, n, out_dtype)
-    if xq.device.type != "cuda":
-        raise NotImplementedError(f"w8a8_bmm on {xq.device}")
-    _check("w8a8_bmm", 3, xq, wt, xe, n, out_dtype)
-    out, plan = _launch(xq, wt, xe, n, out_dtype)
-    w8a8_bmm.launches += 1
-    w8a8_bmm.launches_by_route[plan.route] += 1
-    return out
+    return _call(w8a8_bmm, 3, xq, wt, xe, n, out_dtype)
 
 
 for _fn in (w8a8_dense, w8a8_bmm):

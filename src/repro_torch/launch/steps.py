@@ -193,10 +193,16 @@ def make_prefill_step(cfg: ModelConfig, shape: ShapeSpec):
 
 
 def make_decode_step(cfg: ModelConfig):
+    """serve_step(params, cache, token, pos): pos a Python int or a 0-d
+    tensor on a device that holds its value (a meta struct has none: a
+    dry run passes the cell's last slot as an int)."""
     model = build_model(cfg)
 
     @torch.no_grad()
     def serve_step(params, cache, token, pos):
+        if isinstance(pos, torch.Tensor) and pos.device.type == "meta":
+            raise ValueError("decode pos is a meta tensor, which has no "
+                             "value: pass the position as an int")
         return model.decode_step(params, cache, token, int(pos))
     return serve_step
 

@@ -8,7 +8,8 @@ hold the reference's arithmetic): the query is scaled before its bf16
 cast, the softmax runs in float32 with NEG_INF = -1e30 masking, and the
 probabilities are cast to v's dtype before the PV product; each product
 the reference asks for in float32 of bf16 operands casts its operands to
-float32.  The reference's scans over q and KV chunks are Python loops.
+float32.  The reference's scans over q and KV chunks are Python loops
+(`op_analysis.trip_scan`, which a dry run weights by trip count).
 
 Decode writes the new K/V into the cache IN PLACE (the counterpart of the
 reference's donated `dynamic_update_slice`) and returns the same tensors;
@@ -20,12 +21,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.op_analysis import trip_scan
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, rms_norm
 from repro_torch.quant.int8_ops import einsum_i32
 from repro_torch.quant.lm_quant import exponent, pow2
 
 NEG_INF = -1e30
+# flash attention's default chunks (the reference's)
+Q_CHUNK = 512
+KV_CHUNK = 1024
 
 
 # ---------------------------------------------------------------------------
@@ -69,8 +74,9 @@ def _pick_chunk(n: int, target: int) -> int:
 # chunked online-softmax attention (train / prefill)
 # ---------------------------------------------------------------------------
 def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
-                    q_chunk=512, kv_chunk=1024):
-    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh].  Positions are array indices.
+                    q_chunk=None, kv_chunk=None):
+    """q [B,Sq,H,Dh]; k,v [B,Sk,K,Dh].  Positions are array indices;
+    the chunks default to Q_CHUNK and KV_CHUNK.
 
     Returns [B,Sq,H,Dh] in q.dtype, with fp32 softmax accumulation.
     """
@@ -78,31 +84,36 @@ def flash_attention(q, k, v, *, causal=True, window=0, prefix_len=0,
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     scale = Dh ** -0.5
-    qc = _pick_chunk(Sq, q_chunk)
+    qc = _pick_chunk(Sq, q_chunk or Q_CHUNK)
+    kv_chunk = kv_chunk or KV_CHUNK
     dev = q.device
-    out = []
     if window > 0:
         # static KV strip per q-chunk: [window + qc]
         strip = window + qc
         pad = max(strip - Sk, 0)
         kp = torch.nn.functional.pad(k, (0, 0, 0, 0, pad, 0))
         vp = torch.nn.functional.pad(v, (0, 0, 0, 0, pad, 0))
-        for q0 in range(0, Sq, qc):
+
+        def q_block(i, _):
+            q0 = i * qc
             start = min(max(q0 - window + pad, 0), Sk + pad - strip)
             # padded index i holds position i - pad
             kv_pos = start - pad + torch.arange(strip, device=dev)
             q_pos = q0 + torch.arange(qc, device=dev)
-            out.append(_attend_block(
+            return None, _attend_block(
                 q[:, q0:q0 + qc], kp[:, start:start + strip],
                 vp[:, start:start + strip], q_pos, kv_pos, causal, window,
-                prefix_len, G, scale, kv_chunk))
+                prefix_len, G, scale, kv_chunk)
     else:
         kv_pos = torch.arange(Sk, device=dev)
-        for q0 in range(0, Sq, qc):
+
+        def q_block(i, _):
+            q0 = i * qc
             q_pos = q0 + torch.arange(qc, device=dev)
-            out.append(_attend_block(q[:, q0:q0 + qc], k, v, q_pos, kv_pos,
-                                     causal, 0, prefix_len, G, scale,
-                                     kv_chunk))
+            return None, _attend_block(q[:, q0:q0 + qc], k, v, q_pos,
+                                       kv_pos, causal, 0, prefix_len, G,
+                                       scale, kv_chunk)
+    _, out = trip_scan(q_block, Sq // qc)
     return torch.cat(out, dim=1)
 
 
@@ -125,7 +136,10 @@ def _attend_block(q_blk, k, v, q_pos, kv_pos, causal, window, prefix_len,
     l = torch.zeros((B, K, G, qc), dtype=torch.float32, device=q_blk.device)
     acc = torch.zeros((B, K, G, qc, Dh), dtype=torch.float32,
                       device=q_blk.device)
-    for c0 in range(0, Skv, kc):
+
+    def kv_block(i, carry):
+        m, l, acc = carry
+        c0 = i * kc
         k_blk, v_blk = k[:, c0:c0 + kc], v[:, c0:c0 + kc]
         s = torch.einsum("bqkgd,bckd->bkgqc", qg, k_blk.float())
         mask = _mask(q_pos[:, None], kv_pos[None, c0:c0 + kc], causal,
@@ -137,8 +151,8 @@ def _attend_block(q_blk, k, v, q_pos, kv_pos, causal, window, prefix_len,
         l = l * corr + torch.sum(p, dim=-1)
         pv = torch.einsum("bkgqc,bckd->bkgqd", p.to(v_blk.dtype).float(),
                           v_blk.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
+        return (m_new, l, acc * corr[..., None] + pv), None
+    (m, l, acc), _ = trip_scan(kv_block, Skv // kc, (m, l, acc))
     out = acc / torch.clamp_min(l, 1e-30)[..., None]      # [B,K,G,qc,Dh]
     out = out.permute(0, 3, 1, 2, 4).reshape(B, qc, H, Dh)
     return out.to(q_blk.dtype)

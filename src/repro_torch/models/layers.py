@@ -21,6 +21,8 @@ import contextlib
 
 import torch
 
+from repro_torch.dist.op_analysis import counting
+
 DEFAULT_DTYPE = torch.bfloat16
 
 
@@ -73,11 +75,18 @@ def dense(x, w, b=None):
     return y
 
 
+def cpu_detour(x) -> bool:
+    """Whether a bf16 product of x runs in float32 and is cast: on the
+    CPU, but not under an `op_analysis` counter, which counts the card's
+    op sequence on any device."""
+    return x.device.type == "cpu" and not counting()
+
+
 def _matmul(x, w):
     """x @ w in the promoted dtype of the two, as jnp promotes them (a
     bf16 input against a float32 weight gives float32)."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    if x.device.type == "cpu" and dt == torch.bfloat16:
+    if dt == torch.bfloat16 and cpu_detour(x):
         return torch.matmul(x.float(), w.float()).to(dt)
     return torch.matmul(x.to(dt), w.to(dt))
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import layers
+from repro_torch.models import layers, scan_utils
 from repro_torch.models.layers import silu, softplus
 from repro_torch.models.scan_utils import chunked_scan, pick_chunk
 
@@ -98,8 +98,8 @@ def mamba_apply(params, x, cfg, *, mode: str, cache=None):
     h0 = cache["ssm"].float() if cache is not None else torch.zeros(
         (B, ed, n), dtype=torch.float32, device=x.device)
 
-    ys, hT = _ssm_scan(u, dt, Bt, Ct, A, h0,
-                       chunk=1 if mode == "decode" else pick_chunk(S, 64))
+    chunk = 1 if mode == "decode" else pick_chunk(S, scan_utils.SCAN_CHUNK)
+    ys, hT = _ssm_scan(u, dt, Bt, Ct, A, h0, chunk=chunk)
     ys = ys + params["D"] * u.float()
     out = (ys * silu(z.float())).to(x.dtype)
     out = layers.dense(out, params["out_proj"])

@@ -58,6 +58,13 @@ def capacity(tokens_per_group: int, cfg) -> int:
     return max(4, -(-c // 4) * 4)  # round up to a multiple of 4, >= 4
 
 
+def one_hot(idx, n: int):
+    """`F.one_hot(idx, n)` (int64), as one comparison on every device:
+    torch's reads the indices' range back to the host on the CPU and
+    takes another op sequence on the card and on the meta device."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def route(params: dict, xg, cfg) -> Routing:
     """Router, aux loss and slots of the groups xg [G, T, D]: slot
     positions count an expert's assignments in t-major, then k, order."""
@@ -71,11 +78,11 @@ def route(params: dict, xg, cfg) -> Routing:
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
     me = probs.mean(1)                                           # [G, E]
-    ce = F.one_hot(eidx[..., 0], E).float().mean(1)              # top-1
+    ce = one_hot(eidx[..., 0], E).float().mean(1)                # top-1
     aux = (me * ce).sum(-1).mean() * E
 
     e_flat = eidx.reshape(G, T * K)
-    seen = torch.cumsum(F.one_hot(e_flat, E), dim=1)             # [G,TK,E]
+    seen = torch.cumsum(one_hot(e_flat, E), dim=1)               # [G,TK,E]
     pos = torch.gather(seen, 2, e_flat[..., None])[..., 0] - 1
     keep = pos < C
     slot = torch.where(keep, e_flat * C + pos, E * C)
@@ -89,7 +96,7 @@ def _expert_mm(spec: str, x, w):
     if isinstance(w, dict):
         from repro_torch.quant.lm_quant import q_einsum
         return q_einsum(spec, x, w, out_dtype=x.dtype)
-    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+    if x.dtype == torch.bfloat16 and layers.cpu_detour(x):
         return torch.einsum(spec, x.float(), w.float()).to(x.dtype)
     return torch.einsum(spec, x, w)
 

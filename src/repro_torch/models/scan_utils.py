@@ -9,7 +9,9 @@ module's wrapper of `torch.utils.checkpoint`, which the transformer's
 stacks and loss use too), so the backward keeps the carry at each chunk
 boundary and recomputes the steps inside, as the reference's remat
 does.  Without grad (serving) it is the plain loop.  The values are the
-same either way.  `pick_chunk` is the reference's exactly:
+same either way.  Both loops are `op_analysis.trip_scan`s and the
+checkpointed function goes through `op_analysis.remat`, so a dry run
+weights them by trip count.  `pick_chunk` is the reference's exactly:
 `mlstm_apply` uses it to choose between the closed form and the
 recurrence, so it changes the numbers.
 """
@@ -17,6 +19,10 @@ from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
+
+from repro_torch.dist.op_analysis import remat, trip_scan
+
+SCAN_CHUNK = 64      # the chunk of the mamba and sLSTM scans (the reference's)
 
 
 def rematerializing() -> bool:
@@ -31,7 +37,7 @@ def checkpoint(fn, *args):
     models draw no random numbers."""
     if not rematerializing():
         return fn(*args)
-    return _checkpoint(fn, *args, use_reentrant=False,
+    return _checkpoint(remat(fn), *args, use_reentrant=False,
                        preserve_rng_state=False)
 
 
@@ -48,10 +54,10 @@ def _cat(parts):
 
 
 def _steps(body, carry, xs, many: bool, t0: int, t1: int):
-    ys = []
-    for t in range(t0, t1):
-        carry, y = body(carry, tuple(x[t] for x in xs) if many else xs[t])
-        ys.append(y)
+    def step(i, carry):
+        t = t0 + i
+        return body(carry, tuple(x[t] for x in xs) if many else xs[t])
+    carry, ys = trip_scan(step, t1 - t0, carry)
     return carry, _stack(ys)
 
 
@@ -67,10 +73,10 @@ def chunked_scan(body, carry, xs, chunk: int = 64):
         raise ValueError(f"seq {S} not divisible by chunk {chunk}")
     if S <= chunk or not rematerializing():
         return _steps(body, carry, xs, many, 0, S)
-    parts = []
-    for t0 in range(0, S, chunk):
-        carry, ys = checkpoint(_steps, body, carry, xs, many, t0, t0 + chunk)
-        parts.append(ys)
+    def part(i, carry):
+        t0 = i * chunk
+        return checkpoint(_steps, body, carry, xs, many, t0, t0 + chunk)
+    carry, parts = trip_scan(part, S // chunk, carry)
     return carry, _cat(parts)
 
 

@@ -4,7 +4,8 @@ counterpart of `repro.models.transformer` (`LM`, `EncDecLM`).
 
 Parameters for each pattern position are stacked over the cycles on a
 leading axis, as in the reference; `run_stack` is a Python loop over
-the cycles that hands each block per-cycle views of them.  Three entry
+the cycles (`op_analysis.trip_scan`, weighted by trip count in a dry
+run) that hands each block per-cycle views of them.  Three entry
 points per model: `train_loss`, `prefill`, `decode_step`; the VLM
 (paligemma, prefix-LM) and the encoder-decoder (seamless, a frame
 encoder and a token decoder with cross-attention) wrap the same
@@ -22,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.op_analysis import trip_scan
 from repro_torch.models import attention, layers, mamba, moe, xlstm
 from repro_torch.models.layers import init_norm, rms_norm
 from repro_torch.models.scan_utils import checkpoint
@@ -29,6 +31,7 @@ from repro_torch.tree import leaves, unflatten
 
 MIXERS = ("attn", "swa", "mamba", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
+LOSS_CHUNK = 512          # lm_loss's sequence chunk (the reference's)
 
 
 def check_ported(cfg) -> None:
@@ -165,11 +168,14 @@ def run_stack(cfg, blocks, stack_params, x, *, mode, caches=None,
     Returns (x, caches, aux_sum).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for ci, params in enumerate(_cycles(stack_params)):
-        args = (cfg, blocks, params, x, aux, mode,
+    per_cycle = _cycles(stack_params)
+
+    def cycle(ci, carry):
+        args = (cfg, blocks, per_cycle[ci], *carry, mode,
                 None if caches is None else caches[ci], pos, prefix_len)
-        x, aux = checkpoint(_run_cycle, *args) if mode == "train" \
-            else _run_cycle(*args)
+        return (checkpoint(_run_cycle, *args) if mode == "train"
+                else _run_cycle(*args)), None
+    (x, aux), _ = trip_scan(cycle, len(per_cycle), (x, aux))
     return x, caches, aux
 
 
@@ -207,12 +213,12 @@ def _xent_chunk(xc, head_w, tc, mc):
     return torch.sum((lse - lab_logit) * mc), torch.sum(mc)
 
 
-def lm_loss(x, head_w, targets, mask=None, seq_chunk: int = 512):
+def lm_loss(x, head_w, targets, mask=None, seq_chunk: int | None = None):
     """x [B,S,D], head_w [D,V], targets [B,S] -> mean xent (fp32).  Each
-    chunk of the sequence is rematerialized in the backward, so its
-    [B, chunk, V] logits are never kept."""
+    chunk of the sequence (LOSS_CHUNK by default) is rematerialized in
+    the backward, so its [B, chunk, V] logits are never kept."""
     B, S, D = x.shape
-    c = min(seq_chunk, S)
+    c = min(seq_chunk or LOSS_CHUNK, S)
     while S % c:
         c -= 1
     targets = torch.as_tensor(targets, device=x.device)
@@ -220,11 +226,13 @@ def lm_loss(x, head_w, targets, mask=None, seq_chunk: int = 512):
         if mask is None else torch.as_tensor(mask, device=x.device).float()
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s0 in range(0, S, c):
+
+    def part(i, carry):
+        s0 = i * c
         nll, n = checkpoint(_xent_chunk, x[:, s0:s0 + c], head_w,
                             targets[:, s0:s0 + c], mask[:, s0:s0 + c])
-        tot = tot + nll
-        cnt = cnt + n
+        return (carry[0] + nll, carry[1] + n), None
+    (tot, cnt), _ = trip_scan(part, S // c, (tot, cnt))
     return tot / torch.clamp_min(cnt, 1.0)
 
 
@@ -450,11 +458,13 @@ class EncDecLM:
         rematerialized in the backward in mode "train"."""
         per_cycle = _cycles(params["dec_blocks"][0])
         cache_cycles = None if caches is None else _cycles(caches[0])
-        for ci, p in enumerate(per_cycle):
-            args = (self.cfg, p, x, enc_out, mode,
+
+        def cycle(ci, x):
+            args = (self.cfg, per_cycle[ci], x, enc_out, mode,
                     None if caches is None else cache_cycles[ci], pos)
-            x = checkpoint(_dec_block, *args) if mode == "train" \
-                else _dec_block(*args)
+            return (checkpoint(_dec_block, *args) if mode == "train"
+                    else _dec_block(*args)), None
+        x, _ = trip_scan(cycle, len(per_cycle), x)
         return x, caches
 
     @layers.full_bf16_sums()

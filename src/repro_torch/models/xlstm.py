@@ -24,7 +24,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.dist.op_analysis import trip_scan
+from repro_torch.models import layers, scan_utils
 from repro_torch.models.layers import silu, softplus
 from repro_torch.models.scan_utils import chunked_scan, pick_chunk
 
@@ -88,8 +89,9 @@ def _mlstm_chunked(q, k, v, ig, logf, C0, n0, m0, chunk: int):
     rq, rk, rv, ri, rf = r(q), r(k), r(v), rg(ig), rg(logf)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=q.device))
-    hs = []
-    for j in range(nc):
+
+    def chunk_step(j, carry):
+        C0, n0, m0 = carry
         qt, kt, vt, it, ft = rq[j], rk[j], rv[j], ri[j], rf[j]
         Fc_ = torch.cumsum(ft, -1)
         b = torch.cummax(it - Fc_, dim=-1).values
@@ -103,14 +105,15 @@ def _mlstm_chunked(q, k, v, ig, logf, C0, n0, m0, chunk: int):
         num = inter + (G * D) @ vt
         nvec = n0[..., None, :] * di[..., None] + D @ kt
         den = torch.maximum(torch.abs((nvec * qt).sum(-1)), torch.exp(-m))
-        hs.append(num / den[..., None])                   # [B,H,c,dv]
+        h = num / den[..., None]                          # [B,H,c,dv]
         mc, Fc = m[..., -1], Fc_[..., -1]
         w = torch.exp(Fc[..., None] - Fc_ + it - mc[..., None])
         decay = torch.exp(Fc + m0 - mc)
         C0 = decay[..., None, None] * C0 \
             + (w[..., None] * vt).transpose(-1, -2) @ kt
         n0 = decay[..., None] * n0 + (w[..., None] * kt).sum(-2)
-        m0 = mc
+        return (C0, n0, mc), h
+    (C0, n0, m0), hs = trip_scan(chunk_step, nc, (C0, n0, m0))
     h = torch.stack(hs).permute(1, 0, 3, 2, 4).reshape(B, S, H, -1)
     return h, (C0, n0, m0)
 
@@ -263,9 +266,9 @@ def slstm_apply(params, x, cfg, *, mode: str, cache=None):
         (c, n, m, h), y = body((c0, n0, m0, h0), gx[:, 0])
         ys = y[:, None]
     else:
-        (c, n, m, h), ys = chunked_scan(body, (c0, n0, m0, h0),
-                                        gx.transpose(0, 1),
-                                        chunk=pick_chunk(S, 64))
+        (c, n, m, h), ys = chunked_scan(
+            body, (c0, n0, m0, h0), gx.transpose(0, 1),
+            chunk=pick_chunk(S, scan_utils.SCAN_CHUNK))
         ys = ys.transpose(0, 1)
 
     out = ys.to(x.dtype)

@@ -17,7 +17,10 @@ from typing import Callable, Union
 
 import torch
 
+from repro_torch.dist.op_analysis import trip_scan
 from repro_torch.tree import leaves, tree_map, unflatten
+
+UPDATE_CHUNK = 1 << 24    # elements a chunk of `AdamW.update_`
 
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
@@ -126,13 +129,15 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, grads: list, state, params,
-                chunk: int = 1 << 24) -> dict:
+                chunk: int | None = None) -> dict:
         """`update` in place: `grads` a flat list in `leaves(params)`
         order, consumed (each entry set to None once applied); every
         param, m and v is overwritten and state["step"] advanced, so no
         second copy of the state is ever held.  The work runs `chunk`
-        elements at a time; every op is elementwise, so the bits are
-        `update`'s.  Returns {"grad_norm", "lr"}."""
+        elements at a time (UPDATE_CHUNK by default); every op is
+        elementwise, so the bits are `update`'s.  Returns {"grad_norm",
+        "lr"}."""
+        chunk = chunk or UPDATE_CHUNK
         step = state["step"] + 1
         if self.clip_norm > 0:
             gnorm = global_norm(grads)
@@ -146,8 +151,9 @@ class AdamW:
             grads[i] = None
             pf, mf, vf = (t.view(-1) for t in (p, m, v))
             gf = g.reshape(-1)
-            for s in range(0, pf.numel(), chunk):
-                sl = slice(s, s + chunk)
+
+            def part(j, _, pf=pf, mf=mf, vf=vf, gf=gf):
+                sl = slice(j * chunk, (j + 1) * chunk)
                 gs = gf[sl]
                 if scale is not None:
                     gs = (gs.to(torch.float32) * scale).to(gs.dtype)
@@ -156,6 +162,8 @@ class AdamW:
                 pf[sl].copy_(new_p)
                 mf[sl].copy_(new_m)
                 vf[sl].copy_(new_v)
+                return None, None
+            trip_scan(part, -(-pf.numel() // chunk))
         state["step"] = step
         return {"grad_norm": gnorm, "lr": lr}
 

@@ -73,6 +73,8 @@ def _quantize_weight(w) -> dict:
     qt = torch.empty(w.shape[:-2] + (N, K), dtype=torch.int8,
                      device=w.device)
     n = torch.empty(w.shape[:-2] + (N,), dtype=torch.int32, device=w.device)
+    if w.device.type == "meta":          # a struct: no values to compute
+        return {"qt": qt, "n": n}
     for idx in itertools.product(*map(range, w.shape[:-2])):
         q, n[idx] = _quantize_2d(w[idx])
         qt[idx] = q.t()

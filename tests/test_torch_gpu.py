@@ -795,6 +795,33 @@ def test_cuda_reduced_qwen3_w8a8_blocks_match_the_cpu(cuda, f32_sums):
     assert kd.w8a8_dense.launches - n0 == 5 * (7 * cfg.num_layers + 1)
 
 
+@pytest.mark.gpu
+def test_cuda_meta_counted_w8a8_dense_calls_equal_the_cards_launches(cuda):
+    """The dry run's count of `w8a8_dense` calls in a reduced W8A8 decode
+    step (`dist.op_analysis` on meta tensors, trip-weighted over the
+    cycles) equals the launches the same step makes on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import analyze_step
+    from repro_torch.launch.train import reduced
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import quantize_lm_params
+    cfg = reduced(get_config("qwen3_14b"), d_model=64, layers=6)
+    model = build_model(cfg)
+    params = on(quantize_lm_params(
+        model.init(torch.Generator().manual_seed(0), "cpu")), cuda)
+    toks = torch.ones((2, 1), dtype=torch.int32)
+    _, cost = analyze_step(cfg, ShapeSpec("d", "decode", 20, 2), quant=True)
+    cache = model.init_cache(2, 512, cuda)
+    n0 = kd.w8a8_dense.launches
+    steps.make_decode_step(cfg)(params, cache, toks.to(cuda), 19)
+    torch.cuda.synchronize()
+    assert cost.ops["w8a8_dense"] == kd.w8a8_dense.launches - n0 \
+        == 7 * cfg.num_layers + 1
+
+
 # ---------------------------------------------------------------------------
 # the MoE path: w8a8_bmm (the batched face of w8a8_dense) and a reduced
 # phi35_moe

@@ -23,6 +23,8 @@ and are cast once, as XLA's CPU dot rounds them.
 reference's inexact XLA exp2 made exact (as tests/test_torch_lm_quant.py
 does), its outputs bit for bit on both specs.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -242,9 +244,17 @@ def test_batched_plain_is_a_loop_of_the_2d_plain(out):
 
 
 def test_w8a8_bmm_refuses_what_it_does_not_take():
+    """A meta tensor gets the output's struct (the dry run's face), but
+    only of operands the kernel takes: W here is not K-major [..., N, K]
+    of K = 8; a device that is neither the CPU, the card nor meta
+    raises."""
     meta = torch.empty((2, 4, 8), dtype=torch.int8, device="meta")
-    with pytest.raises(NotImplementedError, match="meta"):
+    with pytest.raises(ValueError, match="are not"):
         kd.w8a8_bmm(meta, meta.transpose(1, 2).contiguous(),
+                    torch.tensor(0.0), torch.zeros((2, 4), dtype=torch.int32))
+    other = types.SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(NotImplementedError, match="xla"):
+        kd.w8a8_bmm(other, meta.transpose(1, 2).contiguous(),
                     torch.tensor(0.0), torch.zeros((2, 4), dtype=torch.int32))
 
 

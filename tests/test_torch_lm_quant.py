@@ -21,6 +21,8 @@ reference keeps {"q": [..., K, N], "n"}: qt is q transposed bit for bit
 carry a W8A8 tree across both ways bit for bit, and a leaf of the
 reference's layout in the port raises.
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -228,9 +230,17 @@ def test_w8a8_dense_plain_wraps_like_the_int32_dot():
 
 
 def test_w8a8_dense_refuses_what_it_does_not_take():
+    """A meta tensor gets the output's struct (the dry run's face), but
+    only of operands the kernel takes: W here is not K-major [..., N, K]
+    of K = 8; a device that is neither the CPU, the card nor meta
+    raises."""
     meta = torch.empty((4, 8), dtype=torch.int8, device="meta")
-    with pytest.raises(NotImplementedError, match="meta"):
+    with pytest.raises(ValueError, match="are not"):
         kd.w8a8_dense(meta, meta.T.contiguous(), torch.tensor(0.0),
+                      torch.zeros(4, dtype=torch.int32))
+    other = types.SimpleNamespace(device=torch.device("xla"))
+    with pytest.raises(NotImplementedError, match="xla"):
+        kd.w8a8_dense(other, meta.T.contiguous(), torch.tensor(0.0),
                       torch.zeros(4, dtype=torch.int32))
 
 
