@@ -6,10 +6,13 @@
                                            # the W8A8 faces' [device] lines
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --train-lm
                                            # phase 16 alone
+    python3 chip_smoke.py --multi          # the build, then phase 18 alone
+    python3 chip_smoke.py --train-times    # phase 10's MNIST step times
+                                           # and peak memory, no build
     python3 chip_smoke.py --forward-pairs PARENT_TREE
 
-(`--device-times` runs on an older tree too: copy this script into a
-`git archive` of it to time its kernels in the same call.
+(`--device-times` and `--train-times` run on an older tree too: copy
+this script into a `git archive` of it to time it in the same call.
 `--forward-pairs` copies this script into PARENT_TREE, an unpacked
 `git archive` of another commit, starts two `--forward-worker`
 processes in each tree, and times the untraced B=64 forward_q7 of all
@@ -125,7 +128,8 @@ Phases, each raising on failure:
    microbatches=8)`, 8 float steps (finite losses, the last below the
    first) and 4 QAT steps on a derived plan, then each `train_step`
    timed (median of 10, CUDA events: `[train] ... train_step_float_mnist`
-   and `train_step_qat_mnist`, in us a step and img/s); the steps must
+   and `train_step_qat_mnist`, in us a step and img/s, with the device
+   memory a step peaks at above what was allocated before); the steps must
    launch none of the port's kernels; a checkpoint of that state, saved
    and restored in a fresh trainer (`resume_or_init`), must give the
    uninterrupted run's next step bit for bit, in loss and every leaf,
@@ -339,6 +343,28 @@ Phases, each raising on failure:
    run's training GiB must lie within 25 % of phase 16's
    `torch.cuda.max_memory_allocated`.  It launches nothing and times
    nothing of its own.
+18. (run last, after phase 17) data-parallel meshes across processes
+   (`repro_torch.dist.world`, `[multi]` lines, the backend on each):
+   (a) a gloo world of 2 ranks sharing cuda:0 (`dist.world.spawn`)
+   serves one `mnist@cuda` wave at each of buckets 64, 16, 3 and 1, each
+   rank building the model by PTQ on its device; every wave's v_q,
+   lengths and pred on both ranks must equal the one-process wave's bit
+   for bit, each rank's `routing_q7` / `squash_q7` launches (counts from
+   0 just before its wave, read just after) must be > 0 where it has
+   rows and 0 on bucket 1's empty share, and each rank's `forward_q7` ms
+   on its 32 rows and `gather_rows` ms are printed (2 ranks sharing one
+   card: not a multi-card throughput); (b) `torchrun --standalone
+   --nproc-per-node 2 -m repro_torch.launch.serve_caps --model
+   mnist@cuda --mesh host --requests 128` exits 0 with one report and
+   the completion digest of a one-rank run; (c) in the same world,
+   `CapsTrainer(MNIST, batch 64, 8 microbatches, mesh=)`, 3 float and 2
+   QAT steps, losses and every state leaf equal to the one-rank run in
+   each rank and in this process, then each rank's float step ms over
+   the mesh and alone (both ranks stepping at once) beside the rows of
+   tree sums a step gathers; (d) `compressed_psum` of CUDA tensors
+   over the 2 ranks equal to its formula on the CPU; (e) a one-rank
+   NCCL world's bucket-64 wave equal to (a)'s; (f) NCCL asked for 2
+   ranks on the one card raises ValueError before any process group.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -1388,35 +1414,18 @@ def same_next_step(fresh, trainer, state, plan, x, y, what: str) -> None:
         + (", plan from the side-car" if plan is not None else "") + ")")
 
 
-def train_phase(dev, card: str) -> dict:
-    """Phase 10: MNIST "L" float and QAT steps at full size, timed; same-
-    step resume on the card; the EDGE_TINY Table-2 row; the QAT model
-    served on the `cuda` backend and exported.  Returns the kernels'
-    launches over the phase's int8 path (eval_q7 and serving)."""
+def mnist_train_times(dev, card: str) -> tuple:
+    """MNIST "L" at full size, batch 64 in 8 microbatches: float steps,
+    then QAT steps on a derived plan; then each kind of step timed
+    (median, CUDA events) with the device memory it peaks at above what
+    was allocated before it.  Returns (trainer, config, state, plan,
+    {kind: {"us", "peak_mib"}})."""
     import numpy as np
     import torch
-    from types import SimpleNamespace
-    from repro_torch.captrain import (CapsTrainer, TrainConfig, eval_q7,
-                                      format_rows, table2_rows)
-    from repro_torch.data.synthetic import make_image_dataset
-    from repro_torch.kernels import q7_matmul as kq
-    from repro_torch.kernels import routing as kr
-    from repro_torch.kernels import squash as ks
-    from repro_torch.kernels import w8a8_matmul as kw
-    from repro_torch.nn import EDGE_TINY, MNIST
-    from repro_torch.nn.backend import get_backend
-    from repro_torch.serving import ModelRegistry, serve_window
-    kernels = (ks.squash_q7, kr.routing_q7, ks.squash_float, kq.matmul_q7,
-               kq.bmm_q7, kw.w8a8_matmul)
-
-    def counts():
-        return {fn.__name__: fn.launches for fn in kernels}
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-
-    # 1. MNIST "L" at full size: float steps, QAT steps, step times
+    from repro_torch.captrain import CapsTrainer, TrainConfig
+    from repro_torch.nn import MNIST
     tc = TrainConfig(dataset="mnist", batch=64, microbatches=8)
     trainer = CapsTrainer(MNIST, tc, device=dev)
-    before = counts()
     t0 = time.perf_counter()
     state, _, hist_f = trainer.fit(trainer.init_state(), TRAIN_FLOAT_STEPS)
     state, plan, hist_q = trainer.fit(state, TRAIN_QAT_STEPS, qat=True)
@@ -1438,11 +1447,54 @@ def train_phase(dev, card: str) -> dict:
     yd = torch.as_tensor(y.astype(np.int64), device=dev)
     times = {}
     for what, p in (("float", None), ("qat", plan)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
         us = median_step_us(lambda: trainer.train_step(state, xd, yd, p))
-        times[what] = us
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        times[what] = {"us": us, "peak_mib": peak}
         log(f"[train] {card} | train_step_{what}_mnist: {us:.1f} us a step "
             f"(median of {TRAIN_TIMED_STEPS}, CUDA events), "
-            f"{tc.batch / (us * 1e-6):.1f} img/s")
+            f"{tc.batch / (us * 1e-6):.1f} img/s, peak {peak:.1f} MiB "
+            f"above the {base / 2**20:.1f} MiB allocated before the steps")
+    # the host's share of a step: the aten ops it dispatches (views and
+    # allocations not counted)
+    from repro_torch.dist.op_analysis import OpCounter
+    for what, p in (("float", None), ("qat", plan)):
+        with OpCounter() as oc:
+            trainer.train_step(state, xd, yd, p)
+        times[what]["ops"] = sum(oc.cost.ops.values())
+    log(f"[train] aten ops a step (dist.op_analysis.OpCounter): float "
+        f"{times['float']['ops']}, qat {times['qat']['ops']}")
+    return trainer, tc, state, plan, times
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 10: MNIST "L" float and QAT steps at full size, timed; same-
+    step resume on the card; the EDGE_TINY Table-2 row; the QAT model
+    served on the `cuda` backend and exported.  Returns the kernels'
+    launches over the phase's int8 path (eval_q7 and serving)."""
+    from types import SimpleNamespace
+    from repro_torch.captrain import (CapsTrainer, TrainConfig, eval_q7,
+                                      format_rows, table2_rows)
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.kernels import q7_matmul as kq
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_matmul as kw
+    from repro_torch.nn import EDGE_TINY, MNIST
+    from repro_torch.nn.backend import get_backend
+    from repro_torch.serving import ModelRegistry, serve_window
+    kernels = (ks.squash_q7, kr.routing_q7, ks.squash_float, kq.matmul_q7,
+               kq.bmm_q7, kw.w8a8_matmul)
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in kernels}
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # 1. MNIST "L" at full size: float steps, QAT steps, step times
+    before = counts()
+    trainer, tc, state, plan, times = mnist_train_times(dev, card)
     steps_launched = {k: v - before[k] for k, v in counts().items()}
     if any(steps_launched.values()):
         raise AssertionError(f"the training steps launched a kernel: "
@@ -1511,7 +1563,7 @@ def train_phase(dev, card: str) -> dict:
         f"{result['paths']['capsbin'].name}, re-verified on "
         f"{result['verified']} images; launches over eval_q7 and serving "
         f"{launches}")
-    return dict(launches=launches, step_us=times, row=row)
+    return dict(launches=launches, step_times=times, row=row)
 
 
 # ---------------------------------------------------------------------------
@@ -3933,13 +3985,341 @@ def dryrun_phase(card: str, lm: dict, train_lm: dict) -> dict:
     return dict(grid_s=secs, rows=rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data-parallel meshes across processes (repro_torch.dist.world)
+# ---------------------------------------------------------------------------
+MULTI_RANKS = 2
+MULTI_BUCKETS = (64, 16, 3, 1)
+MULTI_TIMED = 20                   # calls of each per-rank timing
+MULTI_TRAIN = (3, 2)               # float, then QAT steps of (c)
+MULTI_STEPS = 5                    # timed float steps of (c), a rank
+MULTI_LABEL = ("2 ranks sharing one card, gloo through the host: not a "
+               "multi-card throughput")
+MULTI_AXES = ("pod", "model", "data")      # serving's mesh: data = ranks
+MULTI_MID = "mnist@cuda"
+
+
+def multi_inputs() -> dict:
+    """{bucket: the wave's float images}, from SEED."""
+    from repro_torch.serving import default_specs
+    spec = default_specs()[MULTI_MID]
+    return {b: spec.images(b, SEED + 100 + b) for b in MULTI_BUCKETS}
+
+
+def multi_psum_inputs() -> list:
+    """Per-rank inputs of (d), their exponents apart (one payload shifts
+    past 31)."""
+    import numpy as np
+    g = np.random.default_rng(SEED + 18)
+    scales = ((0.7, 11.0), (2e9, 1e-7), (0.0, 3e-3))
+    return [[(g.standard_normal(4096) * s).astype(np.float32) for s in pair]
+            for pair in scales]
+
+
+def multi_train(mesh, dev) -> tuple:
+    """MULTI_TRAIN steps of MNIST "L" (batch 64, 8 microbatches): the
+    losses and the state on the CPU."""
+    from repro_torch.captrain import CapsTrainer, TrainConfig
+    from repro_torch.nn import MNIST
+    tc = TrainConfig(dataset="mnist", batch=64, microbatches=8)
+    t = CapsTrainer(MNIST, tc, mesh=mesh, device=None if mesh else dev)
+    s, _, h1 = t.fit(t.init_state(), MULTI_TRAIN[0])
+    s, _, h2 = t.fit(s, MULTI_TRAIN[1], qat=True)
+    return [h["loss"] for h in h1 + h2], \
+        [t.detach().cpu() for t in state_leaves(s)]
+
+
+def multi_step_ms(mesh, dev) -> tuple:
+    """The median ms of MULTI_STEPS float steps of MNIST "L" (batch 64,
+    8 microbatches) from a fresh state, CUDA events around each, and the
+    number of parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.captrain import CapsTrainer, TrainConfig
+    from repro_torch.nn import MNIST
+    tc = TrainConfig(dataset="mnist", batch=64, microbatches=8)
+    t = CapsTrainer(MNIST, tc, mesh=mesh, device=None if mesh else dev)
+    s = t.init_state()
+    x, y = t.task.batch(0, tc.batch)
+    xd = torch.as_tensor(x, device=t.device)
+    yd = torch.as_tensor(y.astype(np.int64), device=t.device)
+    return median_step_us(lambda: t.train_step(s, xd, yd, None),
+                          n=MULTI_STEPS) / 1e3, \
+        sum(p.numel() for p in state_leaves(s["params"]))
+
+
+def multi_rank(inputs: dict, psum: list) -> dict:
+    """(a), (c) and (d) on one rank of the gloo world."""
+    import torch
+    from repro_torch.dist import api
+    from repro_torch.dist.world import current_world
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.grad_compress import compressed_psum
+    from repro_torch.serving import ModelRegistry
+    world = current_world()
+    mesh = make_host_mesh(MULTI_AXES)
+    reg = ModelRegistry(mesh=mesh)
+    qnet = reg.model(MULTI_MID)
+    out = {"rank": world.rank, "backend": world.backend,
+           "device": str(world.device), "mesh": mesh.tag(),
+           "registry_device": str(reg.device), "waves": {},
+           "launches": {}, "rows": {}}
+    for b in MULTI_BUCKETS:
+        exe = reg.executable(MULTI_MID, b)
+        x = torch.as_tensor(inputs[b])
+        # counts from 0 just before this rank's wave, read just after
+        ks.squash_q7.launches = kr.routing_q7.launches = 0
+        v, lengths, pred = exe(x)
+        torch.cuda.synchronize()
+        out["launches"][b] = {"routing_q7": kr.routing_q7.launches,
+                              "squash_q7": ks.squash_q7.launches}
+        out["waves"][b] = [t.cpu() for t in (v, lengths, pred)]
+        out["rows"][b] = int(api.split_rows(x, mesh).shape[0])
+    # each rank's forward on its share of a bucket-64 wave, and the gather
+    xq = qnet.quantize_input(api.split_rows(
+        torch.as_tensor(inputs[64]), mesh).to(world.device))
+    out["forward_ms"] = cuda_ms(lambda: qnet.forward(xq), iters=MULTI_TIMED)
+    v = qnet.forward(xq)
+    api.gather_rows(v, mesh, 64)                    # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MULTI_TIMED):
+        api.gather_rows(v, mesh, 64)
+    torch.cuda.synchronize()
+    out["gather_ms"] = (time.perf_counter() - t0) * 1e3 / MULTI_TIMED
+    # (c) training split over the ranks, beside the one-rank run here
+    out["train_mesh"] = multi_train(mesh, world.device)
+    out["train_one"] = multi_train(None, world.device)
+    out["step_ms"] = {"mesh": multi_step_ms(mesh, world.device),
+                      "one": multi_step_ms(None, world.device)}
+    # (d) compressed_psum on CUDA tensors
+    out["psum"] = [compressed_psum(torch.from_numpy(xs[world.rank])
+                                   .to(world.device)).cpu() for xs in psum]
+    return out
+
+
+def multi_nccl_rank(x) -> dict:
+    """(e): one bucket-64 wave through a one-rank NCCL world's group."""
+    import torch
+    from repro_torch.dist.world import current_world
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ModelRegistry
+    world = current_world()
+    mesh = make_host_mesh(MULTI_AXES)
+    reg = ModelRegistry(mesh=mesh)
+    exe = reg.executable(MULTI_MID, 64)
+    ks.squash_q7.launches = kr.routing_q7.launches = 0
+    out = [t.cpu() for t in exe(torch.as_tensor(x))]
+    return {"backend": world.backend, "mesh": mesh.tag(), "wave": out,
+            "launches": {"routing_q7": kr.routing_q7.launches,
+                         "squash_q7": ks.squash_q7.launches}}
+
+
+def psum_formula(xs) -> "torch.Tensor":
+    """compressed_psum's formula on the CPU over every worker's input."""
+    import torch
+    from repro_torch.kernels.w8a8_dense import pow2
+    from repro_torch.optim.grad_compress import compress
+    pairs = [compress(torch.from_numpy(x)) for x in xs]
+    e_min = min(e for _, e in pairs)
+    tot = sum(q.to(torch.int32) >> torch.clamp(e - e_min, max=31)
+              .to(torch.int32) for q, e in pairs)
+    return tot.to(torch.float32) * pow2(-e_min)
+
+
+def serve_digest(text: str) -> str:
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("[serve_caps] completions:")]
+    if len(lines) != 1:
+        raise AssertionError(f"{len(lines)} completion digests in:\n{text}")
+    return lines[0]
+
+
+def multi_phase(dev, card: str) -> dict:
+    """Phase 18: (a) mnist@cuda waves over 2 gloo ranks on the one card,
+    bit for bit against the one-process wave, each rank's launches and
+    times; (b) serve_caps --mesh host under torchrun; (c) CapsTrainer
+    over the ranks against the one-rank run; (d) compressed_psum on CUDA
+    tensors; (e) a one-rank NCCL world; (f) NCCL for 2 ranks on one card
+    refused.  Returns the multi path's launches."""
+    import contextlib
+    import io
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.dist import world as dworld
+    from repro_torch.launch import serve_caps
+    from repro_torch.serving import ModelRegistry
+    t_phase = time.perf_counter()
+    inputs, psum = multi_inputs(), multi_psum_inputs()
+    reg = ModelRegistry(device=dev)
+    want = {b: [t.cpu() for t in reg.executable(MULTI_MID, b)(inputs[b])]
+            for b in MULTI_BUCKETS}
+
+    # (a), (c), (d): one gloo world of 2 ranks on cuda:0
+    t0 = time.perf_counter()
+    got = dworld.spawn(multi_rank, MULTI_RANKS, backend="gloo",
+                       device="cuda", timeout_s=120, deadline_s=400,
+                       args=(inputs, psum))
+    world_s = time.perf_counter() - t0
+    backend = got[0]["backend"]
+    log(f"[multi] (a) world of {MULTI_RANKS} ranks on "
+        f"{[g['device'] for g in got]}, backend {backend}, "
+        f"mesh {got[0]['mesh']}, registry devices "
+        f"{[g['registry_device'] for g in got]} ({world_s:.1f} s for the "
+        f"world, start-up included)")
+    launches = {"routing_q7": 0, "squash_q7": 0}
+    for b in MULTI_BUCKETS:
+        for g in got:
+            for name, a, w in zip(("v_q", "lengths", "pred"),
+                                  g["waves"][b], want[b]):
+                if a.dtype != w.dtype or not torch.equal(a, w):
+                    raise AssertionError(
+                        f"[multi] bucket {b} rank {g['rank']}: {name} "
+                        "differs from the one-process wave")
+            n = g["launches"][b]
+            empty = g["rows"][b] == 0
+            if (min(n.values()) == 0) != empty or (empty and any(
+                    n.values())):
+                raise AssertionError(f"[multi] bucket {b} rank {g['rank']}"
+                                     f" ({g['rows'][b]} rows) launched {n}")
+            for k in launches:
+                launches[k] += n[k]
+        log(f"[multi] (a) bucket {b}: v_q, lengths and pred of both ranks "
+            f"bit-identical to the one-process {MULTI_MID} wave; rows "
+            f"{[g['rows'][b] for g in got]}; launches "
+            + "; ".join(f"rank {g['rank']} {g['launches'][b]}" for g in got)
+            + f"; backend {backend}")
+    log(f"[multi] (a) {card} | {MULTI_LABEL}: forward_q7 on a rank's 32 "
+        "rows of a bucket-64 wave "
+        + ", ".join(f"rank {g['rank']} {g['forward_ms']!r} ms" for g in got)
+        + f" (CUDA events, mean of {MULTI_TIMED}); gather_rows of the "
+        "int8 v_q " + ", ".join(f"rank {g['rank']} {g['gather_ms']!r} ms"
+                                for g in got)
+        + f" (host clock, mean of {MULTI_TIMED})")
+
+    # (c) training: every rank against its own one-rank run, and against
+    # the one-rank run of this process
+    one_losses, one_state = multi_train(None, dev)
+    for g in got:
+        for what, (losses, leaves) in (("its own", g["train_one"]),
+                                       ("this process's",
+                                        (one_losses, one_state))):
+            m_losses, m_leaves = g["train_mesh"]
+            if m_losses != losses or len(m_leaves) != len(leaves) or \
+                    not all(torch.equal(a, b)
+                            for a, b in zip(m_leaves, leaves)):
+                raise AssertionError(
+                    f"[multi] (c) rank {g['rank']}: training over the mesh "
+                    f"differs from {what} one-rank run: {m_losses} vs "
+                    f"{losses}")
+    log(f"[multi] (c) CapsTrainer(MNIST, batch 64, 8 microbatches) over "
+        f"{MULTI_RANKS} ranks: {MULTI_TRAIN[0]} float and {MULTI_TRAIN[1]} "
+        f"QAT steps, losses {one_losses} and all {len(one_state)} state "
+        "leaves bit-identical to the one-rank run (in each rank and in "
+        f"this process); backend {backend}")
+    from repro_torch.captrain.steps import tree_blocks
+    from repro_torch.dist.api import row_share
+    rows = [len(tree_blocks(*row_share(8, MULTI_RANKS, r)))
+            for r in range(MULTI_RANKS)]
+    width = 1 + got[0]["step_ms"]["mesh"][1]
+    log(f"[multi] (c) {card} | {MULTI_LABEL}: a float step "
+        + ", ".join(f"rank {g['rank']} {g['step_ms']['mesh'][0]!r} ms "
+                    f"over the mesh, {g['step_ms']['one'][0]!r} ms alone"
+                    for g in got)
+        + f" (CUDA events, median of {MULTI_STEPS}, both ranks stepping "
+        f"at once); a step all_gathers {rows} rows of {width} float32 "
+        f"(the halving tree's sums of loss and gradient), "
+        f"{sum(rows) * width * 4 / 1e6:.1f} MB on every rank")
+
+    # (d) compressed_psum on CUDA tensors over the 2 ranks
+    for i, xs in enumerate(psum):
+        w = psum_formula(xs)
+        for g in got:
+            if not torch.equal(g["psum"][i], w):
+                raise AssertionError(f"[multi] (d) input {i} rank "
+                                     f"{g['rank']}: compressed_psum differs "
+                                     "from the formula")
+    log(f"[multi] (d) compressed_psum of CUDA tensors over {MULTI_RANKS} "
+        f"ranks equals the CPU formula on both inputs ({len(psum)} inputs, "
+        f"a shift past 31 among them); backend {backend}")
+
+    # (b) the serving CLI under torchrun, against a one-rank run
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_caps.main(["--model", MULTI_MID, "--requests",
+                              str(N_REQUESTS)])
+    one = serve_digest(buf.getvalue())
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(MULTI_RANKS), "-m",
+           "repro_torch.launch.serve_caps", "--model", MULTI_MID, "--mesh",
+           "host", "--requests", str(N_REQUESTS)]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")]
+                               if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=400,
+                          env=env, cwd=ROOT)
+    cli_s = time.perf_counter() - t0
+    text = proc.stdout
+    if rc != 0 or proc.returncode != 0 or \
+            text.count("[serve_caps] serve:") != 1 or \
+            f"over {MULTI_RANKS}xcuda/gloo" not in text or \
+            serve_digest(text) != one:
+        raise AssertionError(f"[multi] (b) torchrun serve_caps: exit "
+                             f"{proc.returncode}\n{text}\n{proc.stderr[-3000:]}"
+                             f"\none-rank: {one}")
+    log(f"[multi] (b) torchrun --standalone --nproc-per-node {MULTI_RANKS} "
+        f"-m repro_torch.launch.serve_caps --model {MULTI_MID} --mesh host "
+        f"--requests {N_REQUESTS}: exit 0 in {cli_s:.1f} s, one report "
+        f"(rank 0's), completions equal to a one-rank run's ({one}); "
+        f"backend gloo")
+
+    # (e) a one-rank NCCL world
+    nccl = dworld.spawn(multi_nccl_rank, 1, backend="nccl", device="cuda",
+                        timeout_s=120, deadline_s=300, args=(inputs[64],))[0]
+    if nccl["backend"] != "nccl" or \
+            min(nccl["launches"].values()) == 0 or not all(
+                torch.equal(a, w) for a, w in zip(nccl["wave"], want[64])):
+        raise AssertionError(f"[multi] (e) NCCL world: {nccl['backend']}, "
+                             f"launches {nccl['launches']}")
+    log(f"[multi] (e) a one-rank NCCL world, mesh {nccl['mesh']}: a "
+        f"bucket-64 wave through the NCCL group bit-identical to (a)'s; "
+        f"launches {nccl['launches']}; backend nccl")
+
+    # (f) NCCL asked for 2 ranks on this one card
+    try:
+        dworld.init_world(rank=0, world_size=MULTI_RANKS, local_rank=0,
+                          local_world_size=MULTI_RANKS, backend="nccl",
+                          device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("[multi] (f) NCCL for 2 ranks on one card was "
+                             "not refused")
+    if dworld.current_world() is not None or tdist.is_initialized():
+        raise AssertionError("[multi] (f) a process group was made")
+    log(f"[multi] (f) backend nccl for {MULTI_RANKS} ranks on "
+        f"{torch.cuda.device_count()} card refused before any process "
+        f"group: ValueError: {refusal}")
+    log(f"[multi] phase 18 passed in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "nccl_launches": nccl["launches"],
+            "forward_ms": [g["forward_ms"] for g in got],
+            "gather_ms": [g["gather_ms"] for g in got],
+            "step_ms": [g["step_ms"] for g in got]}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--device-times"], ["--forward-worker"],
-                    ["--train-lm"]) and (
+                    ["--train-lm"], ["--train-times"], ["--multi"]) and (
             len(argv) != 2 or argv[0] != "--forward-pairs"):
         print("usage: chip_smoke.py [--device-times | --train-lm | "
-              "--forward-pairs PARENT_TREE]", file=sys.stderr)
+              "--train-times | --multi | --forward-pairs PARENT_TREE]",
+              file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: the port's sources are not next to this script "
@@ -3965,6 +4345,12 @@ def main(argv=None) -> int:
         card = card_line()
         forward_pairs(Path(argv[1]).resolve(), card)
         log(card)
+        return 0
+    if argv == ["--train-times"]:
+        card = card_line()
+        *_, times = mnist_train_times(torch.device("cuda"), card)
+        log(card)
+        log(json.dumps({"train_times": times}))
         return 0
     if argv == ["--train-lm"]:
         card = card_line()
@@ -4013,6 +4399,11 @@ def main(argv=None) -> int:
         return 0
     if argv == ["--forward-worker"]:
         forward_worker(dev)
+        return 0
+    if argv == ["--multi"]:
+        multi = multi_phase(dev, card)
+        log(card)
+        log(json.dumps({"multi": multi}))
         return 0
 
     for name in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
@@ -4207,6 +4598,10 @@ def main(argv=None) -> int:
     # timing of its own)
     dryrun = dryrun_phase(card, lm, train_lm)
 
+    # phase 18: data-parallel meshes across processes; each rank's counts
+    # from 0 just before its wave, read just after
+    multi = multi_phase(dev, card)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
                "routing_q7": ("routing_q7.cu",
@@ -4237,7 +4632,11 @@ def main(argv=None) -> int:
                 "main": launches[name],
                 "artifact": artifact["launches"][name],
                 "train": train["launches"][name],
-                "search": search["launches"][name]}
+                "search": search["launches"][name],
+                "multi": multi["launches"][name],
+                "multi_nccl": multi["nccl_launches"][name]}
+        else:
+            entry["launches_by_path"] = {"multi": 0}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (
@@ -4255,7 +4654,8 @@ def main(argv=None) -> int:
         "launches": lm["launches"],
         "launches_by_path": {**lm["launches_by_path"],
                              **moe["dense_launches_by_path"],
-                             **ssm["dense"], **encdec["dense"]},
+                             **ssm["dense"], **encdec["dense"],
+                             "multi": 0},
         "max_abs_err": max(lm["max_abs_err"], ssm["max_abs_err"],
                            encdec["max_abs_err"]), "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -4283,7 +4683,8 @@ def main(argv=None) -> int:
         "dequantization, src/repro/quant/lm_quant.py:86 (q_einsum); the "
         "batched face of w8a8_dense.cu's kernel, one expert a batch entry",
         "launches": moe["launches"],
-        "launches_by_path": {**moe["launches_by_path"], **ssm["bmm"]},
+        "launches_by_path": {**moe["launches_by_path"], **ssm["bmm"],
+                             "multi": 0},
         "max_abs_err": max(moe["max_abs_err"], ssm["max_abs_err"]),
         "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -4298,6 +4699,7 @@ def main(argv=None) -> int:
                                 for k in record["kernels"]))
     log(f"[train-lm] summary {json.dumps(train_lm)}")
     log(f"[dryrun] summary {json.dumps(dryrun)}")
+    log(f"[multi] summary {json.dumps(multi)}")
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "
         f"the build included")
     log(card)

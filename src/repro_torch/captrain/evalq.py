@@ -22,6 +22,7 @@ from repro_torch.captrain.losses import accuracy_count
 from repro_torch.captrain.trainer import CapsTrainer, TrainConfig
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
+from repro_torch.dist import api
 from repro_torch.nn.config import CapsNetConfig
 from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
 from repro_torch.nn.variants import VariantSet
@@ -97,23 +98,26 @@ class Table2Row:
 def table2_rows(cfg: CapsNetConfig, tcfg: TrainConfig, *,
                 float_steps: int, qat_steps: int,
                 roundings=("floor", "nearest"), eval_n: int = 512,
-                eval_seed: int = 999_999, log=None,
+                eval_seed: int = 999_999, mesh=None, log=None,
                 variants: VariantSet | None = None,
                 device=None) -> list:
     """Train once in float, then branch per rounding mode: PTQ the float
     weights directly, and QAT-fine-tune a copy before quantizing it
     (same seed, same calibration images, so the two deltas are
     comparable).  `variants` selects the int8 operator variants, which
-    the plans carry and QAT trains against.  Returns [Table2Row, ...]."""
+    the plans carry and QAT trains against.  Under a data-parallel
+    `mesh` both trainers split their steps over its ranks (the rows are
+    those of the one-rank run); the evaluations run replicated.
+    Returns [Table2Row, ...]."""
     from repro_torch.edge import lower, total_latency_ms
     from repro_torch.edge.arena import memory_report
     from repro_torch.obs.numerics import run_numerics
 
-    device = resolve_device(device)
+    device = resolve_device(api.rank_device(mesh, device))
     if variants is not None:
         tcfg = dataclasses.replace(tcfg, softmax_impl=variants.softmax,
                                    squash_impl=variants.squash)
-    trainer = CapsTrainer(cfg, tcfg, device=device)
+    trainer = CapsTrainer(cfg, tcfg, mesh=mesh, device=device)
     caps = trainer.pipeline.layers[-1]
     vtag = VariantSet(softmax=caps.softmax_impl,
                       squash=caps.squash_impl).tag
@@ -136,7 +140,7 @@ def table2_rows(cfg: CapsNetConfig, tcfg: TrainConfig, *,
         q_ptq = trainer.quantize(state, rounding=rounding)
         acc_ptq = eval_q7(q_ptq, images, labels)
 
-        qtrainer = CapsTrainer(cfg, rtc, device=device)
+        qtrainer = CapsTrainer(cfg, rtc, mesh=mesh, device=device)
         qstate, _, _ = qtrainer.fit(state, qat_steps, qat=True,
                                     log_every=25 if log else 0,
                                     log=log or print)

@@ -11,6 +11,15 @@ weights; the finished model goes through the ordinary
 `pipeline.quantize`, so it lowers with `repro_torch.edge.lower` and
 serves through `serving.ModelRegistry` as any PTQ model does.
 
+Under a data-parallel `mesh` over a `torch.distributed` world
+(`dist.world`), every rank holds the whole replicated state on its own
+device and draws the same batches; `train_step` and `fit` split each
+step's microbatches over the ranks (`captrain.steps`), and the losses
+and the state equal the one-rank run's bit for bit.  Calibration and
+`derive_plan` run replicated; `save` writes from rank 0 alone, then
+waits for every rank, and `resume_or_init` reads the same bits on every
+rank.
+
 Determinism:
   * batches are pure functions of the optimizer step index
     (`data.synthetic.ImageTask`), so restoring a checkpoint resumes the
@@ -38,6 +47,7 @@ from repro_torch.captrain.decoder import ReconDecoder
 from repro_torch.captrain.steps import make_train_step
 from repro_torch.data.synthetic import ImageTask
 from repro_torch.device import resolve_device
+from repro_torch.dist import api
 from repro_torch.nn.config import CapsNetConfig
 from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
 from repro_torch.nn.plans import PipelinePlan, plan_from_json, plan_to_json
@@ -71,10 +81,13 @@ class TrainConfig:
 
 class CapsTrainer:
     def __init__(self, cfg: CapsNetConfig, tcfg: TrainConfig = TrainConfig(),
-                 metrics=None, rng=None, device=None):
+                 mesh=None, metrics=None, rng=None, device=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        self.device = resolve_device(device)
+        api.require_data_parallel(mesh)
+        self.mesh = mesh
+        # under a mesh over a world, the state lives on this rank's device
+        self.device = resolve_device(api.rank_device(mesh, device))
         # optional explicit calibration rng (np.random.Generator): when
         # set, every calibration subsamples its calib_n images from a 4x
         # pool through it, so a caller that seeds it owns the complete
@@ -118,13 +131,14 @@ class CapsTrainer:
     # one step
     # ------------------------------------------------------------------
     def train_step(self, state, x, y, plan: PipelinePlan | None = None):
-        """One optimizer step on a batch (NumPy arrays or tensors)."""
+        """One optimizer step on a batch (NumPy arrays or tensors), split
+        over the trainer's mesh if it has one."""
         step = make_train_step(
             self.pipeline, self.decoder, self.opt,
             num_classes=self.cfg.num_classes,
             microbatches=self.tcfg.microbatches,
             recon_weight=self.tcfg.recon_weight, plan=plan,
-            rounding=self.tcfg.rounding)
+            rounding=self.tcfg.rounding, mesh=self.mesh)
         return step(state, self._on_device(x, torch.float32),
                     self._on_device(y, torch.int64))
 
@@ -192,8 +206,19 @@ class CapsTrainer:
     # checkpoint / resume
     # ------------------------------------------------------------------
     def save(self, state, plan: PipelinePlan | None = None) -> str:
+        """Write the checkpoint (rank 0 alone under a mesh over a world,
+        the others waiting for it) and return its path."""
         if not self.tcfg.ckpt_dir:
             raise ValueError("TrainConfig.ckpt_dir is not set")
+        if api.dp_rank(self.mesh) == 0:
+            path = self._save(state, plan)
+        else:
+            path = str(pathlib.Path(self.tcfg.ckpt_dir)
+                       / f"step_{self.step_index(state):08d}.npz")
+        api.barrier(self.mesh)
+        return path
+
+    def _save(self, state, plan: PipelinePlan | None) -> str:
         step = self.step_index(state)
         d = pathlib.Path(self.tcfg.ckpt_dir)
         d.mkdir(parents=True, exist_ok=True)

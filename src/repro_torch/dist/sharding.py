@@ -13,13 +13,15 @@ reference's:
   caches     — batch over DP plus seq over "model" when the batch
                shards, otherwise seq over ("data", "model").
 Spec trees take their structure from the tree they describe (dicts and
-tuples); `to_shardings` filters a spec to a mesh's axes.  Only a mesh of
-one device is ported, on which every spec places the whole tensor on
-the one card; a larger mesh raises (ROADMAP Queue A).
+tuples); `to_shardings` filters a spec to a mesh's axes.  Data-parallel
+meshes are ported (each rank holds its share of the BATCH axes and the
+whole of every other axis); a mesh that splits the model axis raises
+(ROADMAP Queue A, multi-card).
 """
 from __future__ import annotations
 
-from repro_torch.dist.api import BATCH, dp_size, fspec, require_one_device
+from repro_torch.dist.api import (BATCH, dp_size, fspec,
+                                  require_data_parallel)
 from repro_torch.tree import is_leaf, tree_map
 
 
@@ -103,9 +105,9 @@ def cache_specs(cache, global_batch: int, mesh, stacked: bool = True):
 
 def to_shardings(spec: tuple, mesh) -> tuple:
     """A spec filtered to the axes `mesh` has (the spec of the
-    reference's NamedSharding); a mesh of more than one device raises
-    NotImplementedError."""
-    require_one_device(mesh)
+    reference's NamedSharding); a mesh whose model axis is larger than 1
+    raises NotImplementedError."""
+    require_data_parallel(mesh)
     return fspec(mesh, *spec)
 
 

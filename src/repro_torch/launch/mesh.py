@@ -1,7 +1,12 @@
 """Meshes: the counterpart of `repro.launch.mesh`.
 
 `make_host_mesh` is a function, not a module-level constant, so that
-importing this module never touches device state.  The counterpart of
+importing this module never touches device state.  Inside a
+`torch.distributed` world (`dist.world.init_world`, as under `torchrun`)
+it is a mesh over the world's ranks, one device each, all on the last
+axis, as the reference fills its last axis with the local devices.
+Outside one it covers one device: a process drives one card, so more
+than one visible card raises and asks for `torchrun`.  The counterpart of
 the reference's production meshes (a TPU pod of 256 chips, two of 512)
 is `make_production_mesh`: one H100, the card a dry run's roofline is
 for; the multi-pod mesh raises (ROADMAP Queue A, multi-card).
@@ -14,21 +19,35 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.api import Mesh
+from repro_torch.dist.world import current_world
 
 
 def make_host_mesh(axes=("pod", "data", "model"), device=None) -> Mesh:
-    """A mesh over the local devices of `device`'s type (the CUDA cards
-    by default, raising without one; one device for "cpu"): every axis 1
-    but the last, which holds all of them, as in the reference."""
-    device = resolve_device(device)
-    if device.type == "cuda":
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    else:
-        devices = [device]
+    """Every axis 1 but the last, which holds the devices, as in the
+    reference.  Inside a world: the ranks' devices, in rank order (a
+    `device` of another type than the world's raises).  Outside one:
+    the one device of `device`'s type (the CUDA card by default, raising
+    without one); more than one visible card raises ValueError, since a
+    process drives one card and the others would sit idle."""
     sizes = [1] * len(axes)
-    sizes[-1] = len(devices)
-    return Mesh(axes, sizes, devices)
+    world = current_world()
+    if world is not None:
+        if device is not None and \
+                torch.device(device).type != world.device.type:
+            raise ValueError(f"a mesh on {device} inside a world of "
+                             f"{world.device.type} ranks")
+        sizes[-1] = world.size
+        return Mesh(axes, sizes, world.devices, world=world)
+    device = resolve_device(device)
+    if device.type == "cuda" and torch.cuda.device_count() > 1:
+        raise ValueError(
+            f"{torch.cuda.device_count()} cards are visible and one process "
+            "drives one of them: launch under `torchrun --nproc-per-node "
+            f"{torch.cuda.device_count()}` for a mesh over all of them, or "
+            "set CUDA_VISIBLE_DEVICES to one card")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    return Mesh(axes, sizes, [device])
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve_caps --model mnist@cuda \
       --requests 128 --buckets 1,4,16,64
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve_caps --model mnist@cuda --mesh host
 
 Builds the model lazily in the registry (init -> PTQ on a synthetic
 calibration set, on the device), warms the wave functions so the
@@ -11,9 +13,17 @@ scheduler, and prints the serving metrics.  With --compare-b1 it
 replays the same requests through a batch-size-1 loop.  Runs on CUDA
 unless --device says otherwise (`--device cpu` serves the `torch`
 backend's models on the CPU).  --mesh host runs the waves under a
-mesh of the local devices, the reference's ("pod", "model", "data")
-layout; on one device its waves are bit-identical to --mesh none, and a
-mesh of more devices raises NotImplementedError (not ported yet).
+data-parallel mesh in the reference's ("pod", "model", "data") layout.
+Alone it is a mesh of the one device, whose waves are those of --mesh
+none (more than one visible card raises: launch under torchrun).  Under
+`torchrun --nproc-per-node N` it is a mesh over the N ranks of a
+`torch.distributed` world (`dist.world.init_world`; NCCL when every rank
+owns a card, gloo when they share one): every rank submits the same
+seeded request stream and drains the same waves, each wave's rows split
+over the ranks and gathered back, and only rank 0 prints the report and
+writes --trace / --metrics-out / --numerics-out / --export.  Either way
+the completions are bit-identical to --mesh none; the last line of the
+report is their digest.
 
 With --capsbin PATH the engine serves an exported MCU artifact
 instead: the `.capsbin` is imported back into a QuantCapsNet on the
@@ -46,8 +56,12 @@ three back.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
+import io
 import json
+import os
 import pathlib
 import sys
 import time
@@ -57,6 +71,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.analysis import CheckError
+from repro_torch.dist import world as dworld
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.nn.backend import get_backend
 from repro_torch.nn.variants import REGISTRY
@@ -84,8 +99,9 @@ def main(argv=None):
     ap.add_argument("--buckets", default="1,4,16,64",
                     help="comma-separated micro-batch bucket sizes")
     ap.add_argument("--mesh", choices=("none", "host"), default="none",
-                    help="host: run waves under a mesh of the local "
-                    "devices (one device: the identity; more raise)")
+                    help="host: run waves under a data-parallel mesh: of "
+                    "the one device, or under torchrun of the world's "
+                    "ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare-b1", action="store_true",
                     help="also serve via a batch-size-1 loop and report "
@@ -126,18 +142,29 @@ def main(argv=None):
                     help="torch device (default: cuda; fails without one)")
     args = ap.parse_args(argv)
 
+    # under torchrun, --mesh host joins the world of its ranks
+    started = args.mesh == "host" and dworld.current_world() is None \
+        and "WORLD_SIZE" in os.environ
+    world = dworld.init_world(device=args.device) if started \
+        else dworld.current_world()
     tracer = None
     if args.trace or args.trace_summary:
         tracer = obs.Tracer()
         obs.set_tracer(tracer)
+    lead = world is None or args.mesh != "host" or world.rank == 0
     try:
-        return _serve(args, ap, tracer)
+        # ranks past the first serve in silence and write nothing
+        with contextlib.nullcontext() if lead else \
+                contextlib.redirect_stdout(io.StringIO()):
+            return _serve(args, ap, tracer, lead)
     finally:
         if tracer is not None:
             obs.set_tracer(None)
+        if started:
+            dworld.shutdown()
 
 
-def _serve(args, ap, tracer) -> int:
+def _serve(args, ap, tracer, lead: bool = True) -> int:
     # one run-scoped registry sees the model registry's counters and the
     # serve window's ServeMetrics mirror; METRICS (process) keeps the
     # singletons' counters (the cuda backend's fallbacks)
@@ -149,7 +176,7 @@ def _serve(args, ap, tracer) -> int:
         if args.mesh == "host" else None
     registry = ModelRegistry(device=args.device, metrics=run_metrics,
                              mesh=mesh)
-    mesh_tag = "none" if mesh is None else mesh.shape
+    mesh_tag = "none" if mesh is None else mesh.tag()
     buckets = tuple(int(b) for b in args.buckets.split(","))
     if args.capsbin:
         try:
@@ -199,7 +226,7 @@ def _serve(args, ap, tracer) -> int:
         print(f"[serve_caps] lazy PTQ build: "
               f"{time.perf_counter() - t0:.2f} s "
               f"({qnet.memory_bytes() / 1000:.1f} KB int8)")
-    if args.export:
+    if args.export and lead:
         from repro_torch.edge import format_export
         result = registry.export(model_id, args.export, check=args.check)
         print("[serve_caps] exported MCU artifact:")
@@ -209,11 +236,13 @@ def _serve(args, ap, tracer) -> int:
         print("[serve_caps] static MCU latency estimate:")
         print(format_estimates(lower(registry.model(model_id))))
 
-    engine, _, wall = serve_window(registry, buckets, images, model_id,
+    engine, done, wall = serve_window(registry, buckets, images, model_id,
                                    metrics_registry=run_metrics)
     print("[serve_caps]", engine.metrics.report())
     print(f"[serve_caps] wave functions bound: {registry.compile_count}, "
           f"cache hits: {registry.exec_hits}")
+    print(f"[serve_caps] completions: {len(done)}, sha256 "
+          f"{completions_digest(done)}")
     if registry.variant_fallbacks:
         print(f"[serve_caps] cuda->torch variant fallbacks: "
               f"{registry.variant_fallbacks} (decisions by (op, variant): "
@@ -224,7 +253,7 @@ def _serve(args, ap, tracer) -> int:
         print("[serve_caps] b1  :", b1_engine.metrics.report())
         print(f"[serve_caps] batched speedup over b1 loop: "
               f"{b1_wall / max(wall, 1e-9):.2f}x")
-    if args.numerics_out:
+    if args.numerics_out and lead:
         from repro_torch.obs import numerics as health
         qnet = registry.model(model_id)
         params = None
@@ -238,14 +267,14 @@ def _serve(args, ap, tracer) -> int:
               f"{report.total_int32_clip()}, worst saturation "
               f"{report.worst_saturation_rate() * 100:.2f}%, "
               f"wrote {args.numerics_out}")
-    if args.metrics_out:
+    if args.metrics_out and lead:
         _write_json(args.metrics_out, {
             "schema": "repro.metrics/v1",
             "process": obs.METRICS.snapshot(),
             "run": run_metrics.snapshot(),
             "serve_summary": engine.metrics.summary()})
         print(f"[serve_caps] wrote metrics snapshot to {args.metrics_out}")
-    if tracer is not None:
+    if tracer is not None and lead:
         if args.trace:
             tracer.write_chrome_trace(args.trace)
             print(f"[serve_caps] wrote {tracer.span_count()} spans to "
@@ -255,6 +284,17 @@ def _serve(args, ap, tracer) -> int:
             print("[serve_caps] trace summary:")
             print(analyze.format_analysis(analyze.analyze(tracer)))
     return 0
+
+
+def completions_digest(done) -> str:
+    """The first 16 hex digits of a sha256 over every completion's rid,
+    pred, v_q and lengths, in rid order: equal digests, equal bits."""
+    h = hashlib.sha256()
+    for c in sorted(done, key=lambda c: c.rid):
+        h.update(f"{c.rid}:{c.pred}:".encode())
+        h.update(c.v_q.tobytes())
+        h.update(c.lengths.tobytes())
+    return h.hexdigest()[:16]
 
 
 def _write_json(path, doc) -> None:

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.api import BATCH, dp_size
+from repro_torch.dist.api import BATCH, MULTI_CARD, dp_size
 from repro_torch.models.layers import full_bf16_sums
 from repro_torch.models.transformer import build_model, decode_alloc
 from repro_torch.optim.adam import AdamW, cosine_schedule
@@ -213,7 +213,13 @@ def make_decode_step(cfg: ModelConfig):
 def make_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, quant: bool = False):
     """Returns (fn, args tuple of structs, in_specs, out_specs) for a mesh
     of one device, each spec filtered to the mesh's axes
-    (`sharding.to_shardings`); a larger mesh raises."""
+    (`sharding.to_shardings`).  A larger mesh raises NotImplementedError:
+    the dry run's meshes come with tensor parallelism, which is not
+    ported."""
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"make_cell on a mesh of {mesh.size} devices {mesh.shape}: the "
+            f"LM cells' sharding is not ported yet ({MULTI_CARD} meshes)")
     B = shape.global_batch
     specs = input_specs(cfg, shape, quant=quant)
     bspec = shd.batch_specs(specs["batch"], B, mesh)

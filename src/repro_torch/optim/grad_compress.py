@@ -14,8 +14,9 @@ one less than the port's (the tests count those cases).
 
 `compress` / `decompress` are the wire format; `EFCompressor.apply` is
 the gradient transform and `apply_` its in-place form for the training
-step; `compressed_psum` is the one-worker case of the reference's
-collective (more workers are not ported).
+step; `compressed_psum` is the reference's collective over the workers
+of a `torch.distributed` group: the exponents' minimum, an int32 sum of
+the aligned int8 payloads, and one exact power-of-two scale.
 """
 from __future__ import annotations
 
@@ -83,15 +84,29 @@ class EFCompressor:
 
 
 def compressed_psum(x, group=None):
-    """The sum over the workers of `group` of int8-compressed `x`.  With
-    no process group, or a group of one, it is decompress(compress(x));
-    more workers raise NotImplementedError (not ported)."""
+    """The sum over the workers of `group` of int8-compressed `x`: the
+    reference's formula.  `group` is a process group, a data-parallel
+    `dist.api.Mesh` (its world; a tensor-parallel mesh raises), or None
+    for the whole world.  Each worker's exponent e aligns to the
+    workers' minimum e_min (an all_reduce MIN), its int8 payload shifts
+    right by e - e_min in int32, the payloads add in int32 (an
+    all_reduce SUM, exact in any order) and the total scales by
+    2^-e_min.  With no world, or one worker, it is
+    decompress(compress(x))."""
     import torch.distributed as dist
-    if group is not None or (dist.is_available() and dist.is_initialized()):
-        world = dist.get_world_size(group)
-        if world > 1:
-            raise NotImplementedError(
-                f"compressed_psum over {world} workers: collectives across "
-                "devices are not ported yet (ROADMAP Queue A, multi-card "
-                "meshes)")
-    return decompress(*compress(x))
+    from repro_torch.dist import api
+    if isinstance(group, api.Mesh):
+        api.require_data_parallel(group)
+        if api.dp_size(group) == 1:
+            return decompress(*compress(x))
+        api.require_world(group)
+        group = None                  # the mesh's ranks are the world
+    if not (dist.is_available() and dist.is_initialized()) or \
+            dist.get_world_size(group) == 1:
+        return decompress(*compress(x))
+    q, e = compress(x)
+    e_min = api.collective("min", e.reshape(1), group)[0]
+    # shifts past 31 give the sign, as XLA's arithmetic shift does
+    shift = torch.clamp(e - e_min, max=31).to(torch.int32)
+    tot = api.collective("sum", q.to(torch.int32) >> shift, group)
+    return tot.to(torch.float32) * pow2(-e_min)

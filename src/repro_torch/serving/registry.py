@@ -10,7 +10,8 @@ Two caches with different lifetimes:
     writes a served model out as that artifact.
   * wave cache — `executable(id, bucket)` binds `sharded.wave_fn` to
     (model, bucket) once (`sharded.compile_wave`, under the registry's
-    mesh if any) and reuses it for every later wave.
+    mesh if any) and reuses it for every later wave.  Under a mesh over
+    a `torch.distributed` world the models live on this rank's device.
 
 `quantize_count` / `compile_count` / `exec_hits` count builds, wave
 bindings and wave-cache hits, so tests can pin reuse: they are views
@@ -33,6 +34,7 @@ import torch
 from repro_torch import obs
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
+from repro_torch.dist import api
 from repro_torch.nn.config import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB,
                                    CapsNetConfig)
 from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
@@ -96,7 +98,9 @@ def default_specs() -> dict:
 class ModelRegistry:
     def __init__(self, specs: dict | None = None, device=None,
                  metrics: obs.MetricsRegistry | None = None, mesh=None):
-        self.device = resolve_device(device)
+        # under a mesh over a world, this rank's device is where PTQ runs
+        # and where the model lives
+        self.device = resolve_device(api.rank_device(mesh, device))
         self.mesh = mesh
         self.specs = dict(specs) if specs is not None else default_specs()
         self._models: dict = {}
@@ -252,7 +256,7 @@ class ModelRegistry:
             return self._execs[key]
         with obs.span("serving.compile_wave", model=model_id, bucket=bucket):
             exe = sharded.compile_wave(self.model(model_id), bucket,
-                                       mesh=self.mesh)
+                                       mesh=self.mesh, model_id=model_id)
         self._execs[key] = exe
         self._c_compile.inc(model=model_id, bucket=str(bucket))
         return exe

@@ -1,15 +1,26 @@
 """Wave execution: one wave function per (model, bucket), optionally
-under a device mesh.
+split over a data-parallel mesh.
 
 The counterpart of `repro.serving.sharded`.  `wave_fn` is the single
 definition of what a serving wave computes — quantize the float images,
 run the int8 pipeline (`QuantCapsNet.forward`), score class lengths,
 argmax — with `dist.api.shard` constraints on the logical BATCH axis at
-the wave's two boundaries, as in the reference.  With no mesh, or a mesh
-of one device, `api.shard` is the identity and the very same function
-runs, so a wave under a one-device mesh is bit-identical to one without;
-a mesh of more than one device raises NotImplementedError when the wave
-is bound (ROADMAP Queue A).
+the wave's two boundaries, as in the reference.
+
+Under a mesh over a `torch.distributed` world (every rank holding the
+whole bucket, as every rank drains the same queue) the wave does
+explicitly what the reference's GSPMD does: each rank quantizes and runs
+the forward on its contiguous share of the rows (`api.split_rows`; a
+rank with no rows launches nothing), `api.gather_rows` assembles v_q in
+rank order, and lengths and pred come from the gathered v_q, so every
+rank returns the whole wave.  Every int8 op is exact and the rows are
+independent, so the split wave is bit-identical to the unsharded one,
+whatever the number of ranks.  Before any compute one small all_gather
+checks that the ranks agree on (model id, bucket, wave index): ranks
+whose queues diverged raise ValueError instead of deadlocking.  With no
+mesh, or a mesh of one device, the very same function runs on all the
+rows.  A mesh that splits the model axis raises NotImplementedError when
+the wave is bound (ROADMAP Queue A, multi-card).
 
 `compile_wave` binds the wave to (model, bucket, mesh).  PyTorch runs
 eagerly, so there is nothing to trace or compile: the registry's wave
@@ -18,29 +29,50 @@ cache holds these bindings, keyed on (model, bucket), and counts them.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
 from repro_torch.dist import api
 
+# meshed waves run on each mesh in this process: the wave index its
+# ranks agree on
+_WAVES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
-def wave_fn(qnet, bucket: int, mesh=None):
+
+def wave_fn(qnet, bucket: int, mesh=None, model_id: str | None = None):
     """What one serving wave computes, bound to (model, bucket, mesh):
     float images [bucket,H,W,C] -> (v_q int8 [B,J,O], lengths float32
-    [B,J], pred int32 [B]), all on the model's device."""
-    api.require_one_device(mesh)
-    shape = (bucket,) + tuple(qnet.pipeline.cfg.input_shape)
+    [B,J], pred int32 [B]), all on the model's device.  `model_id`
+    (default: the config's name) is what the ranks of a mesh check they
+    agree on."""
+    api.require_data_parallel(mesh)
+    cfg = qnet.pipeline.cfg
+    shape = (bucket,) + tuple(cfg.input_shape)
     device = qnet.device
+    model_id = model_id or cfg.name
+    # a world's mesh (of any size) splits and gathers through its group
+    split = mesh is not None and (mesh.world is not None or mesh.size > 1)
+    if split and mesh.device != device:
+        raise ValueError(f"model on {device}, but this rank's mesh device "
+                         f"is {mesh.device}")
 
     @torch.inference_mode()
     def fn(x):
         x = torch.as_tensor(x, dtype=torch.float32)
+        if split:
+            _WAVES[mesh] = index = _WAVES.get(mesh, 0) + 1
+            api.agree(mesh, "serving wave", (model_id, bucket, index))
         if tuple(x.shape) != shape:
             raise ValueError(f"wave bound to {shape}, got {tuple(x.shape)}")
         with api.use_mesh(mesh):
-            x = api.shard(x.to(device), api.BATCH)
-            v_q = qnet.forward(qnet.quantize_input(x))
-            v_q = api.shard(v_q, api.BATCH)
+            x = api.shard(api.split_rows(x, mesh).to(device), api.BATCH)
+            if x.shape[0]:
+                v_q = qnet.forward(qnet.quantize_input(x))
+            else:                       # an empty share launches nothing
+                v_q = torch.empty((0, cfg.num_classes, cfg.caps_dim),
+                                  dtype=torch.int8, device=device)
+            v_q = api.shard(api.gather_rows(v_q, mesh, bucket), api.BATCH)
         lengths = qnet.class_lengths(v_q)
         pred = torch.argmax(lengths, dim=-1).to(torch.int32)
         return v_q, lengths, pred
@@ -59,8 +91,9 @@ class CompiledWave:
         return self.fn(x)
 
 
-def compile_wave(qnet, bucket: int, mesh=None) -> CompiledWave:
-    """Bind `wave_fn(qnet, bucket, mesh)` for a fixed bucket."""
+def compile_wave(qnet, bucket: int, mesh=None,
+                 model_id: str | None = None) -> CompiledWave:
+    """Bind `wave_fn(qnet, bucket, mesh, model_id)` for a fixed bucket."""
     shape = (bucket,) + tuple(qnet.pipeline.cfg.input_shape)
-    return CompiledWave(fn=wave_fn(qnet, bucket, mesh), mesh=mesh,
+    return CompiledWave(fn=wave_fn(qnet, bucket, mesh, model_id), mesh=mesh,
                         bucket=bucket, input_shape=shape)

@@ -26,7 +26,7 @@ from repro.launch import steps as RS
 from repro.launch.mesh import make_host_mesh as rmesh
 from repro.launch.train import reduced as rreduced
 from repro_torch.configs import base as tbase
-from repro_torch.dist import fault, sharding
+from repro_torch.dist import api, fault, sharding
 from repro_torch.dist.api import Mesh
 from repro_torch.launch import steps as TS
 from repro_torch.launch.mesh import make_host_mesh
@@ -257,8 +257,15 @@ def test_to_shardings_on_one_device_and_more():
         want = tuple(rshd.to_shardings(jax.sharding.PartitionSpec(*spec),
                                        ref).spec)
         assert sharding.to_shardings(spec, port) == want, spec
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        sharding.to_shardings((None, "model"), port_mesh(2))
+        # a data-parallel mesh of two devices filters the same spec
+        assert sharding.to_shardings(spec, port_mesh(2)) == \
+            api.fspec(port_mesh(2), *spec), spec
+    assert sharding.to_shardings((("pod", "data"), None), port_mesh(2)) \
+        == (("pod", "data"), None)
+    tp = Mesh(AXES, (1, 1, 2), ["cpu"] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, multi-card"):
+        sharding.to_shardings((None, "model"), tp)
 
 
 # ---------------------------------------------------------------------------

@@ -147,25 +147,81 @@ def test_ef_apply_matches_the_reference_and_apply_in_place(mag):
             assert torch.equal(x, y)
 
 
-def test_compressed_psum_one_worker_and_more():
-    """With no process group the sum over the one worker is
-    decompress(compress(x)), equal to the reference's collective over an
-    axis of one (its exp2 made exact); a group of two raises."""
-    x = sample(0.7, 11, 300)
+def psum_inputs(n: int) -> list:
+    """Per-rank inputs whose exponents differ across the ranks, for a
+    world of n: one rank at zero in the third; in the fourth the
+    exponents -24 and 24, so a payload shifts right by 48 (past 31: its
+    sign is left)."""
+    return [[sample(0.7 * 4.0 ** r, 11 + r, 300) for r in range(n)],
+            [sample(3e-3 * 9.0 ** (n - r), 29 + r, 64) for r in range(n)],
+            [np.zeros(64, np.float32) if r == n - 1 else
+             sample(50.0 / (r + 1), 41 + r, 64) for r in range(n)],
+            [sample(2e9 if r == 0 else 1e-7, 53 + r, 64)
+             for r in range(n)]]
+
+
+@pytest.fixture(scope="module")
+def psum_worlds():
+    """compressed_psum on every rank of gloo worlds of 2 and 4 processes,
+    the rank functions in `torch_multicard_ranks` (no JAX)."""
+    import torch_multicard_ranks as ranks
+    from repro_torch.dist import world as dworld
+    return {n: dworld.spawn(ranks.psum_checks, n, backend="gloo",
+                            device="cpu", timeout_s=60, deadline_s=180,
+                            args=(psum_inputs(n),))
+            for n in (2, 4)}
+
+
+def reference_psum(xs) -> np.ndarray:
+    """The reference's collective over an axis of len(xs) workers (its
+    exp2 made exact): every worker's row."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(R.jnp, "exp2", exact_exp2)
-        want = jax.vmap(lambda v: R.compressed_psum(v, "w"),
-                        axis_name="w")(jnp.asarray(x)[None])[0]
+        return np.asarray(jax.vmap(lambda v: R.compressed_psum(v, "w"),
+                                   axis_name="w")(jnp.asarray(np.stack(xs))))
+
+
+def test_compressed_psum_one_worker_and_more(psum_worlds):
+    """With no process group the sum over the one worker is
+    decompress(compress(x)), equal to the reference's collective over an
+    axis of one (its exp2 made exact); over a world of two workers it is
+    the reference's collective over two; a mesh that splits the model
+    axis raises."""
+    x = sample(0.7, 11, 300)
+    want = reference_psum([x])[0]
     got = T.compressed_psum(torch.from_numpy(x))
-    assert np.array_equal(np.asarray(want), got.numpy())
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(torch.distributed, "is_initialized", lambda: True)
-        mp.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A, multi-card"):
-            T.compressed_psum(torch.from_numpy(x))
-        mp.setattr(torch.distributed, "get_world_size", lambda group=None: 1)
-        assert torch.equal(T.compressed_psum(torch.from_numpy(x)), got)
+    assert np.array_equal(want, got.numpy())
+    xs = psum_inputs(2)[0]
+    want = reference_psum(xs)
+    for g in psum_worlds[2]:
+        assert np.array_equal(want[g["rank"]], g["world"][0].numpy())
+    from repro_torch.dist.api import Mesh
+    one = Mesh(("data", "model"), (1, 1), ["cpu"])
+    assert torch.equal(T.compressed_psum(torch.from_numpy(x), one), got)
+    tp = Mesh(("data", "model"), (1, 2), ["cpu"] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, multi-card"):
+        T.compressed_psum(torch.from_numpy(x), tp)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_compressed_psum_over_ranks_equals_the_references_vmap(n,
+                                                               psum_worlds):
+    """compressed_psum over gloo worlds of 2 and 4 ranks, on the default
+    group and on a data-parallel mesh's BATCH group, equals the
+    reference's `vmap(axis_name=)` collective on the stacked inputs, bit
+    for bit on every rank: the exponents' minimum, the int32 sum of the
+    aligned payloads (shifts past 31 included), one power-of-two scale."""
+    got = psum_worlds[n]
+    assert [g["rank"] for g in got] == list(range(n))
+    for i, xs in enumerate(psum_inputs(n)):
+        want = reference_psum(xs)
+        assert np.all(want == want[0])
+        for g in got:
+            for key in ("world", "mesh"):
+                y = g[key][i]
+                assert y.dtype == torch.float32
+                assert np.array_equal(want[g["rank"]], y.numpy()), (i, key)
 
 
 def test_ef_training_converges_like_uncompressed():

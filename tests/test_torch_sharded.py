@@ -3,8 +3,10 @@ CPU: `repro_torch.dist.api` (`BATCH`, `SEQ`, `fspec`, `dp_size`, `shard`,
 `current_mesh`) against `repro.dist.api` on a mesh of the one CPU device,
 `launch.mesh.make_host_mesh`, `serving.sharded.compile_wave` with and
 without a mesh (bit-identical waves), the registry carrying a mesh, and
-`serve_caps --mesh host`.  A mesh of more than one device is not ported:
-it raises NotImplementedError wherever it is used.
+`serve_caps --mesh host`.  A data-parallel mesh of more devices runs over
+a world of processes (`tests/test_torch_multicard_serving.py` holds it
+against the reference); a mesh that splits the model axis raises
+NotImplementedError wherever it is used.
 """
 import numpy as np
 import pytest
@@ -54,18 +56,41 @@ def test_shard_is_the_identity_on_one_device():
 
 
 def test_a_mesh_of_more_devices_raises():
+    """A data-parallel mesh of two devices works: as a record (specs,
+    `with`, `shard`), and over a gloo world of two processes, where a
+    registry's wave equals the one-device wave; without a world it binds
+    no wave.  A mesh that splits the model axis still raises."""
     two = api.Mesh(("pod", "data", "model"), (1, 2, 1),
                    [torch.device("cpu")] * 2)
     assert two.shape == {"pod": 1, "data": 2, "model": 1}
     assert api.dp_size(two) == 2
     assert api.fspec(two, api.BATCH) == (("pod", "data"),)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        with two:
-            pass
+    x = torch.arange(6.0).reshape(3, 2)
+    with two:
+        assert api.current_mesh() is two and api.shard(x, api.BATCH) is x
     qnet = ModelRegistry({"e": default_specs()["edge_tiny@torch"]},
                          device="cpu").model("e")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
+    with pytest.raises(ValueError, match="without a world"):
         sharded.compile_wave(qnet, 4, mesh=two)
+    images = default_specs()["edge_tiny@torch"].images(4, seed=4)
+    from repro_torch.dist import world as dworld
+    import torch_multicard_ranks as ranks
+    got = dworld.spawn(ranks.registry_wave, 2, backend="gloo", device="cpu",
+                       timeout_s=60, deadline_s=120, args=(images,))
+    want = sharded.compile_wave(qnet, 4)(images)
+    for g in got:
+        assert g["device"] == "cpu" and g["mesh"]
+        for a, b in zip(g["out"], want):
+            assert torch.equal(a, b)
+    tp = api.Mesh(("pod", "data", "model"), (1, 1, 2),
+                  [torch.device("cpu")] * 2)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, multi-card"):
+        with tp:
+            pass
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue A, multi-card"):
+        sharded.compile_wave(qnet, 4, mesh=tp)
     with pytest.raises(ValueError, match="devices"):
         api.Mesh(("data",), (3,), [torch.device("cpu")])
 
