@@ -7,6 +7,7 @@
     CUBLAS_WORKSPACE_CONFIG=:4096:8 python3 chip_smoke.py --train-lm
                                            # phase 16 alone
     python3 chip_smoke.py --multi          # the build, then phase 18 alone
+    python3 chip_smoke.py --tp             # the build, then phase 19 alone
     python3 chip_smoke.py --train-times    # phase 10's MNIST step times
                                            # and peak memory, no build
     python3 chip_smoke.py --forward-pairs PARENT_TREE
@@ -365,6 +366,42 @@ Phases, each raising on failure:
    over the 2 ranks equal to its formula on the CPU; (e) a one-rank
    NCCL world's bucket-64 wave equal to (a)'s; (f) NCCL asked for 2
    ranks on the one card raises ValueError before any process group.
+19. (run last, after phase 18) tensor parallelism on the model axis
+   (`dist.api`'s groups and autograd Functions, the models' shard sites,
+   `launch.steps.make_cell` on meshes; `[tp]` lines, every number beside
+   the card's name and power limit, 2 ranks sharing one card: not a
+   multi-card rate): (a) qwen3_14b in full (40 layers, d 5120, seed-0
+   weights), 8 requests of 64 tokens, a prefill into 512 slots and 32
+   greedy decode steps, bf16 and W8A8, first in this process (logits and
+   tokens kept on the host, the card freed), then over a gloo world of 2
+   ranks sharing cuda:0 whose `make_host_mesh()` puts both on the model
+   axis, each drawing its shares from the seed: the logits of the
+   prefill and of every step fed the one-process tokens within atol 0.15
+   + rtol 0.05 in bf16, of the prefill in W8A8 (its decode steps' are
+   printed: a float sum in another order moves a value across an int8
+   rounding boundary, and the next products' codes follow), greedy
+   tokens equal on every (row, step) without a near-tie (a top-two gap
+   under twice the row's measured difference; the count printed), every
+   `w8a8_dense` launch (281 a
+   forward, counts from 0 just before the meshed run) bit-exact against
+   its plain version on the rank's share, the activation exponent of
+   every W8A8 product of the prefill equal to the one-process run's
+   unless an earlier input already differed, and each rank's resident
+   param bytes within 5 % of half the split leaves plus the whole
+   replicated ones; each rank's prefill and warm decode ms and the
+   collectives of one decode step replayed alone; (b) in the same world,
+   stablelm_3b at full width cut to 4 of 32 layers, B 8 x S 256,
+   deterministic algorithms: 3 make_cell train steps (losses and grad
+   norms within rtol 1e-3 / 1.5e-2 of this process's steps, step ms,
+   peak GiB), then from the same init a step, a sharded checkpoint
+   (gathered onto rank 0, one 6.9 GB file), a fault, a restore into
+   fresh shares and the last two steps, equal to the uninterrupted run
+   bit for bit, and the checkpoint restored into this process equal to
+   the ranks' gathered state; (c) a (data 2, model 2) world of 4 ranks
+   on the card: qwen3_14b at d 256 through make_cell's train, prefill
+   and 4 decode steps against the one-process steps in each rank, and
+   `mnist@cuda` waves at buckets 64/16/3/1 bit-equal to the one-process
+   wave, with each rank's launches.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -4312,13 +4349,704 @@ def multi_phase(dev, card: str) -> dict:
             "step_ms": [g["step_ms"] for g in got]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: tensor parallelism on the model axis (dist.api's groups and
+# Functions, the models' shard sites, launch.steps.make_cell on meshes)
+# ---------------------------------------------------------------------------
+TP_RANKS = 2
+TP_LABEL = ("2 ranks sharing one card, gloo through the host: the split, "
+            "the collectives and the bits, not a multi-card rate")
+TP_DIR = ROOT / "build" / "tp_smoke"
+TP_DECODE = 32                   # greedy decode steps of (a), after prefill
+TP_TIMED = 4                     # warm decode steps timed in (a)
+TP_REPLAYS = 2                   # replays of a decode step's collectives
+TP_TRAIN_LAYERS = LM_RESUME_LAYERS           # (b): phase 16's resume depth
+TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 8, 256, 3
+TP_C_B, TP_C_STEPS = 8, 4                    # (c): rows, decode steps
+TP_PARAM_RTOL = 0.05             # a rank's params against its share
+
+
+def tp_prompts(cfg, dev):
+    """The served prompts of phase 12 (`launch.serve`'s TokenTask)."""
+    import torch
+    from repro_torch.data.synthetic import TokenTask
+    return torch.as_tensor(TokenTask(cfg.vocab_size, LM_PROMPT, seed=3)
+                           .batch(0, LM_REQUESTS)["inputs"], device=dev)
+
+
+def tp_digest(x) -> tuple:
+    """A tensor's shape and two sums of its bits (plain and weighted),
+    computed where it lies: equal digests mean, short of a collision,
+    equal bits."""
+    import torch
+    bits = x.detach().contiguous().view(
+        {1: torch.int8, 2: torch.int16, 4: torch.int32,
+         8: torch.int64}[x.element_size()]).reshape(-1).to(torch.int64)
+    w = torch.arange(1, bits.numel() + 1, dtype=torch.int64,
+                     device=bits.device) % 65521
+    return tuple(x.shape), int(bits.sum()), int((bits * w).sum())
+
+
+def tp_spy(exps, checked):
+    """Patch `lm_quant` so that every W8A8 product's input digest and
+    activation exponent go into `exps` (when a list) and every
+    `w8a8_dense` launch is held against its plain version, its max
+    |kernel - plain| going into `checked` (when a list).  Returns the
+    undo.  The plain version's calls launch nothing."""
+    from repro_torch.kernels.w8a8_dense import w8a8_dense_plain
+    from repro_torch.quant import lm_quant
+    qa, wd = lm_quant.quantize_activation, lm_quant.w8a8_dense
+
+    def quantize(x):
+        q, e = qa(x)
+        if exps is not None:
+            exps.append((tp_digest(x), float(e)))
+        return q, e
+
+    def dense(xq, wt, xe, n, out_dtype):
+        y = wd(xq, wt, xe, n, out_dtype)
+        if checked is not None:
+            checked.append(float((y.float() - w8a8_dense_plain(
+                xq, wt, xe, n, out_dtype).float()).abs().max()))
+        return y
+    lm_quant.quantize_activation, lm_quant.w8a8_dense = quantize, dense
+
+    def undo():
+        lm_quant.quantize_activation, lm_quant.w8a8_dense = qa, wd
+    return undo
+
+
+def tp_generate(model, params, prompts, feed=None, exps=None):
+    """A prefill of `prompts` into decode_alloc(LM_PROMPT + LM_GEN) = 512
+    slots, then TP_DECODE decode steps fed `feed` [B, TP_DECODE] (greedy
+    when None); `exps` records the prefill's W8A8 exponents.  Returns
+    (logits [TP_DECODE + 1, B, V] float32 on the host, the tokens fed)."""
+    import torch
+    from repro_torch.models.transformer import decode_alloc
+    undo = tp_spy(exps, None) if exps is not None else None
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"inputs": prompts},
+                                      alloc=decode_alloc(LM_PROMPT + LM_GEN))
+        if undo:
+            undo()
+        out, toks = [logits.float().cpu()], []
+        for i in range(TP_DECODE):
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32) \
+                if feed is None else feed[:, i:i + 1].to(prompts.device)
+            toks.append(tok.cpu())
+            logits, cache = model.decode_step(params, cache, tok,
+                                              LM_PROMPT + i)
+            out.append(logits.float().cpu())
+    return torch.stack(out), torch.cat(toks, 1)
+
+
+def tp_times(model, params, prompts, feed) -> tuple:
+    """(prefill ms, warm decode ms a step over TP_TIMED steps fed `feed`),
+    host clock around work ending in a synchronize."""
+    import torch
+    from repro_torch.models.transformer import decode_alloc
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = model.prefill(params, {"inputs": prompts},
+                                 alloc=decode_alloc(LM_PROMPT + LM_GEN))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(TP_TIMED):
+            _, cache = model.decode_step(params, cache,
+                                         feed[:, i:i + 1].to(prompts.device),
+                                         LM_PROMPT + i)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3 / TP_TIMED
+
+
+def tp_param_bytes(cfg, quant: str) -> tuple:
+    """(the one-process tree's bytes, the bytes a rank of the model line
+    should hold: half of every leaf `param_specs` splits, all of the
+    others), from meta structs."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.steps import input_specs
+    from repro_torch.configs.base import ShapeSpec
+    p = input_specs(cfg, ShapeSpec("p", "prefill", LM_PROMPT, LM_REQUESTS),
+                    quant=quant == "w8a8")["params"]
+    specs = sharding.flat_specs(p, sharding.param_specs(p))
+    from repro_torch.tree import leaves
+    total = share = 0
+    for t, spec in zip(leaves(p), specs):
+        b = t.numel() * t.element_size()
+        total += b
+        share += b / TP_RANKS if "model" in spec else b
+    return total, share
+
+
+def tp_one(cfg, dev, quant: str) -> dict:
+    """(a)'s one-process run: the logits and greedy tokens of
+    `tp_generate`, the prefill's exponents, written for the ranks into
+    TP_DIR; its times.  The card is freed after."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import quantize_lm_params, quantized_bytes
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
+    if quant == "w8a8":
+        params = quantize_lm_params(params, consume=True)
+    prompts = tp_prompts(cfg, dev)
+    exps = []
+    logits, toks = tp_generate(model, params, prompts, exps=exps)
+    one = {"logits": logits, "tokens": toks, "exps": exps,
+           "bytes": quantized_bytes(params)}
+    one["prefill_ms"], one["decode_ms"] = tp_times(model, params, prompts,
+                                                    toks)
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save(one, TP_DIR / f"one_{quant}.pt")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: one[k] for k in ("bytes", "prefill_ms", "decode_ms")}
+
+
+def tp_serve_rank(cfg, mesh, quant: str) -> dict:
+    """(a) on one rank of the model line: the rank's shares drawn from the
+    seed, the checked run under the mesh (every `w8a8_dense` launch held
+    against its plain version, the prefill's exponents recorded, the
+    one-process tokens fed), its logits against the one-process run's,
+    the greedy agreement, the times, and the collectives of a decode
+    step replayed alone."""
+    import torch
+    from repro_torch.dist import api
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import quantize_lm_params, quantized_bytes
+    dev = mesh.device
+    secs = {}
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(dev).manual_seed(SEED), dev, mesh)
+    if quant == "w8a8":
+        params = quantize_lm_params(params, consume=True)
+    one = torch.load(TP_DIR / f"one_{quant}.pt", weights_only=False)
+    secs["init"] = time.perf_counter() - t0
+    prompts = tp_prompts(cfg, dev)
+    exps, checked = [], []
+    undo = tp_spy(None, checked)
+    kd.w8a8_dense.launches = 0          # from 0 just before the TP path
+    t0 = time.perf_counter()
+    try:
+        with mesh:
+            logits, _ = tp_generate(model, params, prompts,
+                                    feed=one["tokens"], exps=exps)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    secs["checked"] = time.perf_counter() - t0
+    launches = kd.w8a8_dense.launches
+    want = one["logits"]
+    diff = (logits - want).abs()
+    over = diff > CONSIST_ATOL + CONSIST_RTOL * want.abs()
+    beyond = int(over.sum())
+    # greedy tokens: the mesh's argmax against the one-process token, on
+    # every (row, step) whose top two logits lie further apart than twice
+    # the largest difference measured on that row (a near-tie otherwise)
+    top2 = torch.topk(want, 2, dim=-1).values
+    tie = (top2[..., 0] - top2[..., 1]) <= 2 * diff.amax(-1)
+    fed = torch.cat([one["tokens"], torch.argmax(want[-1], -1)[:, None]
+                     .to(torch.int32)], 1).T          # [steps + 1, B]
+    agree = (torch.argmax(logits, -1).to(torch.int32) == fed)
+    # exponents of the prefill's products: equal wherever the input is
+    mism = [i for i, ((d1, e1), (d2, e2)) in enumerate(zip(one["exps"],
+                                                            exps))
+            if e1 != e2]
+    first_diff = next((i for i, ((d1, _), (d2, _)) in enumerate(
+        zip(one["exps"], exps)) if d1 != d2), None)
+    out = {"resident": quantized_bytes(params), "launches": launches,
+           "dense_checked": len(checked),
+           "dense_max_err": max(checked, default=0.0),
+           "max_diff": float(diff.max()), "beyond": beyond,
+           "step_max": [round(float(d), 6) for d in diff.amax((1, 2))],
+           "step_beyond": [int(n) for n in over.sum((1, 2))],
+           "agree": int(agree[~tie].sum()), "compared": int((~tie).sum()),
+           "ties": int(tie.sum()), "tie_agree": int(agree[tie].sum()),
+           "products": len(exps), "want_products": len(one["exps"]),
+           "mismatched": mism, "first_input_diff": first_diff}
+    t0 = time.perf_counter()
+    with mesh:
+        out["prefill_ms"], out["decode_ms"] = tp_times(
+            model, params, prompts, one["tokens"])
+        secs["timed"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # the collectives of one decode step, replayed alone
+        calls = []
+        orig = api.collective
+
+        def record(kind, t, group=None):
+            calls.append((kind, tuple(t.shape), t.dtype, t.device, group))
+            return orig(kind, t, group)
+        from repro_torch.models.transformer import decode_alloc
+        with torch.inference_mode():
+            _, cache = model.prefill(params, {"inputs": prompts},
+                                     alloc=decode_alloc(LM_PROMPT + LM_GEN))
+            api.collective = record
+            try:
+                model.decode_step(params, cache, one["tokens"][:, :1].to(dev),
+                                  LM_PROMPT)
+            finally:
+                api.collective = orig
+        bufs = [(k, torch.zeros(s, dtype=d, device=v), g)
+                for k, s, d, v, g in calls]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(TP_REPLAYS):
+            for k, b, g in bufs:
+                orig(k, b, g)
+        torch.cuda.synchronize()
+        out["gather_ms"] = (time.perf_counter() - t1) * 1e3 / TP_REPLAYS
+        secs["replay"] = time.perf_counter() - t0
+        out["secs"] = {k: round(v, 1) for k, v in secs.items()}
+        out["collectives"] = len(calls)
+        out["collective_bytes"] = sum(b.numel() * b.element_size()
+                                      for _, b, _ in bufs)
+    del model, params, cache, bufs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_share(t, spec, index: int):
+    """Rank `index`'s share of a whole leaf on a model line of TP_RANKS,
+    as `sharding.local_shard` lays it out."""
+    from repro_torch.dist.api import row_share
+    for i, ent in enumerate(spec):
+        if ent == "model" or (isinstance(ent, tuple) and "model" in ent):
+            lo, hi = row_share(t.shape[i], TP_RANKS, index)
+            t = t.narrow(i, lo, hi - lo)
+    return t
+
+
+def tp_train_batches(cfg, dev) -> list:
+    import torch
+    from repro_torch.data.synthetic import TokenTask
+    task = TokenTask(cfg.vocab_size, TP_TRAIN_S, seed=SEED + 19)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in
+             task.batch(i, TP_TRAIN_B).items()}
+            for i in range(TP_TRAIN_STEPS)]
+
+
+def tp_train_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("stablelm_3b"),
+                               num_layers=TP_TRAIN_LAYERS)
+
+
+def tp_train_one(dev) -> dict:
+    """(b)'s one-process steps: losses and grad norms."""
+    import torch
+    from repro_torch.launch import steps
+    cfg = tp_train_cfg()
+    state = steps.init_train_state(cfg, torch.Generator(dev).manual_seed(
+        SEED), dev)
+    step = steps.make_train_step(cfg)
+    losses, norms = [], []
+    for b in tp_train_batches(cfg, dev):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms}
+
+
+def tp_train_rank(mesh) -> dict:
+    """(b) on one rank: TP_TRAIN_STEPS make_cell steps on the rank's
+    shares, timed; then from the same init one step, a sharded save, a
+    fault (the state dropped), a restore into a fresh state and the
+    remaining steps, which must equal the uninterrupted run bit for bit;
+    the saved state's digest, gathered, for this process's restore."""
+    import torch
+    from repro_torch import ckpt
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.quant.lm_quant import quantized_bytes
+    from repro_torch.tree import leaves, tree_map
+    torch.use_deterministic_algorithms(True)
+    t_start = time.perf_counter()
+    dev = mesh.device
+    cfg = tp_train_cfg()
+    shape = ShapeSpec("tp_train", "train", TP_TRAIN_S, TP_TRAIN_B)
+    step, _, in_specs, _ = steps.make_cell(cfg, shape, mesh)
+    st_spec = in_specs[0]
+    batches = tp_train_batches(cfg, dev)
+
+    def fresh():
+        return steps.init_train_state(cfg, torch.Generator(dev).manual_seed(
+            SEED), dev, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    state = fresh()
+    out = {"resident": quantized_bytes(state), "losses": [], "norms": [],
+           "ms": []}
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["norms"].append(float(m["grad_norm"]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    # a fault after step 1's save, a resume from the sharded checkpoint
+    b_state = fresh()
+    b_state, _ = step(b_state, batches[0])
+    t0 = time.perf_counter()
+    ckpt.save(TP_DIR / "ckpt", 1, b_state, specs=st_spec, mesh=mesh)
+    out["save_s"] = time.perf_counter() - t0
+    out["saved_digest"] = [tp_digest(t) for t in leaves(b_state)]
+    del b_state                                   # the fault
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b_state = ckpt.restore(TP_DIR / "ckpt", 1,
+                           tree_map(torch.zeros_like, state), into=True,
+                           specs=st_spec, mesh=mesh)
+    out["restore_s"] = time.perf_counter() - t0
+    for b in batches[1:]:
+        b_state, _ = step(b_state, b)
+    out["resume_equal"] = all(torch.equal(x, y) for x, y in zip(
+        leaves(b_state), leaves(state)))
+    torch.use_deterministic_algorithms(False)
+    out["secs"] = round(time.perf_counter() - t_start, 1)
+    del state, b_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank() -> dict:
+    """(a) and (b) on one rank of the 2-rank world, whose default host
+    mesh puts both ranks on the model axis."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist import api
+    from repro_torch.dist.world import current_world
+    from repro_torch.launch.mesh import make_host_mesh
+    world = current_world()
+    mesh = make_host_mesh()
+    if api.tp_size(mesh) != TP_RANKS:
+        raise AssertionError(f"make_host_mesh() in a world of {world.size}: "
+                             f"{mesh.shape}")
+    out = {"rank": world.rank, "mesh": mesh.tag(), "tp_rank":
+           api.tp_rank(mesh), "device": str(world.device)}
+    qwen = get_config("qwen3_14b")
+    for quant in ("none", "w8a8"):
+        out[quant] = tp_serve_rank(qwen, mesh, quant)
+    out["train"] = tp_train_rank(mesh)
+    return out
+
+
+def tp_c_rank(waves: dict) -> dict:
+    """(c) on one rank of the 4-rank (data 2, model 2) world: qwen3_14b
+    reduced (d 256) through make_cell's train, prefill and decode on the
+    rank's shares beside the one-process steps in this rank, and
+    mnist@cuda waves through a registry on the mesh."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist import api, sharding
+    from repro_torch.dist.api import Mesh
+    from repro_torch.dist.world import current_world
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import reduced
+    from repro_torch.serving import ModelRegistry
+    from repro_torch.tree import tree_map
+    world = current_world()
+    dev = world.device
+    mesh = Mesh(("pod", "data", "model"), (1, 2, 2), world.devices,
+                world=world)
+    one_mesh = Mesh(("pod", "data", "model"), (1, 1, 1), [dev])
+    cfg = reduced(get_config("qwen3_14b"), d_model=256)
+    B, S = TP_C_B, LM_PROMPT
+    out = {"rank": world.rank, "dp_rank": api.dp_rank(mesh),
+           "tp_rank": api.tp_rank(mesh)}
+    from repro_torch.data.synthetic import TokenTask
+    task = TokenTask(cfg.vocab_size, S + TP_C_STEPS, seed=SEED + 20)
+    toks = torch.as_tensor(task.batch(0, B)["inputs"], device=dev)
+    tb = {"inputs": toks[:, :S], "targets": toks[:, 1:S + 1]}
+    rows = sharding.dp_shardable(B, mesh)
+
+    def mine(t):
+        return api.split_rows(t, mesh) if rows else t
+    res = {}
+    for key, m in (("one", one_mesh), ("tp", mesh)):
+        state = steps.init_train_state(cfg, torch.Generator(dev).manual_seed(
+            SEED), dev, m)
+        params = tree_map(torch.clone, state["params"])
+        tr, *_ = steps.make_cell(cfg, ShapeSpec("t", "train", S, B), m)
+        pre, *_ = steps.make_cell(cfg, ShapeSpec("p", "prefill", S, B), m)
+        dec, *_ = steps.make_cell(cfg, ShapeSpec("d", "decode", S, B), m)
+        part = (lambda t: t) if m is one_mesh else mine
+        _, met = tr(state, {k: part(v) for k, v in tb.items()})
+        logits, _ = pre(params, {"inputs": part(tb["inputs"])})
+        with m, api.rows_split(rows and m is mesh):
+            _, cache = steps.build_model(cfg).prefill(
+                params, {"inputs": part(tb["inputs"])}, alloc=2 * S)
+        got = [logits]
+        for i in range(TP_C_STEPS):
+            lg, cache = dec(params, cache, part(toks[:, S + i:S + i + 1]),
+                            S + i)
+            got.append(lg)
+        if m is mesh and rows:
+            got = [api.gather_rows(g.float(), mesh, B) for g in got]
+        res[key] = {"loss": float(met["loss"]),
+                    "norm": float(met["grad_norm"]),
+                    "logits": [g.float().cpu() for g in got]}
+    out["loss"] = (res["one"]["loss"], res["tp"]["loss"])
+    out["norm"] = (res["one"]["norm"], res["tp"]["norm"])
+    worst = beyond = 0
+    for a, b in zip(res["one"]["logits"], res["tp"]["logits"]):
+        d = (a - b).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > CONSIST_ATOL + CONSIST_RTOL * a.abs()).sum())
+    out["logit_max_diff"], out["logit_beyond"] = worst, beyond
+    # mnist@cuda waves through a registry on the (data 2, model 2) mesh
+    reg = ModelRegistry(mesh=mesh)
+    out["waves"], out["launches"] = {}, {}
+    for b, x in waves.items():
+        exe = reg.executable(MULTI_MID, b)
+        ks.squash_q7.launches = kr.routing_q7.launches = 0
+        got = [t.cpu() for t in exe(torch.as_tensor(x))]
+        torch.cuda.synchronize()
+        out["launches"][b] = {"routing_q7": kr.routing_q7.launches,
+                              "squash_q7": ks.squash_q7.launches}
+        out["waves"][b] = got
+    return out
+
+
+def tp_phase(dev, card: str) -> dict:
+    """Phase 19: (a) qwen3_14b in full, bf16 and W8A8, over a model line
+    of 2 gloo ranks sharing cuda:0 against the one-process run before
+    it; (b) stablelm_3b at full width, 4 layers, 3 make_cell train steps
+    over the same ranks against the one-process steps, a fault and a
+    resume from the sharded checkpoint bit for bit, the checkpoint
+    restored into this process equal to the state the ranks gathered;
+    (c) a (data 2, model 2) world of 4 ranks: qwen3_14b at d 256 through
+    make_cell and mnist@cuda waves.  Returns the TP path's launches."""
+    import torch
+    from repro_torch import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.dist import world as dworld
+    from repro_torch.launch import steps
+    from repro_torch.serving import ModelRegistry
+    from repro_torch.tree import tree_map
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    qwen = get_config("qwen3_14b")
+    one = {q: tp_one(qwen, dev, q) for q in ("none", "w8a8")}
+    train_one = tp_train_one(dev)
+    one_s = time.perf_counter() - t_phase
+    log(f"[tp] {card} | one process: qwen3_14b params "
+        + ", ".join(f"{q} {one[q]['bytes']:,} bytes, prefill "
+                    f"{one[q]['prefill_ms']:.2f} ms, decode "
+                    f"{one[q]['decode_ms']:.3f} ms a step" for q in one)
+        + f"; stablelm_3b x{TP_TRAIN_LAYERS} losses {train_one['losses']} "
+        f"({one_s:.1f} s for the one-process runs)")
+
+    # (a), (b): one gloo world of 2 ranks on cuda:0, deterministic cuBLAS
+    # for (b)'s bits (each rank turns deterministic algorithms on there)
+    old = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    t0 = time.perf_counter()
+    try:
+        got = dworld.spawn(tp_rank, TP_RANKS, backend="gloo", device="cuda",
+                           timeout_s=300, deadline_s=900)
+    finally:
+        if old is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = old
+    world_s = time.perf_counter() - t0
+    log(f"[tp] (a)-(b) world of {TP_RANKS} ranks on "
+        f"{[g['device'] for g in got]}, mesh {got[0]['mesh']} "
+        f"(make_host_mesh()), tp ranks {[g['tp_rank'] for g in got]} "
+        f"({world_s:.1f} s for the world, start-up included)")
+    launches = 0
+    for q in ("none", "w8a8"):
+        total, share = tp_param_bytes(qwen, q)
+        want_launches = (7 * qwen.num_layers + 1) * (TP_DECODE + 1) \
+            if q == "w8a8" else 0
+        for g in got:
+            r = g[q]
+            what = f"[tp] (a) qwen3_14b {q} rank {g['rank']}"
+            if abs(r["resident"] / share - 1) > TP_PARAM_RTOL:
+                raise AssertionError(f"{what}: {r['resident']:,} param "
+                                     f"bytes, its share is {share:,.0f}")
+            # bf16: the prefill and every decode step; W8A8: the prefill
+            # (its decode steps are printed: a float sum's order moves a
+            # value across an int8 rounding boundary, and the next
+            # product's codes follow)
+            beyond = r["beyond"] if q == "none" else r["step_beyond"][0]
+            if beyond or r["agree"] != r["compared"]:
+                raise AssertionError(f"{what}: {beyond} logits beyond the "
+                                     f"tolerance (max {r['max_diff']}), "
+                                     f"greedy {r['agree']}/{r['compared']}")
+            if r["launches"] != want_launches or r["dense_max_err"] != 0 \
+                    or r["dense_checked"] != want_launches:
+                raise AssertionError(f"{what}: w8a8_dense {r['launches']} "
+                                     f"launches (want {want_launches}), "
+                                     f"{r['dense_checked']} checked, max "
+                                     f"|kernel - plain| "
+                                     f"{r['dense_max_err']}")
+            if r["products"] != r["want_products"] or (
+                    r["mismatched"] and (r["first_input_diff"] is None or
+                                         r["mismatched"][0]
+                                         < r["first_input_diff"])):
+                raise AssertionError(f"{what}: exponents of "
+                                     f"{r['products']} products, mismatched "
+                                     f"{r['mismatched'][:5]}, first input "
+                                     f"differing {r['first_input_diff']}")
+            launches += r["launches"]
+            log(f"{what}: seconds {r['secs']}; per step max |diff| "
+                f"{r['step_max']}, beyond {r['step_beyond']}; "
+                f"params {r['resident']:,} bytes on the rank "
+                f"against {total:,} in one process ({r['resident'] / total:.4f}"
+                f"; its share {share:,.0f}); logits of the prefill and "
+                f"{TP_DECODE} decode steps max |diff| {r['max_diff']:.6f}, "
+                f"{r['beyond']} beyond atol {CONSIST_ATOL} + rtol "
+                f"{CONSIST_RTOL}; greedy tokens equal on {r['agree']} of "
+                f"{r['compared']} (row, step)s without a near-tie ({r['ties']}"
+                f" near-ties, {r['tie_agree']} of them equal); W8A8 "
+                f"exponents of {r['products']} prefill products compared, "
+                f"{len(r['mismatched'])} mismatched (first input differing: "
+                f"{r['first_input_diff']}); w8a8_dense {r['launches']} "
+                f"launches, {r['dense_checked']} held against the plain "
+                f"version, max |kernel - plain| {r['dense_max_err']}")
+            log(f"[tp] {card} | {TP_LABEL}: qwen3_14b {q} rank {g['rank']}: "
+                f"prefill {r['prefill_ms']:.2f} ms ({LM_REQUESTS}x"
+                f"{LM_PROMPT}), warm decode {r['decode_ms']:.3f} ms a step "
+                f"(one process {one[q]['prefill_ms']:.2f} / "
+                f"{one[q]['decode_ms']:.3f}); a decode step's "
+                f"{r['collectives']} collectives ({r['collective_bytes']:,} "
+                f"bytes) replayed alone {r['gather_ms']:.3f} ms")
+
+    # (b): the steps against the one-process steps, the resume, and the
+    # sharded checkpoint restored here
+    for g in got:
+        r = g["train"]
+        what = f"[tp] (b) stablelm_3b x{TP_TRAIN_LAYERS} rank {g['rank']}"
+        for key, rtol in (("losses", LM_TRAIN_CPU_RTOL["loss"]),
+                          ("norms", LM_TRAIN_CPU_RTOL["grad_norm"])):
+            for a, b in zip(r[key], train_one[key]):
+                if not abs(a - b) <= rtol * abs(b):
+                    raise AssertionError(f"{what}: {key} {r[key]} against "
+                                         f"one process {train_one[key]}")
+        if not r["resume_equal"]:
+            raise AssertionError(f"{what}: the resumed run differs from the "
+                                 "uninterrupted one")
+    cfg = tp_train_cfg()
+    ex = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                  steps.train_state_structs(cfg))
+    t0 = time.perf_counter()
+    step_n, restored = ckpt.restore_latest(TP_DIR / "ckpt", ex, into=True)
+    restore_s = time.perf_counter() - t0
+    from repro_torch.dist import sharding
+    from repro_torch.dist.api import Mesh
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.tree import leaves
+    record = Mesh(("pod", "data", "model"), (1, 1, TP_RANKS),
+                  [dev] * TP_RANKS)
+    st_spec = steps.make_cell(cfg, ShapeSpec("tp_train", "train",
+                                             TP_TRAIN_S, TP_TRAIN_B),
+                              record)[2][0]
+    specs = sharding.flat_specs(restored, st_spec)
+    for g in got:
+        mine = [tp_digest(tp_share(t, spec, g["tp_rank"]))
+                for t, spec in zip(leaves(restored), specs)]
+        if step_n != 1 or mine != g["train"]["saved_digest"]:
+            raise AssertionError(f"[tp] (b) the sharded checkpoint restored "
+                                 f"in one process: rank {g['rank']}'s share "
+                                 "differs from the state it saved")
+    n_leaves = len(specs)
+    del ex, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    for g in got:
+        r = g["train"]
+        log(f"[tp] {card} | {TP_LABEL}: (b) stablelm_3b x{TP_TRAIN_LAYERS} "
+            f"(d {tp_train_cfg().d_model}, B {TP_TRAIN_B} x S {TP_TRAIN_S}) rank "
+            f"{g['rank']}: "
+            f"state {r['resident']:,} bytes; steps "
+            + ", ".join(f"{ms:.1f}" for ms in r["ms"])
+            + f" ms, peak {r['peak_gib']:.2f} GiB; losses {r['losses']} "
+            f"(one process {train_one['losses']}), grad norms {r['norms']} "
+            f"(one process {train_one['norms']}), within rtol "
+            f"{LM_TRAIN_CPU_RTOL['loss']} / {LM_TRAIN_CPU_RTOL['grad_norm']};"
+            f" sharded save {r['save_s']:.1f} s, restore "
+            f"{r['restore_s']:.1f} s, (b) {r['secs']} s; a fault after step 1 and the resume "
+            "equal the uninterrupted run bit for bit")
+    log(f"[tp] (b) the sharded checkpoint of step 1 restored into one "
+        f"process ({restore_s:.1f} s): each rank's share of every leaf "
+        f"({n_leaves}) has the digest of the share that rank saved")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+
+    # (c): a (data 2, model 2) world of 4 ranks
+    inputs = multi_inputs()
+    reg = ModelRegistry(device=dev)
+    want = {b: [t.cpu() for t in reg.executable(MULTI_MID, b)(inputs[b])]
+            for b in MULTI_BUCKETS}
+    del reg
+    t0 = time.perf_counter()
+    got_c = dworld.spawn(tp_c_rank, 4, backend="gloo", device="cuda",
+                         timeout_s=300, deadline_s=600, args=(inputs,))
+    c_s = time.perf_counter() - t0
+    caps = {"routing_q7": 0, "squash_q7": 0}
+    for g in got_c:
+        what = f"[tp] (c) rank {g['rank']} (data {g['dp_rank']}, model " \
+            f"{g['tp_rank']})"
+        (l1, l2), (n1, n2) = g["loss"], g["norm"]
+        if abs(l2 - l1) > LM_TRAIN_CPU_RTOL["loss"] * abs(l1) or \
+                abs(n2 - n1) > LM_TRAIN_CPU_RTOL["grad_norm"] * abs(n1) or \
+                g["logit_beyond"]:
+            raise AssertionError(f"{what}: loss {l2} / {l1}, grad norm {n2} "
+                                 f"/ {n1}, {g['logit_beyond']} logits beyond"
+                                 f" (max {g['logit_max_diff']})")
+        for b in MULTI_BUCKETS:
+            if not all(torch.equal(a, w) for a, w in zip(g["waves"][b],
+                                                         want[b])):
+                raise AssertionError(f"{what}: bucket {b} wave differs from "
+                                     "the one-process wave")
+            for k in caps:
+                caps[k] += g["launches"][b][k]
+        log(f"{what}: qwen3_14b d 256 through make_cell, loss {l2:.6f} "
+            f"(one process {l1:.6f}), grad norm {n2:.6f} ({n1:.6f}), "
+            f"prefill and {TP_C_STEPS} decode logits max |diff| "
+            f"{g['logit_max_diff']:.6f}, none beyond; mnist@cuda waves at "
+            f"buckets {MULTI_BUCKETS} bit-identical to the one-process "
+            f"wave, launches " + "; ".join(
+                f"{b}: {g['launches'][b]}" for b in MULTI_BUCKETS))
+    if min(caps.values()) == 0:
+        raise AssertionError(f"[tp] (c) the waves launched {caps}")
+    log(f"[tp] phase 19 passed in {time.perf_counter() - t_phase:.1f} s "
+        f"((a)-(b) world {world_s:.1f} s, (c) world {c_s:.1f} s)")
+    return {"launches": {"w8a8_dense": launches, **caps},
+            "serve": {q: [{k: v for k, v in g[q].items()
+                           if k not in ("mismatched",)} for g in got]
+                      for q in ("none", "w8a8")},
+            "train": [{k: v for k, v in g["train"].items()
+                       if k != "saved_digest"} for g in got],
+            "one": one, "train_one": train_one}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--device-times"], ["--forward-worker"],
-                    ["--train-lm"], ["--train-times"], ["--multi"]) and (
+                    ["--train-lm"], ["--train-times"], ["--multi"],
+                    ["--tp"]) and (
             len(argv) != 2 or argv[0] != "--forward-pairs"):
         print("usage: chip_smoke.py [--device-times | --train-lm | "
-              "--train-times | --multi | --forward-pairs PARENT_TREE]",
+              "--train-times | --multi | --tp | --forward-pairs "
+              "PARENT_TREE]",
               file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4404,6 +5132,11 @@ def main(argv=None) -> int:
         multi = multi_phase(dev, card)
         log(card)
         log(json.dumps({"multi": multi}))
+        return 0
+    if argv == ["--tp"]:
+        tp = tp_phase(dev, card)
+        log(card)
+        log(json.dumps({"tp": tp}))
         return 0
 
     for name in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
@@ -4602,6 +5335,11 @@ def main(argv=None) -> int:
     # from 0 just before its wave, read just after
     multi = multi_phase(dev, card)
 
+    # phase 19: tensor parallelism; each rank's w8a8_dense count from 0
+    # just before its meshed run, its routing/squash counts before each
+    # wave, read just after
+    tp = tp_phase(dev, card)
+
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
                "routing_q7": ("routing_q7.cu",
@@ -4634,9 +5372,10 @@ def main(argv=None) -> int:
                 "train": train["launches"][name],
                 "search": search["launches"][name],
                 "multi": multi["launches"][name],
-                "multi_nccl": multi["nccl_launches"][name]}
+                "multi_nccl": multi["nccl_launches"][name],
+                "tp": tp["launches"][name]}
         else:
-            entry["launches_by_path"] = {"multi": 0}
+            entry["launches_by_path"] = {"multi": 0, "tp": 0}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (
@@ -4655,7 +5394,7 @@ def main(argv=None) -> int:
         "launches_by_path": {**lm["launches_by_path"],
                              **moe["dense_launches_by_path"],
                              **ssm["dense"], **encdec["dense"],
-                             "multi": 0},
+                             "multi": 0, "tp": tp["launches"]["w8a8_dense"]},
         "max_abs_err": max(lm["max_abs_err"], ssm["max_abs_err"],
                            encdec["max_abs_err"]), "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -4684,7 +5423,7 @@ def main(argv=None) -> int:
         "batched face of w8a8_dense.cu's kernel, one expert a batch entry",
         "launches": moe["launches"],
         "launches_by_path": {**moe["launches_by_path"], **ssm["bmm"],
-                             "multi": 0},
+                             "multi": 0, "tp": 0},
         "max_abs_err": max(moe["max_abs_err"], ssm["max_abs_err"]),
         "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -4700,6 +5439,7 @@ def main(argv=None) -> int:
     log(f"[train-lm] summary {json.dumps(train_lm)}")
     log(f"[dryrun] summary {json.dumps(dryrun)}")
     log(f"[multi] summary {json.dumps(multi)}")
+    log(f"[tp] summary {json.dumps(tp)}")
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "
         f"the build included")
     log(card)

@@ -111,13 +111,12 @@ def make_train_step(pipeline, decoder, opt, *, num_classes: int,
 
     plan=None trains the float pipeline; a PipelinePlan switches the
     forward to `CapsPipeline.forward_fq` (fake-quant QAT) on that plan's
-    grids.  Under a data-parallel `mesh` the microbatches split over its
-    ranks; the losses and the state equal the no-mesh step's bit for
+    grids.  Under a `mesh` the microbatches split over its BATCH lines
+    (replicated over a model axis); the losses and the state equal the no-mesh step's bit for
     bit, for every S and every number of ranks."""
     S = microbatches
     if S < 1 or (S & (S - 1)):
         raise ValueError(f"microbatches must be a power of two, got {S}")
-    api.require_data_parallel(mesh)
 
     def micro_loss(tparams, x, y):
         """Loss of ONE microbatch (mean over its rows only)."""

@@ -11,10 +11,12 @@ weights; the finished model goes through the ordinary
 `pipeline.quantize`, so it lowers with `repro_torch.edge.lower` and
 serves through `serving.ModelRegistry` as any PTQ model does.
 
-Under a data-parallel `mesh` over a `torch.distributed` world
-(`dist.world`), every rank holds the whole replicated state on its own
-device and draws the same batches; `train_step` and `fit` split each
-step's microbatches over the ranks (`captrain.steps`), and the losses
+Under a `mesh` over a `torch.distributed` world (`dist.world`), every
+rank holds the whole replicated state on its own device and draws the
+same batches; `train_step` and `fit` split each step's microbatches
+over the BATCH lines (`captrain.steps`; the ranks of a model line
+compute the same microbatches, as the reference replicates the step
+over `model`), and the losses
 and the state equal the one-rank run's bit for bit.  Calibration and
 `derive_plan` run replicated; `save` writes from rank 0 alone, then
 waits for every rank, and `resume_or_init` reads the same bits on every
@@ -84,7 +86,6 @@ class CapsTrainer:
                  mesh=None, metrics=None, rng=None, device=None):
         self.cfg = cfg
         self.tcfg = tcfg
-        api.require_data_parallel(mesh)
         self.mesh = mesh
         # under a mesh over a world, the state lives on this rank's device
         self.device = resolve_device(api.rank_device(mesh, device))
@@ -210,7 +211,7 @@ class CapsTrainer:
         the others waiting for it) and return its path."""
         if not self.tcfg.ckpt_dir:
             raise ValueError("TrainConfig.ckpt_dir is not set")
-        if api.dp_rank(self.mesh) == 0:
+        if api.world_rank(self.mesh) == 0:
             path = self._save(state, plan)
         else:
             path = str(pathlib.Path(self.tcfg.ckpt_dir)

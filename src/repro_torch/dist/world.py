@@ -46,6 +46,9 @@ class World:
     device: torch.device          # this rank's device
     devices: tuple                # every rank's device, in rank order
     timeout_s: float
+    # the process groups of meshes over this world, built once a layout
+    groups: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     def tag(self) -> str:
         return f"{self.size}x{self.device.type}/{self.backend}"

@@ -29,6 +29,7 @@ import traceback
 
 from repro_torch.configs.base import (ARCH_IDS, SHAPES, cell_is_runnable,
                                       get_config)
+from repro_torch.dist.api import MULTI_CARD
 from repro_torch.dist.op_analysis import analyze_ops
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh, mesh_chips
@@ -36,7 +37,6 @@ from repro_torch.launch.roofline import analyze_cell
 from repro_torch.tree import leaves
 
 DEFAULT_OUT = pathlib.Path("build/dryrun")
-MULTI_CARD = "ROADMAP Queue A, multi-card"
 
 
 def donate_for(kind: str):

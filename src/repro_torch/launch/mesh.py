@@ -4,12 +4,13 @@
 importing this module never touches device state.  Inside a
 `torch.distributed` world (`dist.world.init_world`, as under `torchrun`)
 it is a mesh over the world's ranks, one device each, all on the last
-axis, as the reference fills its last axis with the local devices.
+axis, as the reference fills its last axis with the local devices: with
+the default axes, a tensor-parallel mesh (model = the world).
 Outside one it covers one device: a process drives one card, so more
 than one visible card raises and asks for `torchrun`.  The counterpart of
 the reference's production meshes (a TPU pod of 256 chips, two of 512)
 is `make_production_mesh`: one H100, the card a dry run's roofline is
-for; the multi-pod mesh raises (ROADMAP Queue A, multi-card).
+for; the multi-pod mesh raises (`api.MULTI_CARD`).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.api import Mesh
+from repro_torch.dist.api import MULTI_CARD, Mesh
 from repro_torch.dist.world import current_world
 
 
@@ -56,8 +57,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     raises NotImplementedError."""
     if multi_pod:
         raise NotImplementedError(
-            "a multi-card production mesh is not ported yet (ROADMAP "
-            "Queue A, multi-card)")
+            f"a multi-card production mesh is not ported yet ({MULTI_CARD})")
     return Mesh(("data", "model"), (1, 1), [torch.device("cuda", 0)])
 
 

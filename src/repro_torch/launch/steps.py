@@ -6,7 +6,11 @@ storage, the counterpart of `jax.ShapeDtypeStruct`.  `input_specs(cfg,
 shape)` returns the structs of every input of a cell's step;
 `make_cell(cfg, shape, mesh)` also returns the step callable and the
 spec trees of its inputs and outputs (`repro_torch.dist.sharding`), for
-a mesh of one device.
+a mesh of one device or one over a `torch.distributed` world (data
+parallel, tensor parallel, or both): there the callable takes and
+returns each rank's shares of its inputs and outputs, laid out by those
+specs (`sharding.local_shard`, `local_structs`), and gives the
+one-device result.
 
 The train step is the reference's (value and grad of `train_loss`, then
 AdamW), with two differences of form.  The whole step, backward and
@@ -23,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.dist import api
 from repro_torch.dist import sharding as shd
-from repro_torch.dist.api import BATCH, MULTI_CARD, dp_size
+from repro_torch.dist.api import BATCH, dp_size
 from repro_torch.models.layers import full_bf16_sums
 from repro_torch.models.transformer import build_model, decode_alloc
 from repro_torch.optim.adam import AdamW, cosine_schedule
@@ -139,10 +144,12 @@ def train_state_structs(cfg: ModelConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=META)}
 
 
-def init_train_state(cfg: ModelConfig, gen, device=None) -> dict:
+def init_train_state(cfg: ModelConfig, gen, device=None,
+                     mesh=None) -> dict:
     """Params drawn from `gen` (a torch.Generator on `device`: the card
-    unless device="cpu"), zeroed AdamW moments, step 0."""
-    p = build_model(cfg).init(gen, device)
+    unless device="cpu"), zeroed AdamW moments, step 0; under `mesh`
+    this rank's shares, each leaf drawn whole (the one-device bits)."""
+    p = build_model(cfg).init(gen, device, mesh)
     opt = make_optimizer().init(p)
     return {"params": p, "opt": opt, "step": opt["step"].clone()}
 
@@ -161,15 +168,21 @@ def loss_and_grads(model, params, batch):
         grads = list(torch.autograd.grad(loss, ws, allow_unused=True))
     grads = [torch.zeros_like(w) if g is None else g
              for w, g in zip(ws, grads)]
+    rows = api.rows_group()
+    if rows is not None:      # each rank's rows gave its part of the sum
+        grads = [api.collective("sum", g.float(), rows.handle).to(g.dtype)
+                 for g in grads]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamW | None = None,
-                    compressor=None):
+                    compressor=None, split=None):
     """train_step(state, batch) -> (state, metrics): the state {"params",
     "opt", "step"(, "err" with a compressor)} is updated in place and
     returned; metrics {"loss", "aux", "grad_norm", "lr"} are 0-d tensors
-    on the state's device."""
+    on the state's device.  Under a tensor-parallel mesh `split` flags
+    the param leaves (in `leaves` order) split over the model line
+    (`split_leaves`)."""
     model = build_model(cfg)
     opt = opt or make_optimizer()
 
@@ -177,7 +190,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamW | None = None,
         _, metrics, grads = loss_and_grads(model, state["params"], batch)
         if compressor is not None:
             compressor.apply_(grads, leaves(state["err"]))
-        om = opt.update_(grads, state["opt"], state["params"])
+        om = opt.update_(grads, state["opt"], state["params"], split=split)
         state["step"] = state["step"] + 1
         return state, dict(metrics, **om)
     return train_step
@@ -210,23 +223,47 @@ def make_decode_step(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # full cell assembly: (step fn, input structs, in/out specs)
 # ---------------------------------------------------------------------------
+def split_leaves(cfg: ModelConfig) -> list:
+    """Per param leaf (`leaves` order), whether `param_specs` splits it
+    over the model axis."""
+    p = _meta_init(build_model(cfg))
+    return [any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                for e in spec)
+            for spec in shd.flat_specs(p, shd.param_specs(p))]
+
+
+def local_structs(args, in_specs, mesh):
+    """The structs each rank of `mesh` holds of `args` laid out by
+    `in_specs` (as `make_cell` returns them): over a world this rank's
+    shares, for a record of devices the first (largest) ones."""
+    def leaf(t, spec):
+        shape = list(t.shape)
+        for i, ent in enumerate(spec):
+            if ent is None:
+                continue
+            ways = mesh.ways(ent)
+            index = mesh.index(ent) if mesh.world is not None else 0
+            lo, hi = api.row_share(shape[i], ways, index)
+            shape[i] = hi - lo
+        return torch.empty(shape, dtype=t.dtype, device=META)
+    return shd.zip_specs(leaf, args, in_specs)
+
+
 def make_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, quant: bool = False):
-    """Returns (fn, args tuple of structs, in_specs, out_specs) for a mesh
-    of one device, each spec filtered to the mesh's axes
-    (`sharding.to_shardings`).  A larger mesh raises NotImplementedError:
-    the dry run's meshes come with tensor parallelism, which is not
-    ported."""
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"make_cell on a mesh of {mesh.size} devices {mesh.shape}: the "
-            f"LM cells' sharding is not ported yet ({MULTI_CARD} meshes)")
+    """Returns (fn, args tuple of structs, in_specs, out_specs), each spec
+    filtered to the mesh's axes (`sharding.to_shardings`), and `args` the
+    global structs.  On a mesh over a world `fn` runs under the mesh and
+    takes and returns each rank's shares (`local_structs`): the rows
+    split over BATCH when the batch divides its ways, the params, the
+    optimizer state and the caches as their specs say."""
     B = shape.global_batch
     specs = input_specs(cfg, shape, quant=quant)
     bspec = shd.batch_specs(specs["batch"], B, mesh)
     logits_spec = (BATCH, None) if B % dp_size(mesh) == 0 else ()
 
     if shape.kind == "train":
-        fn = make_train_step(cfg)
+        fn = make_train_step(cfg, split=split_leaves(cfg)
+                             if api.tp_size(mesh) > 1 else None)
         st = specs["state"]
         st_spec = {
             "params": shd.param_specs(st["params"]),
@@ -258,4 +295,10 @@ def make_cell(cfg: ModelConfig, shape: ShapeSpec, mesh, quant: bool = False):
 
     def place(spec_tree):
         return shd.map_specs(lambda s: shd.to_shardings(s, mesh), spec_tree)
-    return fn, args, place(in_specs), place(out_specs)
+
+    rows = shd.dp_shardable(B, mesh)
+
+    def step(*a):
+        with mesh, api.rows_split(rows):
+            return fn(*a)
+    return step, args, place(in_specs), place(out_specs)

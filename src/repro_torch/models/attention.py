@@ -14,13 +14,32 @@ float32.  The reference's scans over q and KV chunks are Python loops
 Decode writes the new K/V into the cache IN PLACE (the counterpart of the
 reference's donated `dynamic_update_slice`) and returns the same tensors;
 a slot beyond the allocation raises (the reference's update would clamp
-it).  The reference's sequence-sharding constraints have no counterpart
-on one device.
+it).
+
+Under a tensor-parallel mesh (`dist.api.model_group`) train and prefill
+split the heads: wq, wk and wv hold this rank's columns, so each rank
+holds whole heads when H and K divide by the model size, and RoPE,
+qk-norm and `flash_attention` run on its heads; o is gathered before wo.
+Where the heads do not divide, q, k and v are gathered before attention
+and every rank attends all heads.  Prefill gathers k and v over the
+heads to fill the cache.  Decode follows the reference's
+`_decode_seq_axes` (head-sharding was refuted there): the cache holds
+this rank's share of the slots (`api.seq_group`: the model line, or
+("data", "model") when the batch does not shard), q, k and v are
+gathered (one all_gather), the new token's k/v are written only by the
+rank that owns its slot, each rank attends all heads over its slots,
+and the ranks merge the softmax (`_merge`): an all-reduce of its max,
+one of its sum, so that every probability is the one-device value
+before its cast to v's dtype (a merge of unnormalized partials rounds
+them otherwise, and a W8A8 model's next int8 codes follow), and one of
+the partial outputs; the int8 cache's v exponents stay folded into the
+probabilities.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.dist import api
 from repro_torch.dist.op_analysis import trip_scan
 from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope, rms_norm
@@ -179,12 +198,28 @@ def quantize_kv(x):
     return q.to(torch.int8), e.to(torch.int8)
 
 
-def _int8_cached_attention(q, cache, kv_pos, q_pos):
+def _merge(s, pv, seq):
+    """pv(softmax(s)), softmax over the last axis, of which the ranks of
+    `seq` hold shares (the cache's slots): the max and the sum of exps
+    are all-reduced over them, so every p is the one-device value before
+    its cast, and the partial pv(p) are summed (three all-reduces).
+    With no `seq`, pv(torch.softmax(s))."""
+    if seq is None:
+        return pv(torch.softmax(s, dim=-1))
+    m = s.amax(dim=-1, keepdim=True) if s.shape[-1] else torch.full(
+        s.shape[:-1] + (1,), NEG_INF, dtype=s.dtype, device=s.device)
+    e = torch.exp(s - api.reduce_max(m, seq))
+    p = e / api.collective("sum", e.sum(-1, keepdim=True), seq.handle)
+    return api.collective("sum", pv(p), seq.handle)
+
+
+def _int8_cached_attention(q, cache, kv_pos, q_pos, seq=None):
     """Decode attention on the int8 cache.
 
     QK^T is an exact int8 x int8 -> int32 product descaled by the pow2
     exponents; the PV product folds the per-position v exponents into
-    the probabilities, with v dequantized to bf16.
+    the probabilities, with v dequantized to bf16.  Under `seq` the
+    cache holds this rank's slots (`_merge`).
     """
     B, Q, H, Dh = q.shape
     K = cache["k"].shape[2]
@@ -200,17 +235,19 @@ def _int8_cached_attention(q, cache, kv_pos, q_pos):
     s = acc.float() * de * scale
     ok = (kv_pos <= q_pos) & (kv_pos >= 0)
     s = torch.where(ok[None, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    pw = p * pow2(-ve.permute(0, 2, 1)[:, :, None, None, :].to(torch.int32))
-    o = torch.einsum("bkgqs,bskd->bkgqd", pw.to(torch.bfloat16).float(),
-                     vq.to(torch.bfloat16).float())
+    vexp = pow2(-ve.permute(0, 2, 1)[:, :, None, None, :].to(torch.int32))
+    o = _merge(s, lambda p: torch.einsum(
+        "bkgqs,bskd->bkgqd", (p * vexp).to(torch.bfloat16).float(),
+        vq.to(torch.bfloat16).float()), seq)
     return o.permute(0, 3, 1, 2, 4).reshape(B, Q, H, Dh).to(torch.bfloat16)
 
 
-def cached_attention(q, k_cache, v_cache, kv_pos, q_pos, groups):
+def cached_attention(q, k_cache, v_cache, kv_pos, q_pos, groups, seq=None):
     """q [B,1,H,Dh]; caches [B,S,K,Dh]; kv_pos [S] (position per slot, may
     be invalid/negative); q_pos scalar.  fp32 softmax over the whole
-    cache, as a grouped-query einsum that never repeats the cache."""
+    cache, as a grouped-query einsum that never repeats the cache.
+    Under `seq` the caches hold this rank's slots, merged over its ranks
+    (`_merge`)."""
     B, Q, H, Dh = q.shape
     K = k_cache.shape[2]
     G = H // K
@@ -223,10 +260,15 @@ def cached_attention(q, k_cache, v_cache, kv_pos, q_pos, groups):
     s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k_cache.float())
     ok = (kv_pos <= q_pos) & (kv_pos >= 0)
     s = torch.where(ok[None, None, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
-                     v_cache.float())
-    return o.reshape(B, Q, H, Dh).to(q.dtype)
+    if seq is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
+                         v_cache.float())
+        return o.reshape(B, Q, H, Dh).to(q.dtype)
+    o = _merge(s, lambda p: torch.einsum(
+        "bkgqs,bskd->bkgqd", p.to(v_cache.dtype).float(), v_cache.float()),
+        seq)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Q, H, Dh).to(q.dtype)
 
 
 def ring_positions(q_pos, alloc: int, device=None):
@@ -239,12 +281,24 @@ def ring_positions(q_pos, alloc: int, device=None):
 # ---------------------------------------------------------------------------
 # full attention mixer (projections + rope + dispatch by mode)
 # ---------------------------------------------------------------------------
+def heads_split(cfg, mode: str, group) -> bool:
+    """Whether attention runs on this rank's heads: in train and prefill
+    on a model line (`group`) whose size divides the query and KV
+    heads."""
+    if group is None or mode == "decode":
+        return False
+    return (cfg.num_heads + cfg.head_pad) % group.size == 0 and \
+        cfg.num_kv_heads % group.size == 0
+
+
 def attn_apply(cfg, params, x, *, mode: str, cache=None, pos=None,
                prefix_len: int = 0, window: int = 0,
-               kv_override=None, is_cross: bool = False):
+               kv_override=None, is_cross: bool = False, slots=None):
     """x [B,S,D].  mode: train | prefill | decode; pos an int (decode).
     cache: {"k","v"} (+ "k_e","v_e" int8) [B,S_alloc,K,Dh], filled in
-    place at prefill and written in place at decode.
+    place at prefill and written in place at decode; under a mesh that
+    splits the slots (`api.seq_group`) this rank's share of the
+    `slots` (the whole allocation's count) of them.
     kv_override: encoder hidden states [B,Skv,D] for cross-attention at
     train/prefill (decode cross reads the cache only, is_cross=True).
     Returns (out [B,S,D], cache or None).
@@ -254,26 +308,39 @@ def attn_apply(cfg, params, x, *, mode: str, cache=None, pos=None,
     H = cfg.num_heads + cfg.head_pad
     K, Dh = cfg.num_kv_heads, cfg.head_dim
     G = H // K
+    g = api.model_group()
+    split = heads_split(cfg, mode, g)
+    t = 1 if g is None else g.size
+    Hl, Kl = (H // t, K // t) if split else (H, K)
 
-    q = layers.dense(x, params["wq"], params.get("bq")).reshape(B, S, H, Dh)
+    def proj(inp, name):
+        return layers.dense(inp, params[name], params.get("b" + name[1]))
+
+    xc = api.copy_to(x, g)
+    q = proj(xc, "wq")
     if kv_override is not None:
-        Skv = kv_override.shape[1]
-        k = layers.dense(kv_override, params["wk"],
-                         params.get("bk")).reshape(B, Skv, K, Dh)
-        v = layers.dense(kv_override, params["wv"],
-                         params.get("bv")).reshape(B, Skv, K, Dh)
+        kv = api.copy_to(kv_override, g)
+        k, v = proj(kv, "wk"), proj(kv, "wv")
     elif is_cross and mode == "decode":
         k = v = None  # encoder K/V already live in the cache
     else:
-        k = layers.dense(x, params["wk"], params.get("bk")).reshape(B, S, K,
-                                                                    Dh)
-        v = layers.dense(x, params["wv"], params.get("bv")).reshape(B, S, K,
-                                                                    Dh)
+        k, v = proj(xc, "wk"), proj(xc, "wv")
+    if not split:               # every head on every rank: one gather
+        q, *kv = api.gather_leaves([t for t in (q, k, v) if t is not None],
+                                   (H * Dh, K * Dh, K * Dh), g)
+        if kv:
+            k, v = kv
+    q = q.reshape(B, S, Hl, Dh)
+    if k is not None:
+        k = k.reshape(B, k.shape[1], Kl, Dh)
+        v = v.reshape(B, v.shape[1], Kl, Dh)
 
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        q = rms_norm(q, layers.full(params["q_norm"], Dh, split),
+                     cfg.norm_eps)
         if k is not None:
-            k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+            k = rms_norm(k, layers.full(params["k_norm"], Dh, split),
+                         cfg.norm_eps)
 
     use_rope = cfg.rope_theta > 0 and not is_cross
     if mode in ("train", "prefill"):
@@ -285,8 +352,18 @@ def attn_apply(cfg, params, x, *, mode: str, cache=None, pos=None,
                             window=window, prefix_len=prefix_len)
         new_cache = None
         if mode == "prefill" and cache is not None:
-            new_cache = _fill_cache(cache, k, v, window)
-        out = layers.dense(o.reshape(B, S, H * Dh), params["wo"])
+            if split:           # the cache holds every head
+                kk, vv = api.gather_leaves(
+                    (k.reshape(B, -1, Kl * Dh), v.reshape(B, -1, Kl * Dh)),
+                    (K * Dh,) * 2, g)
+                k_all, v_all = (a.reshape(B, -1, K, Dh) for a in (kk, vv))
+            else:
+                k_all, v_all = k, v
+            new_cache = _fill_cache(cache, k_all, v_all, window, slots)
+        o = o.reshape(B, S, Hl * Dh)
+        if split:
+            o = api.gather_along(o, H * Dh, g)
+        out = layers.col_dense(o, params["wo"], D)
         return out, new_cache
 
     # ---- decode: S == 1 -------------------------------------------------
@@ -296,14 +373,16 @@ def attn_apply(cfg, params, x, *, mode: str, cache=None, pos=None,
         positions = torch.full((B, 1), pos, device=x.device)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    seq = api.seq_group()
+    alloc = cache["k"].shape[1] if seq is None else slots
+    lo, hi = api.share(alloc, seq)
     if is_cross:
         # cross-attention at decode reads the (static) encoder cache
-        kv_pos_arr = torch.arange(cache["k"].shape[1], device=x.device)
+        kv_pos_arr = torch.arange(lo, hi, device=x.device)
         o = cached_attention(q, cache["k"], cache["v"], kv_pos_arr, 2 ** 30,
-                             G)
-        out = layers.dense(o.reshape(B, 1, H * Dh), params["wo"])
+                             G, seq)
+        out = layers.col_dense(o.reshape(B, 1, H * Dh), params["wo"], D)
         return out, cache
-    alloc = cache["k"].shape[1]
     if window > 0 and alloc <= window:
         slot = pos % alloc
         kv_pos_arr = ring_positions(pos, alloc, x.device)
@@ -316,25 +395,32 @@ def attn_apply(cfg, params, x, *, mode: str, cache=None, pos=None,
     if not 0 <= slot < alloc:
         raise ValueError(f"decode at position {pos}: slot {slot} is "
                          f"outside the cache's {alloc} slots")
+    kv_pos_arr = kv_pos_arr[lo:hi]
+    if lo <= slot < hi:         # the rank that owns the slot writes it
+        if cfg.kv_cache_int8:
+            parts = dict(zip(("k", "k_e"), quantize_kv(k)))
+            parts.update(zip(("v", "v_e"), quantize_kv(v)))
+        else:
+            parts = {"k": k, "v": v}
+        for name, val in parts.items():
+            cache[name][:, slot - lo] = val[:, 0]
     if cfg.kv_cache_int8:
-        parts = dict(zip(("k", "k_e"), quantize_kv(k)))
-        parts.update(zip(("v", "v_e"), quantize_kv(v)))
+        o = _int8_cached_attention(q, cache, kv_pos_arr, pos, seq)
     else:
-        parts = {"k": k, "v": v}
-    for name, val in parts.items():
-        cache[name][:, slot] = val[:, 0]
-    if cfg.kv_cache_int8:
-        o = _int8_cached_attention(q, cache, kv_pos_arr, pos)
-    else:
-        o = cached_attention(q, cache["k"], cache["v"], kv_pos_arr, pos, G)
-    out = layers.dense(o.reshape(B, 1, H * Dh), params["wo"])
+        o = cached_attention(q, cache["k"], cache["v"], kv_pos_arr, pos, G,
+                             seq)
+    out = layers.col_dense(o.reshape(B, 1, H * Dh), params["wo"], D)
     return out, cache
 
 
-def _fill_cache(cache, k, v, window: int):
+def _fill_cache(cache, k, v, window: int, slots=None):
     """Write prefill K/V into an allocated cache, in place (ring layout
-    for SWA; int8 caches quantize on write).  Returns the cache."""
-    alloc = cache["k"].shape[1]
+    for SWA; int8 caches quantize on write); under `api.seq_group` the
+    cache holds this rank's share of the `slots`, and only those are
+    written.  Returns the cache."""
+    seq = api.seq_group()
+    alloc = cache["k"].shape[1] if seq is None else slots
+    lo, hi = api.share(alloc, seq)
     S = k.shape[1]
     if "k_e" in cache:
         parts = dict(zip(("k", "k_e"), quantize_kv(k)))
@@ -347,9 +433,14 @@ def _fill_cache(cache, k, v, window: int):
             last = val[:, S - take:]
             # ring invariant: position p lives in slot p % alloc
             shift = (S - take) % alloc if take < alloc else S % alloc
-            cache[name][:, :take] = torch.roll(last, shift, dims=1)
-        else:
-            cache[name][:, :S] = val
+            val = torch.roll(last, shift, dims=1)
+        if val.shape[1] > alloc:
+            raise ValueError(f"prefill of {S} positions into a cache of "
+                             f"{alloc} slots")
+        # slots [0, len(val)) of the whole cache; this rank's [lo, hi)
+        end = min(hi, val.shape[1])
+        if end > lo:
+            cache[name][:, :end - lo] = val[:, lo:end]
     return cache
 
 

@@ -14,6 +14,20 @@ computes it: cuBLAS does so on the card with its reduced-precision bf16
 reductions off (`full_bf16_sums`, which the `LM` entry points enter),
 and on the CPU, whose bf16 GEMM does not round once, the product runs in
 float32 and is cast.
+
+Under a mesh whose model axis is above 1 (`dist.api.model_group`) every
+weight holds this rank's share of its last axis (`dist.sharding`), and
+every product is column-parallel (`col_dense`): the whole input on every
+rank of the model line (`api.copy_to`), this rank's columns of W, and
+the output gathered to all its columns (`api.gather_along`) unless the
+caller keeps it split.  Every K-sum stays whole on one rank, so an int8
+product is exact and a float one differs from the one-device product
+only where the library picks another algorithm for the narrower N.  A
+leaf the models use whole (a norm's scale, a bias) is gathered where it
+is used (`full`).  The embedding [V, D] splits D (gathered after the
+lookup), the head [D, V] the vocabulary (`lm_logits` gathers it; the
+training loss runs on the split vocabulary, `transformer.lm_loss`).
+With no such mesh each helper is the one-device code.
 """
 from __future__ import annotations
 
@@ -21,6 +35,7 @@ import contextlib
 
 import torch
 
+from repro_torch.dist import api
 from repro_torch.dist.op_analysis import counting
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -73,6 +88,39 @@ def dense(x, w, b=None):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def col_dense(x, w, n: int, b=None, keep: bool = False):
+    """`dense(x, w, b)` of an n-column weight, column-parallel under a
+    tensor-parallel mesh: x whole on the model line, w and b this rank's
+    columns, the output gathered to its n columns (keep=True: this
+    rank's columns).  With no such mesh, `dense(x, w, b)`."""
+    g = api.model_group()
+    if g is None:
+        return dense(x, w, b)
+    y = dense(api.copy_to(x, g), w, b)
+    return y if keep else api.gather_along(y, n, g)
+
+
+def col_matmul(x, w, n: int):
+    """`torch.matmul(x, w)` of an n-column weight, column-parallel under a
+    tensor-parallel mesh as `col_dense` is."""
+    g = api.model_group()
+    if g is None:
+        return torch.matmul(x, w)
+    return api.gather_along(torch.matmul(api.copy_to(x, g), w), n, g)
+
+
+def full(w, n: int, partial: bool = False):
+    """The whole n-long last axis of a leaf split over the model line
+    (a norm's scale, a bias, a small weight used whole); `w` itself with
+    no tensor-parallel mesh or n 1 (such a leaf is not split).
+    `partial`: the ranks use it on different shares of the work (qk-norm
+    on each rank's heads), so its gradient is summed over the line."""
+    g = api.model_group()
+    if g is None or n <= 1 or w.shape[-1] == n:     # whole already
+        return w
+    return api.gather_along(w, n, g, partial)
 
 
 def cpu_detour(x) -> bool:
@@ -133,11 +181,15 @@ def init_embed(gen, vocab: int, d: int, dtype=DEFAULT_DTYPE,
     return {"table": normal(gen, (vocab, d), d ** -0.5, dtype, device)}
 
 
-def embed_lookup(params: dict, tokens):
+def embed_lookup(params: dict, tokens, d: int | None = None):
+    """The rows of `tokens`; under a tensor-parallel mesh the table holds
+    this rank's share of its d columns, gathered after the lookup."""
     table = params["table"]
     tokens = torch.as_tensor(tokens, device=table.device)
     out = torch.index_select(table, 0, tokens.reshape(-1))
-    return out.reshape(tuple(tokens.shape) + (table.shape[-1],))
+    out = out.reshape(tuple(tokens.shape) + (table.shape[-1],))
+    g = api.model_group()
+    return out if g is None else api.gather_along(out, d, g)
 
 
 def init_lm_head(gen, d: int, vocab: int, dtype=DEFAULT_DTYPE,
@@ -145,8 +197,10 @@ def init_lm_head(gen, d: int, vocab: int, dtype=DEFAULT_DTYPE,
     return {"w": normal(gen, (d, vocab), d ** -0.5, dtype, device)}
 
 
-def lm_logits(params: dict, x):
-    return dense(x, params["w"])
+def lm_logits(params: dict, x, vocab: int | None = None):
+    """Logits of all `vocab` columns (gathered under a tensor-parallel
+    mesh)."""
+    return col_dense(x, params["w"], vocab)
 
 
 # ---------------------------------------------------------------------------
@@ -159,11 +213,20 @@ def init_mlp(gen, d: int, f: int, dtype=DEFAULT_DTYPE, device=None) -> dict:
             "w_down": normal(gen, (f, d), s_out, dtype, device)}
 
 
-def mlp(params: dict, x):
-    g = dense(x, params["w_gate"])
+def mlp(params: dict, x, d_ff: int | None = None):
+    """SwiGLU.  Under a tensor-parallel mesh g and u stay split over the
+    model line through silu(g) * u (the reference's `shard(h, ..,
+    "model")`) and h is gathered once, before w_down."""
+    g = api.model_group()
+    if g is not None:
+        x = api.copy_to(x, g)
+    gt = dense(x, params["w_gate"])
     u = dense(x, params["w_up"])
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return dense(h, params["w_down"])
+    h = torch.nn.functional.silu(gt.float()).to(x.dtype) * u
+    if g is None:
+        return dense(h, params["w_down"])
+    h = api.gather_along(h, d_ff, g)
+    return col_dense(h, params["w_down"], x.shape[-1])
 
 
 def silu(x):

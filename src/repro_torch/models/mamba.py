@@ -10,6 +10,15 @@ issues three operations a step (the state's multiply and add, and the
 readout).  Decode is one step of the same recurrence.  At prefill and
 decode the new conv window and SSM state are written into the cache's
 own buffers (`copy_`), so the cache layout never changes.
+
+Under a tensor-parallel mesh every product is column-parallel and its
+output is gathered whole (`layers.col_dense`): in_proj's (a contiguous
+split of its 2*ED columns would give one rank all of u and the other
+all of z), x_proj's, dt_proj's and out_proj's; conv_w, conv_b, dt_bias,
+A_log and D are gathered where they are used (`layers.full`).  The
+conv and the scan then run on all ED channels on every rank of the
+line, and the state is whole (`transformer.block_apply` keeps the
+cache's share).
 """
 from __future__ import annotations
 
@@ -85,24 +94,25 @@ def mamba_apply(params, x, cfg, *, mode: str, cache=None):
     B, S, D = x.shape
     ed, n, r = cfg.ssm_inner, cfg.ssm_state_dim, cfg.dt_rank
 
-    xz = layers.dense(x, params["in_proj"])
+    xz = layers.col_dense(x, params["in_proj"], 2 * ed)
     u, z = torch.chunk(xz, 2, dim=-1)
-    u, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"],
+    u, new_conv = _causal_conv(u, layers.full(params["conv_w"], ed),
+                               layers.full(params["conv_b"], ed),
                                None if cache is None else cache["conv"])
 
-    bcr = layers.dense(u, params["x_proj"])               # [B,S,r+2n]
+    bcr = layers.col_dense(u, params["x_proj"], r + 2 * n)  # [B,S,r+2n]
     dt_r, Bt, Ct = torch.split(bcr, [r, n, n], dim=-1)
-    dt = softplus(layers.dense(dt_r, params["dt_proj"]).float()
-                  + params["dt_bias"])
-    A = -torch.exp(params["A_log"])                       # [ED,N]
+    dt = softplus(layers.col_dense(dt_r, params["dt_proj"], ed).float()
+                  + layers.full(params["dt_bias"], ed))
+    A = -torch.exp(layers.full(params["A_log"], n))       # [ED,N]
     h0 = cache["ssm"].float() if cache is not None else torch.zeros(
         (B, ed, n), dtype=torch.float32, device=x.device)
 
     chunk = 1 if mode == "decode" else pick_chunk(S, scan_utils.SCAN_CHUNK)
     ys, hT = _ssm_scan(u, dt, Bt, Ct, A, h0, chunk=chunk)
-    ys = ys + params["D"] * u.float()
+    ys = ys + layers.full(params["D"], ed) * u.float()
     out = (ys * silu(z.float())).to(x.dtype)
-    out = layers.dense(out, params["out_proj"])
+    out = layers.col_dense(out, params["out_proj"], D)
     if mode not in ("prefill", "decode"):
         return out, None
     if cache is None:

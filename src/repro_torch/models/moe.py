@@ -20,6 +20,16 @@ The reference takes its top k with `lax.top_k`, which puts the lower
 expert first among equal probabilities; the port sorts with a stable
 descending sort, which does the same (`torch.topk` promises no order
 among equals).
+
+Under a tensor-parallel mesh every expert weight holds this rank's share
+of its last axis (F of w_gate and w_up, D of w_down) and the router's E:
+the router's logits are gathered before the top k, the dispatch runs
+whole on every rank of the model line, silu(g) * u stays split over F
+and is gathered before w_down, whose output is gathered over D.  Groups
+never cross a rank's rows: at train and prefill a group is a row, and
+at decode, where one group spans the batch, a batch split over BATCH is
+gathered first and the rank keeps its rows of the result, so the
+capacity drops are the one-device ones.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import api
 from repro_torch.models import layers
 
 
@@ -71,7 +82,7 @@ def route(params: dict, xg, cfg) -> Routing:
     G, T, _ = xg.shape
     E, K = cfg.num_experts, cfg.experts_per_tok
     C = capacity(T, cfg)
-    logits = torch.matmul(xg.float(), params["router"])          # [G,T,E]
+    logits = layers.col_matmul(xg.float(), params["router"], E)  # [G,T,E]
     probs = torch.softmax(logits, dim=-1)
     ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, eidx = ranked[..., :K], order[..., :K]
@@ -89,10 +100,20 @@ def route(params: dict, xg, cfg) -> Routing:
     return Routing(gates, eidx, slot, keep, aux)
 
 
-def _expert_mm(spec: str, x, w):
+def _expert_mm(spec: str, x, w, n: int | None = None):
     """One expert product; a W8A8 leaf {"qt","n"} goes to q_einsum.  A bf16
     product on the CPU runs in float32 and is cast once, as XLA rounds
-    it (`layers._matmul`)."""
+    it (`layers._matmul`).  Under a tensor-parallel mesh, column-parallel:
+    x whole, w this rank's columns, the output gathered to its n columns
+    (n None: kept split)."""
+    g = api.model_group()
+    if g is None:
+        return _expert_local(spec, x, w)
+    y = _expert_local(spec, api.copy_to(x, g), w)
+    return y if n is None else api.gather_along(y, n, g)
+
+
+def _expert_local(spec: str, x, w):
     if isinstance(w, dict):
         from repro_torch.quant.lm_quant import q_einsum
         return q_einsum(spec, x, w, out_dtype=x.dtype)
@@ -102,7 +123,20 @@ def _expert_mm(spec: str, x, w):
 
 
 def moe_apply(params: dict, x, cfg, *, is_decode: bool = False):
-    """x [B, S, D] -> (y [B, S, D], aux_loss scalar float32)."""
+    """x [B, S, D] -> (y [B, S, D], aux_loss scalar float32).  At decode
+    with the rows split over BATCH (`api.rows_group`) the group is the
+    whole batch: the rows are gathered, and this rank's kept."""
+    rows = api.rows_group() if is_decode else None
+    if rows is None:
+        return _moe(params, x, cfg, is_decode)
+    B = x.shape[0]
+    whole = api.gather_cat(x, 0, [B] * rows.size, rows)
+    with api.rows_split(False):
+        y, aux = _moe(params, whole, cfg, is_decode)
+    return y[rows.index * B:(rows.index + 1) * B], aux
+
+
+def _moe(params: dict, x, cfg, is_decode: bool):
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_tok
     xg = x.reshape(1, B * S, D) if is_decode else x
@@ -120,11 +154,13 @@ def moe_apply(params: dict, x, cfg, *, is_decode: bool = False):
                     .reshape(G * T * K, D))
     h = buf[:rows].view(G, E, C, D)
 
-    # experts: SwiGLU
+    # experts: SwiGLU (g and u split over the model line, if any, until
+    # silu(g) * u is gathered)
     g = _expert_mm("gecd,edf->gecf", h, params["w_gate"])
     u = _expert_mm("gecd,edf->gecf", h, params["w_up"])
     a = F.silu(g.float()).to(h.dtype) * u
-    y = _expert_mm("gecf,efd->gecd", a, params["w_down"])
+    a = api.gather_along(a, cfg.d_ff, api.model_group())
+    y = _expert_mm("gecf,efd->gecd", a, params["w_down"], D)
 
     # gather back (a dropped slot reads 0) and combine over k, in float32
     # and cast once

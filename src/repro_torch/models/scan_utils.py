@@ -17,6 +17,8 @@ recurrence, so it changes the numbers.
 """
 from __future__ import annotations
 
+import contextvars
+
 import torch
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
@@ -34,11 +36,16 @@ def rematerializing() -> bool:
 def checkpoint(fn, *args):
     """fn(*args) under `torch.utils.checkpoint` (non-reentrant) when
     `rematerializing()`, else fn(*args).  The RNG state is not kept: the
-    models draw no random numbers."""
+    models draw no random numbers.  The recompute runs in the context
+    variables of the forward (the active mesh and the rows' layout,
+    `dist.api`): autograd may run a CUDA backward on a thread of its own,
+    which does not see them."""
     if not rematerializing():
         return fn(*args)
-    return _checkpoint(remat(fn), *args, use_reentrant=False,
-                       preserve_rng_state=False)
+    ctx = contextvars.copy_context()
+    run = remat(fn)
+    return _checkpoint(lambda *a: ctx.run(run, *a), *args,
+                       use_reentrant=False, preserve_rng_state=False)
 
 
 def _stack(ys):

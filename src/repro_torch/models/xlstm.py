@@ -16,6 +16,16 @@ form's C update sum_s w_s v_s k_s^T is one batched product,
 (w v)^T k.  sLSTM blocks append the paper's pf = 4/3 gated FFN
 (tanh-approximate GELU, as `jax.nn.gelu` defaults to).  At prefill and
 decode the new state is written into the cache's own buffers.
+
+Under a tensor-parallel mesh every product is column-parallel and its
+output is gathered whole (`layers.col_dense`; `col_matmul` for the
+float32 gates): up_proj's (its 2*ed columns split contiguously would
+pair no inner channel with its gate), wq's, wk's, wv's, wi's, wf's and
+down_proj's; the sLSTM's wx, ffn_up
+and ffn_down the same; bi, bf, bx and the sLSTM's recurrent r are
+gathered where they are used (`layers.full`).  The recurrences run on
+every head on every rank of the line, and the states are whole
+(`transformer.block_apply` keeps the cache's share).
 """
 from __future__ import annotations
 
@@ -154,15 +164,19 @@ def mlstm_apply(params, x, cfg, *, mode: str, cache=None):
     ed, H = cfg.xlstm_inner, cfg.num_heads
     dh = ed // H
 
-    up = layers.dense(x, params["up_proj"])
+    up = layers.col_dense(x, params["up_proj"], 2 * ed)
     inner, z = torch.chunk(up, 2, dim=-1)
     scale = _bf16_scalar(dh ** -0.5, x.dtype)
-    q = layers.dense(inner, params["wq"]).reshape(B, S, H, dh) * scale
-    k = layers.dense(inner, params["wk"]).reshape(B, S, H, dh) * scale
-    v = layers.dense(inner, params["wv"]).reshape(B, S, H, dh)
+    q = layers.col_dense(inner, params["wq"], ed).reshape(B, S, H, dh) \
+        * scale
+    k = layers.col_dense(inner, params["wk"], ed).reshape(B, S, H, dh) \
+        * scale
+    v = layers.col_dense(inner, params["wv"], ed).reshape(B, S, H, dh)
     inner32 = inner.float()
-    ig = inner32 @ params["wi"] + params["bi"]                # [B,S,H]
-    fg = inner32 @ params["wf"] + params["bf"]
+    ig = layers.col_matmul(inner32, params["wi"], H) \
+        + layers.full(params["bi"], H)                        # [B,S,H]
+    fg = layers.col_matmul(inner32, params["wf"], H) \
+        + layers.full(params["bf"], H)
 
     if cache is not None:
         C0, n0, m0 = cache["C"].float(), cache["n"].float(), cache["m"]
@@ -190,7 +204,7 @@ def mlstm_apply(params, x, cfg, *, mode: str, cache=None):
 
     out = hs.reshape(B, S, ed).to(x.dtype)
     out = out * silu(z.float()).to(x.dtype)
-    out = layers.dense(out, params["down_proj"])
+    out = layers.col_dense(out, params["down_proj"], D)
     if mode not in ("prefill", "decode"):
         return out, None
     return out, _write_state(cache, {"C": C, "n": n, "m": m})
@@ -233,13 +247,14 @@ def slstm_apply(params, x, cfg, *, mode: str, cache=None):
     H = cfg.num_heads
     dh = D // H
 
-    gx = layers.dense(x, params["wx"]).float() + params["bx"]   # [B,S,4D]
+    gx = layers.col_dense(x, params["wx"], 4 * D).float() \
+        + layers.full(params["bx"], 4 * D)                    # [B,S,4D]
     if cache is not None:
         c0, n0, m0, h0 = (cache["c"], cache["n"], cache["m"], cache["h"])
     else:
         z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
         c0, n0, m0, h0 = z, z + 1e-6, z - 1e30, z
-    r = params["r"].float()                                 # [H,dh,4dh]
+    r = layers.full(params["r"], 4 * dh).float()            # [H,dh,4dh]
 
     def body(carry, gx_t):
         c, n, m, h = carry
@@ -273,10 +288,13 @@ def slstm_apply(params, x, cfg, *, mode: str, cache=None):
 
     out = ys.to(x.dtype)
     # the pf = 4/3 gated FFN
-    u1, u2 = torch.chunk(layers.dense(out, params["ffn_up"]), 2, dim=-1)
-    out = layers.dense(
+    ff = params["ffn_down"]
+    ff = (ff["qt"].shape[-1] if isinstance(ff, dict) else ff.shape[0])
+    u1, u2 = torch.chunk(layers.col_dense(out, params["ffn_up"], 2 * ff), 2,
+                         dim=-1)
+    out = layers.col_dense(
         F.gelu(u1.float(), approximate="tanh").to(x.dtype) * u2,
-        params["ffn_down"])
+        params["ffn_down"], D)
     if mode not in ("prefill", "decode"):
         return out, None
     return out, _write_state(cache, {"c": c, "n": n, "m": m, "h": h})

@@ -7,7 +7,10 @@ The update is the reference's (`repro.optim.adam`) formula, in float32:
 with b2 = 0.95 by default.  It is not `torch.optim.AdamW`, whose decay
 (applied to p before the step, scaled by lr) and eps placement differ.
 Moments are float32 whatever the parameter dtype; `step` is a 0-d int32
-tensor on the params' device.
+tensor on the params' device.  Under a tensor-parallel mesh the update
+runs on each rank's shares unchanged (it is elementwise); the global
+norm sums the squares of the split leaves over the model line and counts
+each replicated leaf once (`global_norm(split=)`).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Callable, Union
 
 import torch
 
+from repro_torch.dist import api
 from repro_torch.dist.op_analysis import trip_scan
 from repro_torch.tree import leaves, tree_map, unflatten
 
@@ -38,12 +42,25 @@ def cosine_schedule(peak_lr: float, warmup: int, total: int,
     return fn
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (sorted key order) of sum(g^2)."""
-    total = 0
-    for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+def global_norm(tree, split=None) -> torch.Tensor:
+    """sqrt of the sum over leaves (sorted key order) of sum(g^2).  Under
+    a tensor-parallel mesh (`api.model_group`), `split` flags the leaves
+    (in `leaves(tree)` order) whose shares the model line holds: their
+    sums are added over the line, each other leaf's counted once."""
+    group = api.model_group()
+    if group is None or split is None:
+        total = 0
+        for g in leaves(tree):
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+    parts = [0, 0]
+    for g, s in zip(leaves(tree), split):
+        parts[bool(s)] = parts[bool(s)] + torch.sum(torch.square(
+            g.to(torch.float32)))
+    whole, shared = (torch.as_tensor(p, dtype=torch.float32,
+                                     device=leaves(tree)[0].device)
+                     for p in parts)
+    return torch.sqrt(whole + api.collective("sum", shared, group.handle))
 
 
 def _clip_scale(norm, max_norm: float):
@@ -129,21 +146,20 @@ class AdamW:
 
     @torch.no_grad()
     def update_(self, grads: list, state, params,
-                chunk: int | None = None) -> dict:
+                chunk: int | None = None, split=None) -> dict:
         """`update` in place: `grads` a flat list in `leaves(params)`
         order, consumed (each entry set to None once applied); every
         param, m and v is overwritten and state["step"] advanced, so no
         second copy of the state is ever held.  The work runs `chunk`
         elements at a time (UPDATE_CHUNK by default); every op is
-        elementwise, so the bits are `update`'s.  Returns {"grad_norm",
-        "lr"}."""
+        elementwise, so the bits are `update`'s.  `split` flags the
+        leaves split over a tensor-parallel mesh (`global_norm`).
+        Returns {"grad_norm", "lr"}."""
         chunk = chunk or UPDATE_CHUNK
         step = state["step"] + 1
-        if self.clip_norm > 0:
-            gnorm = global_norm(grads)
-            scale = _clip_scale(gnorm, self.clip_norm)
-        else:
-            gnorm, scale = global_norm(grads), None
+        gnorm = global_norm(grads, split)
+        scale = _clip_scale(gnorm, self.clip_norm) if self.clip_norm > 0 \
+            else None
         lr, bc1, bc2 = self._scalars(step)
         for i, (p, m, v) in enumerate(zip(leaves(params), leaves(state["m"]),
                                           leaves(state["v"]))):

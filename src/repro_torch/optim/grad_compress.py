@@ -15,8 +15,9 @@ one less than the port's (the tests count those cases).
 `compress` / `decompress` are the wire format; `EFCompressor.apply` is
 the gradient transform and `apply_` its in-place form for the training
 step; `compressed_psum` is the reference's collective over the workers
-of a `torch.distributed` group: the exponents' minimum, an int32 sum of
-the aligned int8 payloads, and one exact power-of-two scale.
+of a `torch.distributed` group (or of a mesh's BATCH line, as the
+reference's psum over the data axes): the exponents' minimum, an int32
+sum of the aligned int8 payloads, and one exact power-of-two scale.
 """
 from __future__ import annotations
 
@@ -85,8 +86,8 @@ class EFCompressor:
 
 def compressed_psum(x, group=None):
     """The sum over the workers of `group` of int8-compressed `x`: the
-    reference's formula.  `group` is a process group, a data-parallel
-    `dist.api.Mesh` (its world; a tensor-parallel mesh raises), or None
+    reference's formula.  `group` is a process group, a `dist.api.Mesh`
+    (its BATCH line: the ranks of a model line hold the same x), or None
     for the whole world.  Each worker's exponent e aligns to the
     workers' minimum e_min (an all_reduce MIN), its int8 payload shifts
     right by e - e_min in int32, the payloads add in int32 (an
@@ -96,11 +97,10 @@ def compressed_psum(x, group=None):
     import torch.distributed as dist
     from repro_torch.dist import api
     if isinstance(group, api.Mesh):
-        api.require_data_parallel(group)
         if api.dp_size(group) == 1:
             return decompress(*compress(x))
         api.require_world(group)
-        group = None                  # the mesh's ranks are the world
+        group = group.group(api.BATCH).handle
     if not (dist.is_available() and dist.is_initialized()) or \
             dist.get_world_size(group) == 1:
         return decompress(*compress(x))

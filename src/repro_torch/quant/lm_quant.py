@@ -24,6 +24,14 @@ magnitude 13 or more, so there its "power-of-two" scales can be off by
 up to ~2e-6 relative.  `q_dense` runs `kernels.w8a8_dense` and
 `q_einsum` its batched face `w8a8_bmm` (the CUDA kernel on the card,
 its plain version on the CPU).
+
+The activation exponent is per tensor: one amax over all of x, which on
+the reference's meshes is a global reduction.  Under a mesh the models
+hand every product its whole input on the model line, so the amax needs
+a reduction only where the rows are split over BATCH
+(`dist.api.rows_group`): there it is an all-reduce(max) over that line,
+and the exponent, and every int8 bit after it, is the one-device one
+whatever the mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import itertools
 
 import torch
 
+from repro_torch.dist import api
 from repro_torch.kernels.w8a8_dense import pow2, w8a8_bmm, w8a8_dense
 
 EINSUM_SPECS = ("gecd,edf->gecf", "gecf,efd->gecd")
@@ -123,11 +132,23 @@ def _check_leaf(w) -> None:
 
 def quantize_activation(x):
     """Dynamic per-tensor pow2 activation quantization -> (int8,
-    exponent as a float32 0-d tensor on x's device)."""
+    exponent as a float32 0-d tensor on x's device); the amax is taken
+    over every rank's rows where they are split (`api.rows_group`)."""
     xf = x.float()
-    e = exponent(xf.abs().amax())
+    e = exponent(api.reduce_max(xf.abs().amax(), api.rows_group()))
     q = torch.clamp(torch.round(xf * pow2(e)), -128, 127).to(torch.int8)
     return q, e
+
+
+def _n_share(w: dict, N: int):
+    """The exponents of qt's N rows: under a tensor-parallel mesh a leaf
+    of one [N] exponent vector keeps it whole (`param_specs` replicates
+    a vector) while qt holds this rank's rows, whose share is taken."""
+    n = w["n"]
+    if n.shape[-1] == N:
+        return n
+    lo, hi = api.share(n.shape[-1], api.model_group())
+    return n.narrow(-1, lo, hi - lo)
 
 
 def q_dense(x, w: dict, out_dtype=torch.bfloat16):
@@ -136,7 +157,8 @@ def q_dense(x, w: dict, out_dtype=torch.bfloat16):
     _check_leaf(w)
     xq, xe = quantize_activation(x)
     N, K = w["qt"].shape
-    y = w8a8_dense(xq.reshape(-1, K), w["qt"], xe, w["n"], out_dtype)
+    y = w8a8_dense(xq.reshape(-1, K), w["qt"], xe, _n_share(w, N),
+                   out_dtype)
     return y.reshape(x.shape[:-1] + (N,))
 
 

@@ -15,12 +15,14 @@ rank with no rows launches nothing), `api.gather_rows` assembles v_q in
 rank order, and lengths and pred come from the gathered v_q, so every
 rank returns the whole wave.  Every int8 op is exact and the rows are
 independent, so the split wave is bit-identical to the unsharded one,
-whatever the number of ranks.  Before any compute one small all_gather
-checks that the ranks agree on (model id, bucket, wave index): ranks
+whatever the number of ranks.  On a mesh whose model axis is above 1
+the rows split over the BATCH lines only and every rank of a model line
+computes the same rows, as the reference's GSPMD replicates the wave
+over `model`.  Before any compute one small all_gather checks that
+every rank of the world agrees on (model id, bucket, wave index): ranks
 whose queues diverged raise ValueError instead of deadlocking.  With no
 mesh, or a mesh of one device, the very same function runs on all the
-rows.  A mesh that splits the model axis raises NotImplementedError when
-the wave is bound (ROADMAP Queue A, multi-card).
+rows.
 
 `compile_wave` binds the wave to (model, bucket, mesh).  PyTorch runs
 eagerly, so there is nothing to trace or compile: the registry's wave
@@ -46,7 +48,6 @@ def wave_fn(qnet, bucket: int, mesh=None, model_id: str | None = None):
     [B,J], pred int32 [B]), all on the model's device.  `model_id`
     (default: the config's name) is what the ranks of a mesh check they
     agree on."""
-    api.require_data_parallel(mesh)
     cfg = qnet.pipeline.cfg
     shape = (bucket,) + tuple(cfg.input_shape)
     device = qnet.device

@@ -10,7 +10,8 @@ A spec of the port is the tuple the reference's `PartitionSpec` holds.
 The batch and cache rules depend on the data-parallel width alone; a
 width above one is given to both packages by a mesh record (the port's
 `Mesh` of several devices, a stand-in with `shape` and `axis_names` for
-the reference), since only a mesh of one device is ported.
+the reference), since this process holds one device.  The cells on
+meshes of several ranks are held in `test_torch_tensor_parallel.py`.
 """
 import types
 
@@ -31,6 +32,7 @@ from repro_torch.dist.api import Mesh
 from repro_torch.launch import steps as TS
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.train import reduced as treduced
+from repro_torch.tree import leaves
 
 ARCHS = tbase.ARCH_IDS
 AXES = ("pod", "data", "model")
@@ -262,10 +264,10 @@ def test_to_shardings_on_one_device_and_more():
             api.fspec(port_mesh(2), *spec), spec
     assert sharding.to_shardings((("pod", "data"), None), port_mesh(2)) \
         == (("pod", "data"), None)
+    # a mesh that splits the model axis filters a spec as one device does
     tp = Mesh(AXES, (1, 1, 2), ["cpu"] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, multi-card"):
-        sharding.to_shardings((None, "model"), tp)
+    assert sharding.to_shardings((None, "model"), tp) == \
+        sharding.to_shardings((None, "model"), port) == (None, "model")
 
 
 # ---------------------------------------------------------------------------
@@ -306,8 +308,16 @@ def test_make_cell_matches_the_reference_on_one_device(arch, kind):
     same_specs(rin, tin)
     same_specs(rout, tout)
     assert callable(fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        TS.make_cell(tcfg, tshape(shape), port_mesh(2))
+    # on a mesh of two devices the cell takes the one device's global
+    # structs and params' specs, and each rank half the batch's rows
+    two = port_mesh(2)
+    fn2, args2, tin2, _ = TS.make_cell(tcfg, tshape(shape), two)
+    same_structs(rargs, args2)
+    assert callable(fn2)
+    assert tin2[0] == tin[0]
+    local = TS.local_structs(args2, tin2, two)
+    rows = [t.shape[0] for t in leaves(local[2 if kind == "decode" else 1])]
+    assert rows and all(r == shape.global_batch // 2 for r in rows)
 
 
 def test_cell_steps_run_on_the_cpu():

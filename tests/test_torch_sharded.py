@@ -59,7 +59,7 @@ def test_a_mesh_of_more_devices_raises():
     """A data-parallel mesh of two devices works: as a record (specs,
     `with`, `shard`), and over a gloo world of two processes, where a
     registry's wave equals the one-device wave; without a world it binds
-    no wave.  A mesh that splits the model axis still raises."""
+    no wave.  So does a mesh that splits the model axis."""
     two = api.Mesh(("pod", "data", "model"), (1, 2, 1),
                    [torch.device("cpu")] * 2)
     assert two.shape == {"pod": 1, "data": 2, "model": 1}
@@ -82,15 +82,19 @@ def test_a_mesh_of_more_devices_raises():
         assert g["device"] == "cpu" and g["mesh"]
         for a, b in zip(g["out"], want):
             assert torch.equal(a, b)
+    # a mesh that splits the model axis: as the data-parallel one, it
+    # binds no wave without a world; over a world of two (its ranks on
+    # the model axis) its wave equals the one-device wave
     tp = api.Mesh(("pod", "data", "model"), (1, 1, 2),
                   [torch.device("cpu")] * 2)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, multi-card"):
-        with tp:
-            pass
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, multi-card"):
+    with tp:
+        assert api.current_mesh() is tp and api.tp_size(tp) == 2
+    with pytest.raises(ValueError, match="without a world"):
         sharded.compile_wave(qnet, 4, mesh=tp)
+    for g in got:
+        assert g["tp_mesh"] == {"pod": 1, "data": 1, "model": 2}
+        for a, b in zip(g["tp_out"], want):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="devices"):
         api.Mesh(("data",), (3,), [torch.device("cpu")])
 

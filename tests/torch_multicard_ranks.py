@@ -145,14 +145,20 @@ def psum_checks(inputs: list) -> dict:
 
 def registry_wave(images) -> dict:
     """An EDGE_TINY wave at bucket 4 through a registry that carries the
-    serving mesh: its device, and the outputs."""
+    serving mesh: its device, and the outputs; then through one that
+    carries the default host mesh, whose ranks are on the model axis."""
     from repro_torch.serving import ModelRegistry, default_specs
-    mesh = make_host_mesh(SERVE_AXES, device="cpu")
-    reg = ModelRegistry({"e": default_specs()["edge_tiny@torch"]},
-                        mesh=mesh)
-    exe = reg.executable("e", 4)
-    return {"device": str(reg.device), "mesh": exe.mesh is mesh,
-            "out": [t.clone() for t in exe(images)]}
+    out = {}
+    for key, axes in (("", SERVE_AXES), ("tp_", ("pod", "data", "model"))):
+        mesh = make_host_mesh(axes, device="cpu")
+        reg = ModelRegistry({"e": default_specs()["edge_tiny@torch"]},
+                            mesh=mesh)
+        exe = reg.executable("e", 4)
+        out.update({key + "device": str(reg.device),
+                    key + "mesh": exe.mesh is mesh,
+                    key + "out": [t.clone() for t in exe(images)]})
+    out["tp_mesh"] = mesh.shape
+    return out
 
 
 def raise_on(rank: int):
