@@ -8,6 +8,7 @@
                                            # phase 16 alone
     python3 chip_smoke.py --multi          # the build, then phase 18 alone
     python3 chip_smoke.py --tp             # the build, then phase 19 alone
+    python3 chip_smoke.py --tp-count       # phase 19's steps dry-run (JSON)
     python3 chip_smoke.py --train-times    # phase 10's MNIST step times
                                            # and peak memory, no build
     python3 chip_smoke.py --forward-pairs PARENT_TREE
@@ -324,18 +325,22 @@ Phases, each raising on failure:
    loss and grad norm within `LM_TRAIN_CPU_RTOL` of the port's CPU step
    on the same weights, and the learning check (`[train-lm]` lines).  It
    launches none of the port's kernels.
-17. (run last, after phase 16) the one-card dry run,
-   `repro_torch.launch.dryrun` (every cell's real step on meta tensors
-   under `dist.op_analysis`'s trip-weighted counter, on the host's CPU,
-   no card): (a) `python -m repro_torch.launch.dryrun --all --mesh
-   single` and the same with `--quant`, into build/dryrun_smoke/, each
-   exit 0 with every record `ok` or `skipped` with the reference's
-   reason, a `[dryrun]` line a cell (dominant term, bound ms, GiB a
-   card, whether it fits the card's memory) and the grids' seconds
-   (target 180 s together, printed); (b) the cells this script ran on
-   the card dry-run in process: qwen3_14b decode at phase 12's 8 rows
-   and 512-slot cache, float and W8A8, and stablelm_3b train at phase
-   16's B 8 x S 256, a `[roofline]` line each with flops, bytes, each
+17. (run last, after phase 16) the dry run, `repro_torch.launch.dryrun`
+   (every cell's real step on meta tensors under `dist.op_analysis`'s
+   trip-weighted counter, on the host's CPU, no card): (a) `python -m
+   repro_torch.launch.dryrun --all --mesh single` and `--mesh multi`
+   ((pod 2, data 32, model 8) over 512 cards, rank 0 counted in a fake
+   world), each also with `--quant`, four processes at once, into
+   build/dryrun_smoke/, each exit 0 with every record `ok` or `skipped`
+   with the reference's reason and every `ok` multi-card record with
+   collective bytes, a `[dryrun]` line a cell (dominant term, bound ms,
+   on the multi mesh the rank's collective ms over NVLink and over
+   InfiniBand, GiB a card, whether it fits one card's memory) and each
+   grid's seconds (target 180 s for the four, printed); (b) the cells
+   this script ran on the card dry-run in process: qwen3_14b decode at
+   phase 12's 8 rows and 512-slot cache, float and W8A8, and
+   stablelm_3b train at phase 16's B 8 x S 256, a `[roofline]` line
+   each with flops, bytes, each
    term, the bound beside the measured ms (phase 12's warm decode ms a
    step, phase 16's median step) and the share bound / measured, which
    must be at most 1.05 (a bound above the measured time means a wrong
@@ -401,7 +406,14 @@ Phases, each raising on failure:
    on the card: qwen3_14b at d 256 through make_cell's train, prefill
    and 4 decode steps against the one-process steps in each rank, and
    `mnist@cuda` waves at buckets 64/16/3/1 bit-equal to the one-process
-   wave, with each rank's launches.
+   wave, with each rank's launches.  Between (b) and (c), the dry run
+   in a process of its own (`chip_smoke.py --tp-count`, a fake world of
+   (a)'s mesh): each rank's `api.collective` calls of one decode step
+   (bf16, W8A8) and of one train step of (b), by kind with their output
+   bytes (an all-gather's input times the group's size), must equal the
+   dry run's count of that rank's step, and each bound, held against
+   the rank's warm decode ms a step and median train step, must give a
+   share of at most 1.05 (`[roofline]` lines).
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -413,6 +425,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -3887,38 +3900,82 @@ def log_device_times(card: str, dt: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the one-card dry run (repro_torch.launch.dryrun, meta tensors
-# on the host's CPU) and its bounds against the card's measured steps
+# phase 17: the dry run (repro_torch.launch.dryrun, meta tensors on the
+# host's CPU, one card and 512) and its bounds against the card's
+# measured steps
 # ---------------------------------------------------------------------------
 DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"
-DRYRUN_TARGET_S = 180         # both grids together (printed, not gated)
+DRYRUN_TARGET_S = 180         # the four grids at once (printed, not gated)
 ROOFLINE_SHARE_MAX = 1.05     # bound / measured: above it the count is wrong
 DRYRUN_PEAK_RTOL = 0.25       # the dry run's training peak against the card's
 
 
-def dryrun_grid(card: str, quant: bool, card_gib: float) -> float:
-    """`python -m repro_torch.launch.dryrun --all --mesh single` (and
-    --quant) into DRYRUN_DIR, exit 0 required, every record `ok` or
-    `skipped` with a reason, a `[dryrun]` line a cell; its seconds."""
-    from repro_torch.configs.base import ARCH_IDS, SHAPES
-    args = ["--all", "--mesh", "single", "--force", "--out",
+DRYRUN_GRIDS = tuple((mesh, quant) for mesh in ("single", "multi")
+                     for quant in (False, True))
+
+
+def dryrun_grid_args(mesh: str, quant: bool) -> list:
+    return ["--all", "--mesh", mesh, "--force", "--out",
             str(DRYRUN_DIR)] + (["--quant"] if quant else [])
+
+
+def dryrun_grids(card: str, card_gib: float) -> dict:
+    """`python -m repro_torch.launch.dryrun --all --mesh M [--quant]` for
+    M single and multi, the four grids in four processes at once, into
+    DRYRUN_DIR: each exit 0 required, every record `ok` or `skipped` with
+    a reason, every `ok` multi-card record with collective bytes; a
+    `[dryrun]` line a cell; {grid: its seconds}."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                           *args], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=900)
-    secs = time.perf_counter() - t
-    if proc.returncode != 0:
-        raise AssertionError(f"launch.dryrun {args}: exit {proc.returncode}"
-                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    logs = {grid: DRYRUN_DIR / f"{grid[0]}{'_w8a8' if grid[1] else ''}.log"
+            for grid in DRYRUN_GRIDS}
+    t0 = time.perf_counter()
+    procs, secs = {}, {}
+    try:
+        for grid in DRYRUN_GRIDS:
+            with open(logs[grid], "w") as f:
+                procs[grid] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     *dryrun_grid_args(*grid)], cwd=ROOT, env=env,
+                    stdout=f, stderr=subprocess.STDOUT)
+        while len(secs) < len(procs):
+            for grid, proc in procs.items():
+                if grid not in secs and proc.poll() is not None:
+                    secs[grid] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > 900:
+                raise AssertionError(f"the dry-run grids ran past 900 s: "
+                                     f"{len(secs)} of {len(procs)} done")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for grid, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"launch.dryrun {dryrun_grid_args(*grid)}: exit "
+                f"{proc.returncode}\n{logs[grid].read_text()[-3000:]}")
+    for grid in DRYRUN_GRIDS:
+        log_dryrun_grid(card, *grid, card_gib, secs[grid])
+    return {f"{mesh}{' w8a8' if quant else ''}": s
+            for (mesh, quant), s in secs.items()}
+
+
+def log_dryrun_grid(card: str, mesh: str, quant: bool, card_gib: float,
+                    secs: float) -> None:
+    """A `[dryrun]` line a record of one grid (a multi-card one: the
+    rank's collective ms by fabric beside its bound), then the grid's
+    tally; a record neither `ok` nor skipped with a reason fails."""
+    from repro_torch.configs.base import ARCH_IDS, SHAPES
+    from repro_torch.launch.roofline import IB_BW, LINK_BW
     recs = []
     for arch in ARCH_IDS:
         for shape in SHAPES:
-            name = f"{arch}__{shape}__single{'__w8a8' if quant else ''}.json"
+            name = f"{arch}__{shape}__{mesh}{'__w8a8' if quant else ''}.json"
             rec = json.loads((DRYRUN_DIR / name).read_text())
             recs.append(rec)
-            what = f"[dryrun] {card} | {arch} x {shape}" + (
+            what = f"[dryrun] {card} | {arch} x {shape} x {mesh}" + (
                 " w8a8" if quant else "")
             if rec["status"] == "skipped" and rec.get("reason"):
                 log(f"{what}: skipped: {rec['reason']}")
@@ -3927,25 +3984,35 @@ def dryrun_grid(card: str, quant: bool, card_gib: float) -> float:
                 raise AssertionError(f"{what}: {rec['status']} "
                                      f"{rec.get('error')}")
             gib = rec["hbm_gib_per_dev"]
+            extra = ""
+            if mesh == "multi":
+                if not rec["collective_bytes_per_dev"] > 0:
+                    raise AssertionError(f"{what}: no collective bytes on "
+                                         f"a mesh of {rec['chips']} cards")
+                fab = rec["collectives"]["bytes_by_fabric"]
+                extra = (f"; rank {rec['rank']} of {rec['chips']}: "
+                         f"collective {fab['nvlink'] / LINK_BW * 1e3:.3f} ms "
+                         f"NVLink + {fab['infiniband'] / IB_BW * 1e3:.3f} ms "
+                         f"InfiniBand")
             log(f"{what}: dominant {rec['dominant']}, bound "
-                f"{rec['step_time_lower_bound_s'] * 1e3:.3f} ms, "
+                f"{rec['step_time_lower_bound_s'] * 1e3:.3f} ms{extra}, "
                 f"{gib:.2f} GiB a card, fits one card's {card_gib:.2f} GiB: "
                 f"{'yes' if gib <= card_gib else 'no'}")
-    log(f"[dryrun] {card} | the {'W8A8 ' if quant else ''}grid: "
+    log(f"[dryrun] {card} | the {mesh} {'W8A8 ' if quant else ''}grid: "
         f"{sum(r['status'] == 'ok' for r in recs)} cells ok, "
         f"{sum(r['status'] == 'skipped' for r in recs)} skipped, in "
-        f"{secs:.1f} s (process included)")
-    return secs
+        f"{secs:.1f} s (its process included, four grids at once)")
 
 
 def dryrun_phase(card: str, lm: dict, train_lm: dict) -> dict:
-    """Phase 17: (a) both grids; (b) the cells the card ran, dry-run in
-    this process, each bound held against the step the card measured
-    (phase 12's warm decode ms a step, phase 16's median step): a share
-    above ROOFLINE_SHARE_MAX fails; the meta-counted `w8a8_dense` calls
-    of a W8A8 decode step must equal phase 12's launches a step, and the
-    dry run's training peak must lie within DRYRUN_PEAK_RTOL of phase
-    16's `torch.cuda.max_memory_allocated`."""
+    """Phase 17: (a) the four grids (one card and 512, float and W8A8);
+    (b) the cells the card ran, dry-run in this process, each bound held
+    against the step the card measured (phase 12's warm decode ms a
+    step, phase 16's median step): a share above ROOFLINE_SHARE_MAX
+    fails; the meta-counted `w8a8_dense` calls of a W8A8 decode step
+    must equal phase 12's launches a step, and the dry run's training
+    peak must lie within DRYRUN_PEAK_RTOL of phase 16's
+    `torch.cuda.max_memory_allocated`."""
     import contextlib
     import io
     import torch
@@ -3954,9 +4021,9 @@ def dryrun_phase(card: str, lm: dict, train_lm: dict) -> dict:
     from repro_torch.launch.dryrun import analyze_step
     shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
-    secs = [dryrun_grid(card, q, card_gib) for q in (False, True)]
-    log(f"[dryrun] {card} | both grids in {sum(secs):.1f} s (target "
-        f"{DRYRUN_TARGET_S} s, the chip host's CPU)")
+    secs = dryrun_grids(card, card_gib)
+    log(f"[dryrun] {card} | the four grids in {max(secs.values()):.1f} s "
+        f"(target {DRYRUN_TARGET_S} s, the chip host's CPU)")
 
     qwen, stablelm = get_config("qwen3_14b"), get_config("stablelm_3b")
     # phase 12 decodes 8 rows at positions LM_PROMPT .. LM_PROMPT + LM_GEN
@@ -4364,6 +4431,44 @@ TP_TRAIN_LAYERS = LM_RESUME_LAYERS           # (b): phase 16's resume depth
 TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 8, 256, 3
 TP_C_B, TP_C_STEPS = 8, 4                    # (c): rows, decode steps
 TP_PARAM_RTOL = 0.05             # a rank's params against its share
+# api.collective's kinds -> the dry run's (`dist.op_analysis`)
+TP_KINDS = {"sum": "all-reduce", "min": "all-reduce", "max": "all-reduce",
+            "all_gather": "all-gather"}
+
+
+def tp_record_collectives():
+    """Patch `api.collective` so that every call's kind, input shape,
+    dtype, device, group and group size go into a list (the calls of
+    an autograd backward too, whatever its thread).  Returns (the list,
+    the undo)."""
+    import torch.distributed as dist
+    from repro_torch.dist import api
+    calls, orig = [], api.collective
+
+    def record(kind, t, group=None):
+        calls.append((kind, tuple(t.shape), t.dtype, t.device, group,
+                      dist.get_world_size(group)))
+        return orig(kind, t, group)
+    api.collective = record
+
+    def undo():
+        api.collective = orig
+    return calls, undo
+
+
+def tp_by_kind(calls) -> dict:
+    """{the dry run's kind: [calls, output bytes]} of recorded calls: an
+    all-reduce's output is its input, an all-gather's the input times
+    the group's size."""
+    out = {}
+    for kind, shape, dtype, _, _, size in calls:
+        k = TP_KINDS[kind]
+        n = math.prod(shape) * dtype.itemsize * (
+            size if k == "all-gather" else 1)
+        c = out.setdefault(k, [0, 0])
+        c[0] += 1
+        c[1] += n
+    return out
 
 
 def tp_prompts(cfg, dev):
@@ -4575,25 +4680,21 @@ def tp_serve_rank(cfg, mesh, quant: str) -> dict:
             model, params, prompts, one["tokens"])
         secs["timed"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        # the collectives of one decode step, replayed alone
-        calls = []
-        orig = api.collective
-
-        def record(kind, t, group=None):
-            calls.append((kind, tuple(t.shape), t.dtype, t.device, group))
-            return orig(kind, t, group)
+        # the collectives of one decode step, by kind, then replayed alone
         from repro_torch.models.transformer import decode_alloc
         with torch.inference_mode():
             _, cache = model.prefill(params, {"inputs": prompts},
                                      alloc=decode_alloc(LM_PROMPT + LM_GEN))
-            api.collective = record
+            calls, undo = tp_record_collectives()
             try:
                 model.decode_step(params, cache, one["tokens"][:, :1].to(dev),
                                   LM_PROMPT)
             finally:
-                api.collective = orig
+                undo()
+        orig = api.collective
+        out["by_kind"] = tp_by_kind(calls)
         bufs = [(k, torch.zeros(s, dtype=d, device=v), g)
-                for k, s, d, v, g in calls]
+                for k, s, d, v, g, _ in calls]
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         for _ in range(TP_REPLAYS):
@@ -4696,7 +4797,12 @@ def tp_train_rank(mesh) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # a fault after step 1's save, a resume from the sharded checkpoint
     b_state = fresh()
-    b_state, _ = step(b_state, batches[0])
+    calls, undo = tp_record_collectives()     # one step's, by kind
+    try:
+        b_state, _ = step(b_state, batches[0])
+    finally:
+        undo()
+    out["by_kind"] = tp_by_kind(calls)
     t0 = time.perf_counter()
     ckpt.save(TP_DIR / "ckpt", 1, b_state, specs=st_spec, mesh=mesh)
     out["save_s"] = time.perf_counter() - t0
@@ -4719,6 +4825,113 @@ def tp_train_rank(mesh) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def tp_dryrun_cells() -> tuple:
+    """(key, config, shape, W8A8, decode position) of the steps phase 19
+    runs on each rank: qwen3_14b's decode at phase 12's 8 rows and
+    512-slot cache at position LM_PROMPT, bf16 and W8A8, and (b)'s
+    stablelm_3b train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    qwen = get_config("qwen3_14b")
+    decode = ShapeSpec("tp_decode", "decode", LM_PROMPT + LM_GEN - 1,
+                       LM_REQUESTS)
+    train = ShapeSpec("tp_train", "train", TP_TRAIN_S, TP_TRAIN_B)
+    return (("none", qwen, decode, False, LM_PROMPT),
+            ("w8a8", qwen, decode, True, LM_PROMPT),
+            ("train", tp_train_cfg(), train, False, None))
+
+
+def tp_count() -> dict:
+    """`--tp-count`, a process of its own (one process group a process):
+    the dry run of `tp_dryrun_cells` on a fake world of phase 19's mesh,
+    (pod 1, data 1, model TP_RANKS), rank by rank: {"key rank": the
+    collectives by kind as [calls, output bytes], the bound and its
+    terms in ms, the rank's GiB and the count's seconds}."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.dist.api import Mesh
+    from repro_torch.launch.dryrun import analyze_step
+    layout = Mesh(("pod", "data", "model"), (1, 1, TP_RANKS),
+                  [torch.device("meta")] * TP_RANKS)
+    out = {}
+    for key, cfg, shape, quant, pos in tp_dryrun_cells():
+        for rank in range(TP_RANKS):
+            with contextlib.redirect_stdout(io.StringIO()):
+                rec, cost = analyze_step(cfg, shape, "tp", quant,
+                                         mesh=layout, rank=rank, pos=pos)
+            out[f"{key} {rank}"] = {
+                "by_kind": {k: [cost.collective_count_by_kind[k],
+                                int(cost.collective_bytes_by_kind[k])]
+                            for k in sorted(cost.collective_count_by_kind)},
+                "fabric": rec["collectives"]["bytes_by_fabric"],
+                "bound_ms": rec["step_time_lower_bound_s"] * 1e3,
+                "terms_ms": {k: v * 1e3 for k, v in rec["terms"].items()},
+                "dominant": rec["dominant"], "gib": rec["hbm_gib_per_dev"],
+                "seconds": rec["compile_s"]}
+    return out
+
+
+def tp_dryrun(card: str, got: list) -> dict:
+    """Phase 19's steps dry-run in a process of its own (`--tp-count`):
+    each rank's collectives by kind and bytes must equal what the rank
+    recorded (its decode steps' and its train step's), and each bound,
+    against the rank's measured ms (warm decode ms a step, the median
+    train step), must give a share of at most ROOFLINE_SHARE_MAX."""
+    from repro_torch.models.transformer import decode_alloc
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--tp-count"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"chip_smoke.py --tp-count: exit "
+                             f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    count = json.loads(proc.stdout.strip().splitlines()[-1])["tp_count"]
+    rows = []
+    for g in got:
+        for key, cfg, shape, quant, pos in tp_dryrun_cells():
+            dry = count[f"{key} {g['rank']}"]
+            r = g[key]
+            measured = r["decode_ms"] if key != "train" else \
+                statistics.median(r["ms"])
+            what = (f"qwen3_14b decode {key}" if key != "train" else
+                    f"stablelm_3b x{TP_TRAIN_LAYERS} train") + \
+                f" rank {g['rank']}"
+            if r["by_kind"] != dry["by_kind"]:
+                raise AssertionError(
+                    f"[tp] {what}: the rank's collectives {r['by_kind']} "
+                    f"against the dry run's {dry['by_kind']}")
+            share = dry["bound_ms"] / measured
+            t = dry["terms_ms"]
+            log(f"[tp] {what}: collectives by kind [calls, output bytes] "
+                f"{r['by_kind']}, the dry run's on a fake world of "
+                f"{TP_RANKS} equal ({dry['seconds']} s to count)")
+            cell = (f"B {shape.global_batch}, {decode_alloc(shape.seq_len)} "
+                    f"slots, position {pos}" if key != "train" else
+                    f"B {shape.global_batch} x S {shape.seq_len}")
+            log(f"[roofline] {card} | {what} ({cell}, model {TP_RANKS}): "
+                f"compute "
+                f"{t['compute_s']:.3f} ms, memory {t['memory_s']:.3f} ms, "
+                f"collective {t['collective_s']:.3f} ms "
+                f"(NVLink {dry['fabric']['nvlink']:,.0f} bytes); bound "
+                f"{dry['bound_ms']:.3f} ms ({dry['dominant']}) against "
+                f"{measured:.3f} ms measured ({TP_LABEL}): share "
+                f"{share:.4f}, {dry['gib']:.2f} GiB the rank")
+            if share > ROOFLINE_SHARE_MAX:
+                raise AssertionError(f"[roofline] {what}: bound "
+                                     f"{dry['bound_ms']:.3f} ms above the "
+                                     f"measured {measured:.3f} ms")
+            rows.append(dict(what=what, by_kind=r["by_kind"],
+                             bound_ms=dry["bound_ms"], measured_ms=measured,
+                             share=share, gib=dry["gib"]))
+    log(f"[tp] the dry run's count of phase 19's steps: {secs:.1f} s "
+        "(its process included)")
+    return {"rows": rows, "seconds": secs}
 
 
 def tp_rank() -> dict:
@@ -4989,6 +5202,7 @@ def tp_phase(dev, card: str) -> dict:
         f"process ({restore_s:.1f} s): each rank's share of every leaf "
         f"({n_leaves}) has the digest of the share that rank saved")
     shutil.rmtree(TP_DIR, ignore_errors=True)
+    dry = tp_dryrun(card, got)
 
     # (c): a (data 2, model 2) world of 4 ranks
     inputs = multi_inputs()
@@ -5035,18 +5249,18 @@ def tp_phase(dev, card: str) -> dict:
                       for q in ("none", "w8a8")},
             "train": [{k: v for k, v in g["train"].items()
                        if k != "saved_digest"} for g in got],
-            "one": one, "train_one": train_one}
+            "one": one, "train_one": train_one, "dryrun": dry}
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--device-times"], ["--forward-worker"],
                     ["--train-lm"], ["--train-times"], ["--multi"],
-                    ["--tp"]) and (
+                    ["--tp"], ["--tp-count"]) and (
             len(argv) != 2 or argv[0] != "--forward-pairs"):
         print("usage: chip_smoke.py [--device-times | --train-lm | "
-              "--train-times | --multi | --tp | --forward-pairs "
-              "PARENT_TREE]",
+              "--train-times | --multi | --tp | --tp-count | "
+              "--forward-pairs PARENT_TREE]",
               file=sys.stderr)
         return 2
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -5079,6 +5293,9 @@ def main(argv=None) -> int:
         *_, times = mnist_train_times(torch.device("cuda"), card)
         log(card)
         log(json.dumps({"train_times": times}))
+        return 0
+    if argv == ["--tp-count"]:
+        print(json.dumps({"tp_count": tp_count()}))
         return 0
     if argv == ["--train-lm"]:
         card = card_line()
@@ -5326,9 +5543,9 @@ def main(argv=None) -> int:
     # the kernels, and no profiler session follows it
     train_lm = train_lm_phase(card)
 
-    # phase 17, last: the one-card dry run on the host's CPU, its bounds
-    # held against the steps phases 12 and 16 measured (no launch, no
-    # timing of its own)
+    # phase 17, last: the dry run on the host's CPU (one card and 512),
+    # its bounds held against the steps phases 12 and 16 measured (no
+    # launch, no timing of its own)
     dryrun = dryrun_phase(card, lm, train_lm)
 
     # phase 18: data-parallel meshes across processes; each rank's counts

@@ -47,13 +47,15 @@ MODEL = ("model",)
 # the decode cache's sequence axes when the batch does not shard
 SEQ_WIDE = ("data", "model")
 
-MULTI_CARD = "ROADMAP Queue A, multi-card: item 5.2.3"
-
 _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_mesh", default=None)
 # whether the rows of the running step are split over BATCH
 _ROWS_SPLIT: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_rows_split", default=False)
+# the whole lengths of the split axes the running step asks its ranks
+# for (`whole_sizes`), where the caller knows them
+_KNOWN_SIZES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_known_sizes", default=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,6 +324,41 @@ def rows_split(split: bool):
         yield
     finally:
         _ROWS_SPLIT.reset(token)
+
+
+@contextlib.contextmanager
+def known_sizes(sizes):
+    """For the duration, the whole lengths `whole_sizes` gives under a
+    process group that moves no values (`dist.world.fake_world`): the
+    caller that laid the step's tensors out knows them."""
+    token = _KNOWN_SIZES.set(None if sizes is None else tuple(sizes))
+    try:
+        yield
+    finally:
+        _KNOWN_SIZES.reset(token)
+
+
+def whole_sizes(sizes, group: Group) -> list:
+    """The whole lengths of axes of which the ranks of `group` hold
+    `row_share`s, this rank `sizes` of them: one all-reduce of the
+    sizes.  Under the fake backend, whose collectives move nothing, the
+    all-reduce and its read-back are made all the same (a dry run counts
+    them) and the lengths are `known_sizes`'s, each of whose shares on
+    this rank must be its size (ValueError otherwise)."""
+    import torch.distributed as dist
+    summed = [int(n) for n in collective(
+        "sum", torch.tensor(sizes, dtype=torch.int64), group.handle)]
+    if dist.get_backend(group.handle) != "fake":
+        return summed
+    known = _KNOWN_SIZES.get()
+    if known is None or len(known) != len(sizes) or any(
+            shares(n, group)[group.index] != k
+            for n, k in zip(known, sizes)):
+        raise ValueError(
+            f"a fake process group moves no values: the whole lengths of "
+            f"this rank's shares {list(sizes)} on a line of {group.size} "
+            f"must be given by known_sizes (given {known})")
+    return list(known)
 
 
 def model_group() -> Group | None:

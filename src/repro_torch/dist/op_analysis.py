@@ -18,7 +18,11 @@ recompute) and counts
          in-place op's operand once.  Eager torch fuses nothing, so this
          is the traffic the card really makes, op by op; it is not
          comparable with the reference's count over fused HLO;
-  collective bytes  the output bytes of the `c10d` ops (0 on one card);
+  collective bytes  the output bytes of the `c10d` ops (0 on one card),
+         by the reference's kinds, and by fabric: "nvlink" where every
+         rank of the op's group lies on one node (`dist.world.
+         CARDS_PER_NODE` cards a node), "infiniband" where it crosses
+         nodes;
   ops    a tally by op name.  The kernels the port launches through
          ctypes are invisible to torch: their wrappers call
          `record_kernel` (a name, its flops and bytes), one tally entry a
@@ -59,6 +63,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.dist.world import CARDS_PER_NODE
+
 aten = torch.ops.aten
 
 # the counter in force, else None: every hook tests this one name
@@ -84,6 +90,24 @@ _COLLECTIVES = {
     "send": "collective-permute", "recv_": "collective-permute",
 }
 _C10D = ("_c10d_functional", "c10d_functional", "c10d")
+
+
+def fabric(ranks) -> str:
+    """The fabric a collective over `ranks` (global ranks) crosses:
+    "nvlink" within one node, "infiniband" across nodes."""
+    return "nvlink" if len({r // CARDS_PER_NODE for r in ranks}) <= 1 \
+        else "infiniband"
+
+
+def _group_ranks(func, args) -> list:
+    """The global ranks of a c10d op's process group (its
+    `process_group` argument; the world's without one)."""
+    import torch.distributed as dist
+    names = [a.name for a in func._schema.arguments]
+    if "process_group" not in names:
+        return list(range(dist.get_world_size()))
+    pg = dist.ProcessGroup.unbox(args[names.index("process_group")])
+    return dist.get_process_group_ranks(pg)
 
 
 def _nbytes(t) -> int:
@@ -145,7 +169,8 @@ def _flops(func, args, out) -> float:
 @dataclasses.dataclass
 class OpCost:
     """A step's cost terms, trip-weighted: `HloCost`'s fields (its
-    `n_whiles` is `n_loops`, the loops run) plus the tally by op."""
+    `n_whiles` is `n_loops`, the loops run) plus the tally by op and the
+    collective bytes by fabric ("nvlink", "infiniband")."""
     flops: float = 0.0
     hbm_bytes: float = 0.0
     collective_bytes: float = 0.0
@@ -153,6 +178,8 @@ class OpCost:
     collective_count_by_kind: dict = dataclasses.field(default_factory=dict)
     n_loops: int = 0
     ops: dict = dataclasses.field(default_factory=dict)
+    collective_bytes_by_fabric: dict = dataclasses.field(
+        default_factory=dict)
 
     def add(self, other: "OpCost", mult: float = 1.0):
         self.flops += mult * other.flops
@@ -164,6 +191,9 @@ class OpCost:
         for k, v in other.collective_count_by_kind.items():
             self.collective_count_by_kind[k] = \
                 self.collective_count_by_kind.get(k, 0) + int(mult * v)
+        for k, v in other.collective_bytes_by_fabric.items():
+            self.collective_bytes_by_fabric[k] = \
+                self.collective_bytes_by_fabric.get(k, 0.0) + mult * v
         for k, v in other.ops.items():
             self.ops[k] = self.ops.get(k, 0) + int(mult * v)
         self.n_loops += other.n_loops
@@ -354,6 +384,9 @@ class OpCounter(TorchDispatchMode):
                     c.collective_bytes_by_kind.get(kind, 0.0) + cb
                 c.collective_count_by_kind[kind] = \
                     c.collective_count_by_kind.get(kind, 0) + w
+                f = fabric(_group_ranks(func, args))
+                c.collective_bytes_by_fabric[f] = \
+                    c.collective_bytes_by_fabric.get(f, 0.0) + cb
         return out
 
     def __enter__(self):

@@ -17,14 +17,23 @@ ranks on one GPU).  Asking for NCCL on ranks that share a card raises
 ValueError before any process group is made.  Every group carries a
 timeout (default 120 s), so a rank that stops making calls fails the run
 instead of hanging it.
+
+A dry run needs no ranks at all: `fake_world(size, rank)` makes this
+process rank `rank` of a world of `size` under torch's fake backend,
+whose collectives move nothing, on the meta device (every rank's device
+is `meta`), so that one rank's step of a mesh of hundreds of cards can
+be counted (`launch.dryrun`).  Cards sit CARDS_PER_NODE to a node,
+ranks 8n .. 8n + 7 on node n.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
 import pickle
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -32,6 +41,9 @@ import traceback
 import torch
 
 DEFAULT_TIMEOUT_S = 120.0
+# cards a node: an HGX H100 board's eight, all to all over NVLink; ranks
+# 8n .. 8n + 7 lie on node n
+CARDS_PER_NODE = 8
 
 _WORLD = None
 
@@ -150,6 +162,41 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _WORLD = None
+
+
+@contextlib.contextmanager
+def fake_world(size: int, rank: int = 0):
+    """For the duration, this process is rank `rank` of a world of `size`
+    ranks under torch's fake backend: the collectives dispatch as they
+    would (a `TorchDispatchMode` sees them, with their groups) but move
+    nothing, and every rank's device is `meta`.  Yields the `World`; on
+    exit, raised or not, the process group is destroyed and no world is
+    left behind."""
+    global _WORLD
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if _WORLD is not None or dist.is_initialized():
+        raise RuntimeError("a process group is already initialised in "
+                           "this process")
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} of a world of {size}")
+    # init_process_group wraps sys.excepthook to prefix "[rank N]" and
+    # never unwraps it: a process of many fake worlds would nest them
+    hook = sys.excepthook
+    try:
+        dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                                world_size=size)
+        meta = torch.device("meta")
+        world = World(rank=rank, size=size, local_rank=rank % CARDS_PER_NODE,
+                      backend="fake", device=meta, devices=(meta,) * size,
+                      timeout_s=DEFAULT_TIMEOUT_S)
+        _WORLD = world
+        yield world
+    finally:
+        if _WORLD is not None:
+            _WORLD.groups.clear()
+        shutdown()
+        sys.excepthook = hook
 
 
 # ---------------------------------------------------------------------------

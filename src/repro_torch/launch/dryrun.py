@@ -1,6 +1,6 @@
-"""The one-card dry run; the counterpart of `repro.launch.dryrun`.
+"""The dry run; the counterpart of `repro.launch.dryrun`.
 
-For every (architecture x input shape) cell:
+For every (architecture x input shape x mesh) cell:
   fn, args = launch.steps.make_cell(cfg, shape, mesh)   # meta structs
   analysis = dist.op_analysis.analyze_ops(fn, *args)    # trip-weighted
   record   = launch.roofline.analyze_cell(...)          # H100 roofline
@@ -12,16 +12,27 @@ of what the step allocates, less its new outputs) and the donated
 inputs the step updates in place (`alias`: the train state, the decode
 cache).  A decode cell decodes at the shape's last slot, seq_len - 1.
 `lower_s` is the seconds to build the cell's structs and `compile_s`
-those of the counted run.  Results land as JSON in
+those of the counted run.
+
+The meshes are `launch.mesh.make_production_mesh`'s: `single`, one card,
+and `multi`, (pod 2, data 32, model 8) over 512 cards.  A mesh of more
+than one card is counted for one rank, rank 0, inside a
+`dist.world.fake_world` of the mesh's size: the step runs on the rank's
+shares of its inputs (`steps.local_structs`), its collectives dispatch
+over the mesh's groups and move nothing, and each is counted with its
+bytes on the fabric it crosses.  Contiguous shares give index 0 the
+largest share of every axis, so rank 0's bound and memory are the worst
+rank's.  Results land as JSON in
 build/dryrun/<arch>__<shape>__<mesh>[__w8a8][__tag].json (resumable:
-existing artifacts are skipped unless --force).  The mesh is one card:
-`--mesh multi` and `both` exit 2 (ROADMAP Queue A, multi-card).
+existing artifacts are skipped unless --force).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3_14b --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--quant]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--quant] \
+      [--mesh single|multi|both]
 """
 import argparse
+import contextlib
 import json
 import pathlib
 import time
@@ -29,11 +40,14 @@ import traceback
 
 from repro_torch.configs.base import (ARCH_IDS, SHAPES, cell_is_runnable,
                                       get_config)
-from repro_torch.dist.api import MULTI_CARD
+from repro_torch.dist import api
+from repro_torch.dist.api import Mesh
 from repro_torch.dist.op_analysis import analyze_ops
+from repro_torch.dist.world import fake_world
 from repro_torch.launch import steps
 from repro_torch.launch.mesh import make_production_mesh, mesh_chips
 from repro_torch.launch.roofline import analyze_cell
+from repro_torch.models.transformer import build_model
 from repro_torch.tree import leaves
 
 DEFAULT_OUT = pathlib.Path("build/dryrun")
@@ -73,17 +87,37 @@ def memory_of(arg: dict, donated: dict, out, peak: int) -> dict:
 
 
 def analyze_step(cfg, shape, mesh_kind: str = "single",
-                 quant: bool = False) -> tuple:
+                 quant: bool = False, *, mesh=None, rank: int = 0,
+                 pos=None) -> tuple:
     """(record, OpCost) of the cell's step on meta tensors: the roofline
     record of `analyze_cell` with `lower_s` and `compile_s`, and the
-    trip-weighted cost with its tally by op."""
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    with mesh:
+    trip-weighted cost with its tally by op.  `mesh` is a record of any
+    axes (default: the production mesh of `mesh_kind`); over more than
+    one device the step counted is rank `rank`'s, in a fake world of the
+    mesh's size, and the record says which rank.  A decode step decodes
+    at `pos` (default the shape's last slot)."""
+    layout = mesh or make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    with contextlib.ExitStack() as stack:
+        if layout.size > 1:
+            world = stack.enter_context(fake_world(layout.size, rank))
+            mesh = Mesh(layout.axis_names, layout.sizes, world.devices,
+                        world=world)
+        else:
+            mesh = layout
         t0 = time.time()
-        fn, args, _, _ = steps.make_cell(cfg, shape, mesh, quant=quant)
+        # made outside `with mesh`, which would cut the caches' slots to
+        # the rank's share: the structs stay global, as make_cell says
+        fn, args, in_specs, _ = steps.make_cell(cfg, shape, mesh,
+                                                quant=quant)
+        known = None
+        if shape.kind == "decode":    # the whole caches' slots
+            known = build_model(cfg).slot_counts(args[1])
+        if mesh.world is not None:
+            args = steps.local_structs(args, in_specs, mesh)
         if shape.kind == "decode":
-            args = args[:3] + (shape.seq_len - 1,)
+            args = args[:3] + (shape.seq_len - 1 if pos is None else pos,)
         t1 = time.time()
+        stack.enter_context(api.known_sizes(known))
         arg = _storages(list(args))
         donated = _storages([args[i] for i in donate_for(shape.kind)])
         res = analyze_ops(fn, *args, flop_counter=True)
@@ -91,11 +125,13 @@ def analyze_step(cfg, shape, mesh_kind: str = "single",
         memory = memory_of(arg, donated, res.out, res.peak_bytes)
         print(memory)
         print({"flops": res.cost.flops, "bytes accessed": res.cost.hbm_bytes})
-        record = analyze_cell(res.cost, memory, cfg, shape, mesh_chips(mesh),
-                              mesh_kind, int8=quant,
-                              flop_counter_raw=res.flop_counter)
-    record.update(lower_s=round(t1 - t0, 2), compile_s=round(t2 - t1, 2))
-    return record, res.cost
+        rec = analyze_cell(res.cost, memory, cfg, shape, mesh_chips(mesh),
+                           mesh_kind, int8=quant,
+                           flop_counter_raw=res.flop_counter)
+        if mesh.world is not None:
+            rec["rank"] = rank
+    rec.update(lower_s=round(t1 - t0, 2), compile_s=round(t2 - t1, 2))
+    return rec, res.cost
 
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str,
@@ -150,9 +186,9 @@ def main(argv=None):
     ap.add_argument("--arch", choices=ARCH_IDS)
     ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--mesh", choices=("single", "multi", "both"),
-                    default="single",
-                    help="single: one card (multi and both are not "
-                    f"ported: {MULTI_CARD})")
+                    default="both",
+                    help="single: one card; multi: (pod 2, data 32, model "
+                    "8) over 512, rank 0 counted")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--quant", action="store_true",
@@ -163,12 +199,9 @@ def main(argv=None):
                     help="int8 KV cache (decode cells)")
     ap.add_argument("--out", default=str(DEFAULT_OUT))
     args = ap.parse_args(argv)
-    if args.mesh != "single":
-        print(f"--mesh {args.mesh}: a mesh of more than one card is not "
-              f"ported yet ({MULTI_CARD})")
-        raise SystemExit(2)
 
     outdir = pathlib.Path(args.out)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     archs = ARCH_IDS if (args.all or not args.arch) else (args.arch,)
     shapes = list(SHAPES) if (args.all or not args.shape) else (args.shape,)
 
@@ -178,10 +211,11 @@ def main(argv=None):
             override = None
             if args.kv8:
                 override = get_config(arch).scaled(kv_cache_int8=True)
-            rec = run_cell(arch, shape, args.mesh, outdir, args.force,
-                           quant=args.quant, tag=args.tag,
-                           arch_override=override)
-            n_err += rec.get("status") == "error"
+            for mesh_kind in meshes:
+                rec = run_cell(arch, shape, mesh_kind, outdir, args.force,
+                               quant=args.quant, tag=args.tag,
+                               arch_override=override)
+                n_err += rec.get("status") == "error"
     print(f"done; {n_err} errors")
     raise SystemExit(1 if n_err else 0)
 

@@ -7,10 +7,27 @@ it is a mesh over the world's ranks, one device each, all on the last
 axis, as the reference fills its last axis with the local devices: with
 the default axes, a tensor-parallel mesh (model = the world).
 Outside one it covers one device: a process drives one card, so more
-than one visible card raises and asks for `torchrun`.  The counterpart of
-the reference's production meshes (a TPU pod of 256 chips, two of 512)
-is `make_production_mesh`: one H100, the card a dry run's roofline is
-for; the multi-pod mesh raises (`api.MULTI_CARD`).
+than one visible card raises and asks for `torchrun`.
+
+`make_production_mesh` gives the counterparts of the reference's
+production meshes, as records (building one touches no device; a dry
+run lays a live mesh of the same axes over `dist.world.fake_world`):
+
+  single  (data 1, model 1) over cuda:0: the one card whose measured
+          steps the dry run's bounds are held against.  The reference's
+          is one TPU pod of 256 chips; the port keeps one card, the
+          unit it measures.
+  multi   (pod 2, data 32, model 8): the reference's (pod 2, data 16,
+          model 16) of 512 chips with its axes and its 512 devices, so
+          that the job's model flops per card are the reference's.  The
+          reference puts the model axis, whose activation collectives
+          come in every layer, inside a pod's torus; the H100's fastest
+          fabric is one node's NVLink of CARDS_PER_NODE = 8 cards, so
+          the model axis is 8 and lies within a node.  Row-major with
+          model fastest, ranks 8n .. 8n + 7 are node n: 64 HGX H100
+          nodes, a pod of 256 cards being one DGX SuperPOD scalable
+          unit of 32 nodes.  The data and pod lines cross nodes over
+          InfiniBand (NDR, 400 Gb/s a card).
 """
 from __future__ import annotations
 
@@ -19,8 +36,10 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.api import MULTI_CARD, Mesh
-from repro_torch.dist.world import current_world
+from repro_torch.dist.api import Mesh
+from repro_torch.dist.world import CARDS_PER_NODE, current_world
+
+MULTI_POD = (2, 32, CARDS_PER_NODE)          # (pod, data, model)
 
 
 def make_host_mesh(axes=("pod", "data", "model"), device=None) -> Mesh:
@@ -52,12 +71,15 @@ def make_host_mesh(axes=("pod", "data", "model"), device=None) -> Mesh:
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The one-card production mesh, axes (data, model) of size 1 over
-    cuda:0 (a record: building it touches no device).  multi_pod=True
-    raises NotImplementedError."""
+    """The production mesh's record (see the module docstring): one card,
+    axes (data, model) of size 1 over cuda:0; with multi_pod, (pod 2,
+    data 32, model 8) over 512 cards, rank r on card r % 8 of node
+    r // 8."""
     if multi_pod:
-        raise NotImplementedError(
-            f"a multi-card production mesh is not ported yet ({MULTI_CARD})")
+        n = math.prod(MULTI_POD)
+        return Mesh(("pod", "data", "model"), MULTI_POD,
+                    [torch.device("cuda", r % CARDS_PER_NODE)
+                     for r in range(n)])
     return Mesh(("data", "model"), (1, 1), [torch.device("cuda", 0)])
 
 

@@ -2,14 +2,20 @@
 `repro.launch.roofline`.
 
 Hardware constants (H100 SXM data sheet, dense tensor-core rates):
-  989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3, and NVLink 4 at
-  450 GB/s one way per card for the collective term.
+  989 TFLOP/s bf16, 1,979 TOP/s int8, 3.35 TB/s HBM3; for the collective
+  term NVLink 4 at 450 GB/s one way per card within a node, and
+  InfiniBand NDR at 400 Gb/s = 50 GB/s one way per card (one NIC a card)
+  across nodes.
 
 The counts come from `repro_torch.dist.op_analysis` (trip-weighted, per
 card), so:
   compute_term    = flops_per_dev / PEAK
   memory_term     = bytes_per_dev / HBM_BW
-  collective_term = collective_bytes_per_dev / LINK_BW
+  collective_term = nvlink_bytes / LINK_BW + infiniband_bytes / IB_BW
+where a collective's bytes are NVLink's when every rank of its group
+lies on one node, else InfiniBand's (`op_analysis.fabric`);
+`collective_bytes_per_dev` is their sum, as the reference's, and
+`collectives.bytes_by_fabric` their split.
 MODEL_FLOPS = 6*N*D (dense) / 6*N_active*D (MoE), 2*N*D forward-only, as
 in the reference.  Its record's keys are the reference's but two:
 `xla_cost_analysis_raw` is `flop_counter_raw` (the total of
@@ -26,6 +32,7 @@ PEAK_BF16 = 989e12      # FLOP/s per card, dense bf16 tensor cores
 PEAK_INT8 = 1.979e15    # OP/s per card, dense int8 tensor cores
 HBM_BW = 3.35e12        # B/s per card
 LINK_BW = 450e9         # B/s one way per card, NVLink 4
+IB_BW = 50e9            # B/s one way per card, InfiniBand NDR 400 Gb/s
 
 
 def active_param_count(cfg: ModelConfig) -> int:
@@ -70,6 +77,8 @@ def analyze_cell(cost: OpCost, memory: dict, cfg: ModelConfig,
     flops_dev = float(cost.flops)
     bytes_dev = float(cost.hbm_bytes)
     coll_dev = float(cost.collective_bytes)
+    fabric = {f: float(cost.collective_bytes_by_fabric.get(f, 0.0))
+              for f in ("nvlink", "infiniband")}
     mem = {f: int(memory.get(f, 0)) for f in MEMORY_FIELDS}
     hbm_dev = (mem["argument_size_in_bytes"] + mem["output_size_in_bytes"]
                + mem["temp_size_in_bytes"] - mem["alias_size_in_bytes"])
@@ -78,7 +87,8 @@ def analyze_cell(cost: OpCost, memory: dict, cfg: ModelConfig,
     terms = {
         "compute_s": flops_dev / peak,
         "memory_s": bytes_dev / HBM_BW,
-        "collective_s": coll_dev / LINK_BW,
+        "collective_s": fabric["nvlink"] / LINK_BW
+        + fabric["infiniband"] / IB_BW,
     }
     dominant = max(terms, key=terms.get)
     bound = max(terms.values())
@@ -90,7 +100,8 @@ def analyze_cell(cost: OpCost, memory: dict, cfg: ModelConfig,
         "collective_bytes_per_dev": coll_dev,
         "collectives": {"total_bytes": coll_dev,
                         "bytes_by_kind": cost.collective_bytes_by_kind,
-                        "count_by_kind": cost.collective_count_by_kind},
+                        "count_by_kind": cost.collective_count_by_kind,
+                        "bytes_by_fabric": fabric},
         "flop_counter_raw": {"flops": float(flop_counter_raw)},
         "n_loops": cost.n_loops,
         "memory": mem, "hbm_bytes_per_dev": hbm_dev,

@@ -379,14 +379,6 @@ def _local_cache(shape, axis: int, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _whole_slots(counts: list) -> list:
-    """The whole slot counts of caches of which this rank holds `counts`
-    (one all-reduce over `api.seq_group`)."""
-    seq = api.seq_group()
-    t = torch.tensor(counts, dtype=torch.int64)
-    return [int(n) for n in api.collective("sum", t, seq.handle)]
-
-
 # ---------------------------------------------------------------------------
 # decoder-only LM (incl. VLM prefix variant)
 # ---------------------------------------------------------------------------
@@ -493,6 +485,16 @@ class LM:
         return tuple(tuple(one(kind) for kind in cfg.blocks)
                      for _ in range(cfg.num_cycles))
 
+    def _attn_positions(self) -> list:
+        return [i for i, kind in enumerate(self.cfg.blocks)
+                if kind[0] in ("attn", "swa")]
+
+    def slot_counts(self, caches) -> list:
+        """The slot counts of the attention caches of the first cycle, in
+        pattern order: what a decode step under a mesh that splits them
+        sums over the ranks (`api.whole_sizes`)."""
+        return [caches[0][i]["k"].shape[1] for i in self._attn_positions()]
+
     # -- prefill / decode -----------------------------------------------------
     @layers.full_bf16_sums()
     def prefill(self, params, batch, alloc: int | None = None):
@@ -519,11 +521,10 @@ class LM:
         cfg = self.cfg
         x = layers.embed_lookup(params["embed"], token, cfg.d_model)
         slots = None
-        attn = [i for i, kind in enumerate(cfg.blocks)
-                if kind[0] in ("attn", "swa")]
+        attn = self._attn_positions()
         if api.seq_group() is not None and attn:
-            whole = iter(_whole_slots([caches[0][i]["k"].shape[1]
-                                       for i in attn]))
+            whole = iter(api.whole_sizes(self.slot_counts(caches),
+                                         api.seq_group()))
             slots = tuple(next(whole) if i in attn else None
                           for i in range(len(cfg.blocks)))
         x, caches, _ = run_stack(cfg, cfg.blocks, params["blocks"], x,
@@ -705,6 +706,12 @@ class EncDecLM:
         return layers.lm_logits(params["lm_head"], x,
                                 cfg.padded_vocab)[:, 0], caches
 
+    @staticmethod
+    def slot_counts(caches) -> list:
+        """The slot counts of the self and cross caches: what a decode
+        step under a mesh that splits them sums over the ranks."""
+        return [caches[0][k]["k"].shape[2] for k in ("self", "cross")]
+
     @layers.full_bf16_sums()
     def decode_step(self, params, caches, token, pos: int):
         """token [B,1] int; pos an int.  The self caches are written in
@@ -713,8 +720,8 @@ class EncDecLM:
         x = layers.embed_lookup(params["embed"], token, cfg.d_model)
         slots = None
         if api.seq_group() is not None:
-            slots = dict(zip(("self", "cross"), _whole_slots(
-                [caches[0][k]["k"].shape[2] for k in ("self", "cross")])))
+            slots = dict(zip(("self", "cross"), api.whole_sizes(
+                self.slot_counts(caches), api.seq_group())))
         x, caches = self._dec_stack(params, x, None, mode="decode",
                                     caches=caches, pos=pos, slots=slots)
         x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

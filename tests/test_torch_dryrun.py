@@ -1,9 +1,10 @@
-"""The port's one-card dry run (`repro_torch.launch.dryrun`), against the
+"""The port's dry run (`repro_torch.launch.dryrun`), against the
 reference's `repro.launch.dryrun`: the record's keys (less the two
 renames), the skip reasons, the artifact names, resume and --force, the
-exit codes; and the small repairs it needed: the meta face of
-`w8a8_dense` / `w8a8_bmm`, `make_decode_step`'s pos, the production
-mesh.  Cells run a reduced config (d_model 64, four layers) at the
+exit codes, the meshes (`--mesh multi` / `both`: the multi-card mesh's
+records; its counts are `test_torch_dryrun_multi.py`'s); and the small
+repairs it needed: the meta face of `w8a8_dense` / `w8a8_bmm`,
+`make_decode_step`'s pos, the production meshes.  Cells run a reduced config (d_model 64, four layers) at the
 reference's full shapes, on meta tensors.
 """
 import json
@@ -123,20 +124,38 @@ def test_resume_and_force(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mesh", ["multi", "both"])
-def test_multi_card_meshes_exit_2_before_any_cell(tmp_path, capsys, mesh):
-    with pytest.raises(SystemExit) as e:
-        dryrun.main(["--all", "--mesh", mesh, "--out", str(tmp_path)])
-    assert e.value.code == 2
-    assert "ROADMAP Queue A, multi-card" in capsys.readouterr().out
-    assert list(tmp_path.iterdir()) == []
+def test_multi_and_both_write_multi_records(tmp_path, capsys, mesh):
+    """qwen3_14b in full at decode_32k (ok) and long_500k (the
+    reference's skip) on the mesh(es) asked for."""
+    for shape in ("decode_32k", "long_500k"):
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(["--arch", "qwen3_14b", "--shape", shape, "--mesh",
+                         mesh, "--out", str(tmp_path)])
+        assert e.value.code == 0
+    kinds = ["multi"] if mesh == "multi" else ["multi", "single"]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        f"qwen3_14b__{s}__{k}.json" for s in ("decode_32k", "long_500k")
+        for k in kinds)
+    rec = json.loads((tmp_path / "qwen3_14b__decode_32k__multi.json")
+                     .read_text())
+    assert rec["status"] == "ok" and rec["chips"] == 512 and rec["rank"] == 0
+    assert rec["collective_bytes_per_dev"] > 0
+    assert rec["terms"]["collective_s"] > 0
+    skip = json.loads((tmp_path / "qwen3_14b__long_500k__multi.json")
+                      .read_text())
+    _, why = rbase.cell_is_runnable(rbase.get_config("qwen3_14b"),
+                                    rbase.SHAPES["long_500k"])
+    assert skip["status"] == "skipped" and skip["reason"] == why
+    assert "x decode_32k x multi: dominant=" in capsys.readouterr().out
 
 
 def test_main_exit_codes_and_the_error_record(tmp_path, monkeypatch, capsys):
-    with pytest.raises(SystemExit) as e:       # default mesh: single
+    with pytest.raises(SystemExit) as e:       # default mesh: both
         dryrun.main(["--arch", "qwen3_14b", "--shape", "long_500k",
                      "--out", str(tmp_path)])
     assert e.value.code == 0
     assert (tmp_path / "qwen3_14b__long_500k__single.json").exists()
+    assert (tmp_path / "qwen3_14b__long_500k__multi.json").exists()
 
     def broken(*a, **k):
         raise RuntimeError("no cell")
@@ -161,9 +180,18 @@ def test_donate_for_is_the_references():
 def test_production_mesh_is_one_card():
     mesh = make_production_mesh()
     assert mesh_chips(mesh) == 1 and mesh.shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue A, multi-card"):
-        make_production_mesh(multi_pod=True)
+    assert mesh.devices == (torch.device("cuda", 0),) and mesh.world is None
+
+
+def test_multi_pod_mesh_is_2_32_8_at_8_cards_a_node():
+    """The reference's axes and 512 devices, the model axis on one
+    node's NVLink (see `launch.mesh`)."""
+    mesh = make_production_mesh(multi_pod=True)
+    assert mesh.axis_names == ("pod", "data", "model")
+    assert mesh.sizes == (2, 32, 8) and mesh_chips(mesh) == 512
+    assert mesh.devices == tuple(torch.device("cuda", r % 8)
+                                 for r in range(512))
+    assert mesh.world is None
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,8 @@ shape, and `analyze_cell` gives the reference's record (its formulas for
 the terms, the dominant term, the bound, the roofline fraction and the
 useful-flop ratio) from the same counts once the reference's constants
 are set to the H100's, with its two keys renamed (`xla_cost_analysis_raw`
--> `flop_counter_raw`, `n_whiles` -> `n_loops`).
+-> `flop_counter_raw`, `n_whiles` -> `n_loops`) and the collectives'
+split by fabric beside the reference's fields.
 """
 import types
 
@@ -59,8 +60,8 @@ def test_model_flops_equals_reference(arch, shape):
 
 
 def test_constants_are_the_h100s():
-    assert (TR.PEAK_BF16, TR.PEAK_INT8, TR.HBM_BW, TR.LINK_BW) == \
-        (989e12, 1.979e15, 3.35e12, 450e9)
+    assert (TR.PEAK_BF16, TR.PEAK_INT8, TR.HBM_BW, TR.LINK_BW, TR.IB_BW) \
+        == (989e12, 1.979e15, 3.35e12, 450e9, 50e9)
 
 
 @pytest.mark.parametrize("int8", [False, True])
@@ -85,6 +86,10 @@ def test_analyze_cell_equals_reference_record(monkeypatch, arch, shape,
     for k, v in ref.items():
         if k == "xla_cost_analysis_raw":
             assert got["flop_counter_raw"] == {"flops": v["flops"]}
+        elif k == "collectives":      # and the split by fabric, all 0
+            fabric = got[k].pop("bytes_by_fabric")
+            assert fabric == {"nvlink": 0.0, "infiniband": 0.0}
+            assert got[k] == v
         else:
             assert got[RENAMED.get(k, k)] == v, k
 
@@ -92,7 +97,8 @@ def test_analyze_cell_equals_reference_record(monkeypatch, arch, shape,
 def test_analyze_cell_dominant_term_and_bound():
     cfg, shape = tbase.get_config("qwen3_14b"), tbase.SHAPES["decode_32k"]
     cost = OpCost(flops=TR.PEAK_BF16 * 2e-3, hbm_bytes=TR.HBM_BW * 5e-3,
-                  collective_bytes=TR.LINK_BW * 1e-3)
+                  collective_bytes=TR.LINK_BW * 1e-3,
+                  collective_bytes_by_fabric={"nvlink": TR.LINK_BW * 1e-3})
     rec = TR.analyze_cell(cost, {}, cfg, shape, 1, "single")
     assert rec["dominant"] == "memory_s"
     assert rec["step_time_lower_bound_s"] == pytest.approx(5e-3)
