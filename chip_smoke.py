@@ -25,7 +25,9 @@ difference between the two workers of one side.)
 Phases, each raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions,
-   and the nvcc build of every kernel in src/repro_torch/kernels/csrc;
+   `repro_torch.analysis.repolint` over src/repro_torch (no JAX on this
+   host; any finding fails, a `[repolint] clean: ...` line), and the
+   nvcc build of every kernel in src/repro_torch/kernels/csrc;
 2. every kernel against its plain torch version on the card, bit for bit:
    squash_q7 on [64*1024, 4] for in_frac 0..12; the device isqrt against
    int8_ops.isqrt_newton on every n in [0, 2^31 - 1] and on negative n;
@@ -214,6 +216,13 @@ Phases, each raising on failure:
    bf16 path's distance from the witness printed;
    `python -m repro_torch.launch.serve --arch stablelm_3b --no-reduce
    --quant w8a8 --requests 8 --prompt-len 64 --gen 32` exits 0;
+   qwen2_72b in full (80 layers, 145.42 GB of bf16: over the card) in
+   W8A8 alone, its int8 tree drawn one cycle at a time
+   (`lm_quant.init_quantized`), `w8a8_dense` at each of its products
+   above, counted from 0 and required to launch exactly 17,952 times,
+   finite logits, its consistency printed, its peak printed beside its
+   int8 tree's GiB and the card's, then the same through `python -m
+   repro_torch.launch.serve --arch qwen2_72b --no-reduce --quant w8a8`;
    `serve_caps --model mnist@cuda --requests 128 --mesh host` exits 0
    printing `mesh={'pod': 1, 'model': 1, 'data': 1}` with both kernels
    launched, and waves bound under the host mesh equal waves without one
@@ -250,7 +259,12 @@ Phases, each raising on failure:
    gated and set-aside rows printed, failing if no row was gated (W8A8
    printed only); `python -m repro_torch.launch.serve --arch phi35_moe
    --quant w8a8 --d-model 1024 --requests 8 --prompt-len 64 --gen 32`
-   exits 0; `[moe]` lines hold prefill ms, decode ms a step, tok/s,
+   exits 0; `w8a8_dense` at phi35_moe's products; at 16 layers the W8A8
+   tree drawn one cycle at a time on the card's generator equal to
+   `quantize_lm_params` of the whole float tree leaf for leaf; phi35_moe
+   in full (32 layers) in W8A8 alone, 3,072 `w8a8_bmm` and 4,128
+   `w8a8_dense` launches required, its MoE consistency and gated rows
+   printed, its peak beside its int8 tree's GiB; `[moe]` lines hold prefill ms, decode ms a step, tok/s,
    parameter MiB, peak device GiB and the assignments each layer drops
    at a prefill, beside the card's name and power limit; `[time]` and
    `[device]` lines `w8a8_bmm` at (16, 4, 4096, 6400) and (16, 96, 4096,
@@ -280,7 +294,9 @@ Phases, each raising on failure:
    same check with the mLSTM's C or m or the sLSTM's state kept in bf16
    required to fail that gate; jamba:
    `moe_consistency`'s gated rows at capacity factor 1.25 and at E / k,
-   failing if none is gated); `[ssm]` lines
+   failing if none is gated); jamba_v01_52b in full (32 layers, 4
+   cycles) in W8A8 alone, 3,872 `w8a8_dense` and 1,536 `w8a8_bmm`
+   launches required, its peak beside its int8 tree's GiB; `[ssm]` lines
    hold prefill ms, decode ms a step, tok/s, parameter MiB and peak
    device GiB of each run beside the card's name and power limit.
 15. (run after phase 14, before phase 9) the encoder-decoder,
@@ -503,6 +519,14 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def repolint_port() -> None:
+    """`repro_torch.analysis.repolint` over the port's sources, which
+    needs no JAX: its `[repolint] clean: ...` line, or a failure."""
+    from repro_torch.analysis import repolint
+    if repolint.main([str(ROOT / "src" / "repro_torch")]) != 0:
+        raise AssertionError("repolint: findings in src/repro_torch")
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -2079,10 +2103,9 @@ def dense_kn(cfg) -> list:
     built on the meta device (no memory, no data)."""
     import torch
     from repro_torch.models.transformer import build_model
-    from repro_torch.quant.lm_quant import is_qweight, quantize_lm_params
+    from repro_torch.quant.lm_quant import init_quantized, is_qweight
     cycle = dataclasses.replace(cfg, num_layers=len(cfg.blocks))
-    tree = quantize_lm_params(build_model(cycle).init(torch.Generator(),
-                                                      "meta"))
+    tree = init_quantized(build_model(cycle), torch.Generator(), "meta")
     out = set()
 
     def walk(t):
@@ -2425,7 +2448,8 @@ def lm_phase(dev, card: str, run) -> dict:
     gemma = dataclasses.replace(get_config("gemma3_12b"),
                                 num_layers=len(get_config("gemma3_12b")
                                                .blocks))
-    err = check_dense(dev, (qwen, gemma, get_config("stablelm_3b")))
+    err = check_dense(dev, (qwen, gemma, get_config("stablelm_3b"),
+                            get_config("qwen2_72b")))
 
     # qwen3_14b at full width and depth: float, then W8A8 counted from 0
     f = serve_lm(qwen, dev, card, "none", "tol")
@@ -2457,6 +2481,10 @@ def lm_phase(dev, card: str, run) -> dict:
     # the CLI, at its default arch and full size
     run_cli(["--arch", "stablelm_3b", "--no-reduce", "--quant", "w8a8"],
             "[lm]", card)
+
+    # qwen2_72b in full, W8A8 (its bf16 tree is over the card), counted
+    # from 0 just before, and its CLI
+    q72 = qwen2_full(dev, card)
 
     # serve_caps --mesh host, and waves with and without the host mesh
     import contextlib
@@ -2490,9 +2518,11 @@ def lm_phase(dev, card: str, run) -> dict:
     log(f"[lm] waves under the host mesh {mesh.shape} bit-identical to "
         f"waves without one at buckets {BUCKETS}")
     return dict(launches=launches, launches_by_path={
-        "lm": launches, "lm_gemma3_12b": gemma_launches},
+        "lm": launches, "lm_gemma3_12b": gemma_launches,
+        "lm_qwen2_72b": q72["launches"]},
         max_abs_err=err, qwen_float=f, qwen_w8a8=q, gemma_float=g_f,
-        gemma_w8a8=g_q, paligemma_float=p_f, token_agreement=agree)
+        gemma_w8a8=g_q, paligemma_float=p_f, qwen2_72b_w8a8=q72,
+        token_agreement=agree)
 
 
 def time_dense(dev, card: str) -> dict:
@@ -2588,10 +2618,9 @@ def expert_ekn(cfg) -> list:
     quantized param tree of one pattern cycle built on the meta device."""
     import torch
     from repro_torch.models.transformer import build_model
-    from repro_torch.quant.lm_quant import quantize_lm_params
+    from repro_torch.quant.lm_quant import init_quantized
     cycle = dataclasses.replace(cfg, num_layers=len(cfg.blocks))
-    tree = quantize_lm_params(build_model(cycle).init(torch.Generator(),
-                                                      "meta"))
+    tree = init_quantized(build_model(cycle), torch.Generator(), "meta")
     return sorted({tuple(b["moe"][k]["qt"].shape[i] for i in (-3, -1, -2))
                    for b in tree["blocks"] if "moe" in b
                    for k in ("w_gate", "w_up", "w_down")})
@@ -2731,7 +2760,10 @@ def moe_consistency(params, cfg, dev, quant: str) -> list:
     one side only is the reference's semantics, not a fault; nor is a
     token whose router, a near-tie, reads the two sides' bf16 roundings
     as different experts.  Returns the lines; raises when a gated row is
-    beyond the tolerance, or no row was gated."""
+    beyond the tolerance, or no row was gated (W8A8: printed only; its
+    prefill(65) and decode step quantize the router's inputs with other
+    activation exponents, so at 32 layers every compared token of
+    phi35_moe met other experts at some layer)."""
     import torch
     from repro_torch.models.transformer import build_model
     lines, gated = [], 0
@@ -2773,13 +2805,16 @@ def moe_consistency(params, cfg, dev, quant: str) -> list:
         if quant != "w8a8" and over:
             raise AssertionError(line)
     if quant != "w8a8" and gated == 0:
-        raise AssertionError(f"{cfg.name}: no row gated: {lines}")
+        raise AssertionError(f"{cfg.name} {quant}: no row gated: {lines}")
+    lines.append(f"{cfg.name} {quant}: {gated} rows gated over both "
+                 "capacity factors")
     return lines
 
 
 def moe_phase(dev, card: str) -> dict:
     """Phase 13; returns the w8a8_bmm record's pieces."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.kernels import w8a8_dense as kd
     gc.collect()
     torch.cuda.empty_cache()
@@ -2787,6 +2822,7 @@ def moe_phase(dev, card: str) -> dict:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     cfgs = moe_configs()
     err = check_bmm(dev, cfgs.values())
+    err = max(err, check_dense(dev, [get_config("phi35_moe")], "[moe]"))
     runs, counts, dense = {}, {}, {}
     for name, cfg in cfgs.items():
         runs[f"{name}_float"] = serve_lm(cfg, dev, card, "none", "moe",
@@ -2814,6 +2850,10 @@ def moe_phase(dev, card: str) -> dict:
              MOE_CLI_D], "[moe]", card)
     for r in runs.values():
         r.pop("tokens")
+    # phi35_moe in full, W8A8, counted from 0 just before
+    full = runs["phi35_moe_full_w8a8"] = phi35_full(dev, card)
+    counts["phi35_moe_full"] = full["bmm_launches"]
+    dense["moe_phi35_moe_full"] = full["launches"]
     return dict(launches=counts["phi35_moe"], launches_by_path={
         f"moe_{k}": v for k, v in counts.items()}, max_abs_err=err,
         runs=runs, dense_launches_by_path=dense)
@@ -2901,9 +2941,13 @@ def ssm_phase(dev, card: str) -> dict:
         runs[name] = serve_counted(
             cfg, dev, card, "[ssm]", "moe" if cfg.num_experts else "drift",
             (per_pass, per_pass), SSM_BMM_PER_PASS[name])
+    # jamba_v01_52b in full, W8A8, counted from 0 just before
+    full = runs["jamba_v01_52b_full_w8a8"] = jamba_full(dev, card)
     return dict(runs=runs, max_abs_err=err, dense={
-        f"ssm_{k}": r["launches"][0] for k, r in runs.items()}, bmm={
-        "ssm_jamba_v01_52b": runs["jamba_v01_52b"]["launches"][1]})
+        **{f"ssm_{k}": runs[k]["launches"][0] for k in cfgs},
+        "ssm_jamba_v01_52b_full": full["launches"]}, bmm={
+        "ssm_jamba_v01_52b": runs["jamba_v01_52b"]["launches"][1],
+        "ssm_jamba_v01_52b_full": full["bmm_launches"]})
 
 
 def encdec_phase(dev, card: str) -> dict:
@@ -2918,6 +2962,129 @@ def encdec_phase(dev, card: str) -> dict:
     run_cli(ENCDEC_CLI, "[encdec]", card)
     return dict(runs={cfg.name: run}, max_abs_err=err, dense={
         "encdec_seamless_m4t_medium": run["launches"][0]})
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14's W8A8 runs at full depth: the LMs whose bf16 tree is over
+# the card (qwen2_72b 145.42 GB, jamba_v01_52b 103.15 GB, phi35_moe 83.75
+# GB), their int8 trees drawn one cycle at a time (`init_quantized`)
+# ---------------------------------------------------------------------------
+# (w8a8_dense, w8a8_bmm) launches of a serve call (1 prefill + 31 decode
+# steps, each one forward pass), from the code: qwen2_72b (7 dense
+# products x 80 blocks + lm_head) x 32 = 17,952; phi35_moe (wq, wk, wv, wo
+# x 32 + lm_head) x 32 = 4,128 and its 3 expert products x 32 layers x 32
+# = 3,072 on w8a8_bmm; jamba_v01_52b's 4 cycles of SSM_DENSE_PER_PASS's
+# 30 (lm_head once: 30 x 4 + 1) x 32 = 3,872 and 12 x 4 x 32 = 1,536
+FULL_W8A8 = {"qwen2_72b": (17952, 0), "phi35_moe": (4128, 3072),
+             "jamba_v01_52b": (3872, 1536)}
+FULL_CLI = ["--arch", "qwen2_72b", "--no-reduce", "--quant", "w8a8"]
+BITS_LAYERS = 16      # phi35_moe's bf16 tree (42 GB) and int8 (21 GB) fit
+
+
+def serve_full(name: str, dev, card: str, tag: str, consist: str) -> dict:
+    """`name` in full, W8A8 alone (its bf16 tree is over the card, so
+    no float run beside it): w8a8_dense and w8a8_bmm counted from 0
+    just before the serve call and read just after, required to equal
+    FULL_W8A8; its peak printed beside its int8 tree's GiB and the
+    card's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import w8a8_dense as kd
+    cfg = get_config(name)
+    kd.w8a8_dense.launches = kd.w8a8_bmm.launches = 0
+    q = serve_lm(cfg, dev, card, "w8a8", consist, tag)
+    got, want = (q["launches"], q["bmm_launches"]), FULL_W8A8[name]
+    log(f"{tag} {name} w8a8 in full ({cfg.num_layers} layers): w8a8_dense "
+        f"launched {got[0]} times over the serve call, w8a8_bmm {got[1]}; "
+        f"expected {want[0]} and {want[1]}")
+    if got != want:
+        raise AssertionError(f"{name} w8a8 in full: launches {got}, not "
+                             f"{want}")
+    q["card_gib"] = torch.cuda.get_device_properties(dev).total_memory \
+        / 2**30
+    log(f"{tag} {card} | {name} w8a8 in full: peak {q['peak_gib']:.2f} GiB "
+        f"(init and serve call) against its int8 tree's "
+        f"{q['param_mib'] / 1024:.2f} GiB and the card's "
+        f"{q['card_gib']:.2f} GiB")
+    q.pop("tokens")
+    return q
+
+
+def streamed_bits(cfg, dev, card: str, tag: str) -> dict:
+    """On the card's generator: the W8A8 tree drawn one cycle at a time
+    (`init_quantized`) against `quantize_lm_params` of the whole float
+    tree from the same seed, leaf for leaf (`torch.equal`), each init's
+    seconds and its peak above what was allocated before it."""
+    import torch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.quant.lm_quant import (init_quantized,
+                                            quantize_lm_params,
+                                            quantized_bytes)
+    from repro_torch.tree import leaves_with_paths
+    model = build_model(cfg)
+    out = {}
+
+    def timed(what, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tree = fn(torch.Generator(dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        out[what] = dict(s=time.perf_counter() - t0, peak_gib=(
+            torch.cuda.max_memory_allocated() - base) / 2**30)
+        return tree
+    got = leaves_with_paths(timed("streamed", lambda g: init_quantized(
+        model, g, dev)))
+    want = leaves_with_paths(timed("whole", lambda g: quantize_lm_params(
+        model.init(g, dev), consume=True)))
+    if [p for p, _ in got] != [p for p, _ in want]:
+        raise AssertionError(f"{cfg.name}: the streamed tree's leaves differ")
+    for (path, a), (_, b) in zip(got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{cfg.name}: the streamed tree differs at "
+                                 f"{path}")
+    out["leaves"] = len(got)
+    out["int8_gib"] = quantized_bytes([t for _, t in got]) / 2**30
+    log(f"{tag} {card} | {cfg.name} ({cfg.num_layers} layers) on the card's "
+        f"generator: the W8A8 tree drawn one cycle at a time equals "
+        f"quantize_lm_params of the whole float tree, {out['leaves']} "
+        f"leaves ({out['int8_gib']:.2f} GiB) bit for bit; init "
+        f"{out['streamed']['s']:.1f} s, peak {out['streamed']['peak_gib']:.2f}"
+        f" GiB, against {out['whole']['s']:.1f} s, peak "
+        f"{out['whole']['peak_gib']:.2f} GiB above the streamed tree")
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen2_full(dev, card: str) -> dict:
+    """Phase 12's qwen2_72b in full (80 layers, 72.7 B parameters): the
+    serve call (consistency printed: a W8A8 prefill(65) quantizes its
+    activations with other exponents than prefill(64) and a decode step),
+    then the CLI in its own process."""
+    run = serve_full("qwen2_72b", dev, card, "[lm]", "print")
+    run_cli(FULL_CLI, "[lm]", card)
+    return run
+
+
+def phi35_full(dev, card: str) -> dict:
+    """Phase 13's phi35_moe: the streamed tree's bits at BITS_LAYERS, then
+    all 32 layers served in W8A8 (its MoE consistency printed)."""
+    from repro_torch.configs import get_config
+    bits = streamed_bits(dataclasses.replace(get_config("phi35_moe"),
+                                             num_layers=BITS_LAYERS),
+                         dev, card, "[moe]")
+    run = serve_full("phi35_moe", dev, card, "[moe]", "moe")
+    return dict(run, streamed_bits=bits)
+
+
+def jamba_full(dev, card: str) -> dict:
+    """Phase 14's jamba_v01_52b in full (4 cycles, 32 layers), W8A8."""
+    return serve_full("jamba_v01_52b", dev, card, "[ssm]", "moe")
 
 
 # ---------------------------------------------------------------------------
@@ -3336,7 +3503,7 @@ def recurrent_device_counts(dev, card: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenTask
     from repro_torch.models.transformer import build_model, decode_alloc
-    from repro_torch.quant.lm_quant import quantize_lm_params
+    from repro_torch.quant.lm_quant import init_quantized
     cfgs = dict(ssm_configs(),
                 seamless_m4t_medium=get_config("seamless_m4t_medium"))
     out = {}
@@ -3345,9 +3512,9 @@ def recurrent_device_counts(dev, card: str) -> dict:
         for quant in ("none", "w8a8"):
             gc.collect()
             torch.cuda.empty_cache()
-            params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
-            if quant == "w8a8":
-                params = quantize_lm_params(params, consume=True)
+            gen = torch.Generator(dev).manual_seed(SEED)
+            params = init_quantized(model, gen, dev) if quant == "w8a8" \
+                else model.init(gen, dev)
             toks = torch.as_tensor(TokenTask(cfg.vocab_size, LM_PROMPT,
                                              seed=3).batch(0, LM_REQUESTS)
                                    ["inputs"], device=dev)
@@ -4591,11 +4758,11 @@ def tp_one(cfg, dev, quant: str) -> dict:
     TP_DIR; its times.  The card is freed after."""
     import torch
     from repro_torch.models.transformer import build_model
-    from repro_torch.quant.lm_quant import quantize_lm_params, quantized_bytes
+    from repro_torch.quant.lm_quant import init_quantized, quantized_bytes
     model = build_model(cfg)
-    params = model.init(torch.Generator(dev).manual_seed(SEED), dev)
-    if quant == "w8a8":
-        params = quantize_lm_params(params, consume=True)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = init_quantized(model, gen, dev) if quant == "w8a8" \
+        else model.init(gen, dev)
     prompts = tp_prompts(cfg, dev)
     exps = []
     logits, toks = tp_generate(model, params, prompts, exps=exps)
@@ -4622,14 +4789,14 @@ def tp_serve_rank(cfg, mesh, quant: str) -> dict:
     from repro_torch.dist import api
     from repro_torch.kernels import w8a8_dense as kd
     from repro_torch.models.transformer import build_model
-    from repro_torch.quant.lm_quant import quantize_lm_params, quantized_bytes
+    from repro_torch.quant.lm_quant import init_quantized, quantized_bytes
     dev = mesh.device
     secs = {}
     t0 = time.perf_counter()
     model = build_model(cfg)
-    params = model.init(torch.Generator(dev).manual_seed(SEED), dev, mesh)
-    if quant == "w8a8":
-        params = quantize_lm_params(params, consume=True)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = init_quantized(model, gen, dev, mesh) if quant == "w8a8" \
+        else model.init(gen, dev, mesh)
     one = torch.load(TP_DIR / f"one_{quant}.pt", weights_only=False)
     secs["init"] = time.perf_counter() - t0
     prompts = tp_prompts(cfg, dev)
@@ -5319,6 +5486,7 @@ def main(argv=None) -> int:
     log(f"[card] {card} | torch {torch.__version__} CUDA "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    repolint_port()
     libs = build.build_all()
     build_s = time.perf_counter() - t0
     log(f"[build] {len(libs)} kernel libraries in {build_s:.1f} s "
@@ -5624,12 +5792,12 @@ def main(argv=None) -> int:
         "shape": t["shape"], "shapes": t["shapes"],
         "lm": {k: lm[k] for k in ("qwen_float", "qwen_w8a8", "gemma_float",
                                   "gemma_w8a8", "paligemma_float",
-                                  "token_agreement")},
+                                  "qwen2_72b_w8a8", "token_agreement")},
         "ssm": ssm["runs"], "encdec": encdec["runs"],
         "recurrent_device_launches": recurrent})
     for v in record["kernels"][-1]["lm"].values():
         if isinstance(v, dict):
-            v.pop("tokens")
+            v.pop("tokens", None)
     t = times["w8a8_bmm"]
     record["kernels"].append({
         "name": "w8a8_bmm", "route": "cuda", "source": csrc

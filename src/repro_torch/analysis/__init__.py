@@ -7,8 +7,9 @@ messages and order:
 
 Submodules: `ranges` (interval/overflow proofs), `plancheck` (Qm.n
 shift algebra), `arenacheck` (arena aliasing), `checker` (the one-call
-program verifier).  The reference's `repolint` is a lint of the
-repository's sources, not of a program, and has no counterpart here.
+program verifier), and `repolint`, a lint of the repository's sources
+rather than of a program (`python -m repro_torch.analysis.repolint
+src/repro_torch`).
 """
 from repro_torch.analysis.arenacheck import check_arena
 from repro_torch.analysis.checker import check_program, check_structure

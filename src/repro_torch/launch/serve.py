@@ -21,8 +21,11 @@ True cannot be turned off).
 
 Weights are random from `torch.Generator(device).manual_seed(seed)`,
 drawn leaf by leaf in float32 and cast, so a 15 B-parameter tree never
-holds two float32 copies; with --quant w8a8 the float tree is quantized
-leaf by leaf and freed as it goes.  Float matmuls run with TF32 off
+holds two float32 copies; with --quant w8a8 no float tree exists: each
+cycle's block is quantized as soon as it is drawn
+(`lm_quant.init_quantized`, the bits of quantizing the whole tree), so
+a tree whose bf16 form is larger than the card (qwen2_72b, 145 GB) is
+served at full depth in its 74 GB of int8.  Float matmuls run with TF32 off
 (torch's default), which `serve` checks; the model's prefill and decode
 steps turn off cuBLAS's reduced-precision bf16 reductions for their
 duration (`models.layers.full_bf16_sums`), so every bf16 product is
@@ -41,7 +44,7 @@ from repro_torch.data.synthetic import TokenTask
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import reduced
 from repro_torch.models.transformer import build_model, decode_alloc
-from repro_torch.quant.lm_quant import quantize_lm_params, quantized_bytes
+from repro_torch.quant.lm_quant import init_quantized, quantized_bytes
 
 
 def _sync(device) -> None:
@@ -60,15 +63,19 @@ def serve(cfg, requests: int = 8, prompt_len: int = 64, gen: int = 32,
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("serve runs float matmuls in full float32: "
                            "torch.backends.cuda.matmul.allow_tf32 is on")
+    if quant not in ("none", "w8a8"):
+        raise ValueError(f"unknown quant {quant!r}")
     model = build_model(cfg)
-    params = model.init(torch.Generator(device).manual_seed(seed), device)
-    fp_bytes = quantized_bytes(params)
+    draw = torch.Generator(device).manual_seed(seed)
     if quant == "w8a8":
-        params = quantize_lm_params(params, consume=True)
+        # the float tree's bytes from its meta struct: it never exists
+        fp_bytes = quantized_bytes(model.init(torch.Generator(), "meta"))
+        params = init_quantized(model, draw, device)
         log(f"[quant] params {fp_bytes / 2**20:.1f} MiB -> "
             f"{quantized_bytes(params) / 2**20:.1f} MiB int8")
-    elif quant != "none":
-        raise ValueError(f"unknown quant {quant!r}")
+    else:
+        params = model.init(draw, device)
+        fp_bytes = quantized_bytes(params)
 
     task = TokenTask(cfg.vocab_size, prompt_len, seed=3)
     prompts = torch.as_tensor(task.batch(0, requests)["inputs"],

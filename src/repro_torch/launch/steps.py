@@ -86,11 +86,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec,
     """All inputs of the cell's step, as structs.  quant=True swaps the
     parameter tree for its W8A8 form (serving only)."""
     def params_struct():
-        p = _meta_init(build_model(cfg))
         if quant:
-            from repro_torch.quant.lm_quant import quantize_lm_params
-            p = quantize_lm_params(p)
-        return p
+            from repro_torch.quant.lm_quant import init_quantized
+            return init_quantized(build_model(cfg), torch.Generator(), META)
+        return _meta_init(build_model(cfg))
 
     out = {"batch": batch_structs(cfg, shape)}
     if shape.kind == "train":

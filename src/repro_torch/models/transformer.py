@@ -270,24 +270,36 @@ def _keep(tree, keep):
     return tree if keep is None else _map(keep, tree)
 
 
-def _stacked(cycles: int, make, keep=None):
+def _stacked(cycles: int, make, keep=None, post=None):
     """A param tree stacked over `cycles` on a leading axis, filled one
-    cycle at a time from `make()` (each leaf cut by `keep`, if given)."""
+    cycle at a time from `make()` (each leaf cut by `keep`, then the
+    cycle's tree passed through `post`, if given); each cycle's tree is
+    freed before the next is made."""
     stacked = None
     for ci in range(cycles):
         one = _keep(make(), keep)
+        if post is not None:
+            one = post(one)
         if stacked is None:
             stacked = _map(lambda a: a.new_empty((cycles,) + a.shape), one)
         _map_pair(lambda dst, src: dst[ci].copy_(src), stacked, one)
+        del one
     return stacked
 
 
-def _init_stack(gen, cfg, blocks, cycles, device, mesh=None):
+def _part(post, name: str):
+    """`post` bound to a top-level part's name, or None."""
+    return None if post is None else lambda tree: post(name, tree)
+
+
+def _init_stack(gen, cfg, blocks, cycles, device, mesh=None, post=None):
     """Per pattern position, its blocks' params stacked over `cycles`
-    (this rank's share under `mesh`)."""
+    (this rank's share under `mesh`), each cycle's block passed through
+    `post` before it is stacked."""
     keep = _keeper(mesh, stacked=True)
     return tuple(_stacked(cycles, lambda k=kind: init_block(gen, cfg, k,
-                                                            device), keep)
+                                                            device), keep,
+                          post)
                  for kind in blocks)
 
 
@@ -388,30 +400,37 @@ class LM:
         self.cfg = cfg
 
     # -- params -------------------------------------------------------------
-    def init(self, gen, device=None, mesh=None) -> dict:
+    def init(self, gen, device=None, mesh=None, post=None) -> dict:
         """Random params from `gen` (a torch.Generator on `device`: the
         card unless device="cpu"), each leaf drawn in float32 then cast;
-        under `mesh` this rank's share of each (`_keeper`)."""
+        under `mesh` this rank's share of each (`_keeper`).  `post(name,
+        tree)`, if given, takes each top-level part as it is drawn and
+        each cycle's block before it is stacked, and gives what is kept
+        (`lm_quant.init_quantized`)."""
         cfg = self.cfg
         device = resolve_device(device)
         keep = _keeper(mesh, stacked=False)
+
+        def part(name, tree):
+            tree = _keep(tree, keep)
+            return tree if post is None else post(name, tree)
         params = {
-            "embed": _keep(layers.init_embed(gen, cfg.padded_vocab,
-                                             cfg.d_model, device=device),
-                           keep),
+            "embed": part("embed", layers.init_embed(
+                gen, cfg.padded_vocab, cfg.d_model, device=device)),
             "final_norm": init_norm(cfg.d_model, device),
-            "lm_head": _keep(layers.init_lm_head(
-                gen, cfg.d_model, cfg.padded_vocab, device=device), keep),
-            "blocks": self._init_blocks(gen, device, mesh),
+            "lm_head": part("lm_head", layers.init_lm_head(
+                gen, cfg.d_model, cfg.padded_vocab, device=device)),
+            "blocks": self._init_blocks(gen, device, mesh, post),
         }
         if cfg.frontend is not None:
-            params["frontend"] = _keep(layers.init_dense(
-                gen, cfg.d_model, cfg.d_model, device=device), keep)
+            params["frontend"] = part("frontend", layers.init_dense(
+                gen, cfg.d_model, cfg.d_model, device=device))
         return params
 
-    def _init_blocks(self, gen, device, mesh=None):
+    def _init_blocks(self, gen, device, mesh=None, post=None):
         return _init_stack(gen, self.cfg, self.cfg.blocks,
-                           self.cfg.num_cycles, device, mesh)
+                           self.cfg.num_cycles, device, mesh,
+                           _part(post, "blocks"))
 
     # -- embedding of a batch (handles vlm prefix) ---------------------------
     def _embed(self, params, batch):
@@ -600,34 +619,39 @@ class EncDecLM:
         check_ported(cfg)
         self.cfg = cfg
 
-    def init(self, gen, device=None, mesh=None) -> dict:
+    def init(self, gen, device=None, mesh=None, post=None) -> dict:
         """Random params from `gen` on `device` (the card unless
         device="cpu"); decoder blocks stacked over the cycles as a
         1-tuple, as the reference's vmap leaves them.  Under `mesh`
-        this rank's share of each leaf (`_keeper`)."""
+        this rank's share of each leaf (`_keeper`); `post` as in
+        `LM.init`."""
         cfg = self.cfg
         device = resolve_device(device)
         keep = _keeper(mesh, stacked=False)
+
+        def part(name, tree):
+            tree = _keep(tree, keep)
+            return tree if post is None else post(name, tree)
         return {
-            "frontend": _keep(layers.init_dense(gen, cfg.d_model,
-                                                cfg.d_model, device=device),
-                              keep),
-            "embed": _keep(layers.init_embed(gen, cfg.padded_vocab,
-                                             cfg.d_model, device=device),
-                           keep),
+            "frontend": part("frontend", layers.init_dense(
+                gen, cfg.d_model, cfg.d_model, device=device)),
+            "embed": part("embed", layers.init_embed(
+                gen, cfg.padded_vocab, cfg.d_model, device=device)),
             "enc_blocks": _init_stack(gen, cfg, ENC_BLOCK,
-                                      cfg.num_encoder_layers, device, mesh),
+                                      cfg.num_encoder_layers, device, mesh,
+                                      _part(post, "enc_blocks")),
             "enc_norm": init_norm(cfg.d_model, device),
-            "dec_blocks": self._init_dec_blocks(gen, device, mesh),
+            "dec_blocks": self._init_dec_blocks(gen, device, mesh, post),
             "final_norm": init_norm(cfg.d_model, device),
-            "lm_head": _keep(layers.init_lm_head(
-                gen, cfg.d_model, cfg.padded_vocab, device=device), keep),
+            "lm_head": part("lm_head", layers.init_lm_head(
+                gen, cfg.d_model, cfg.padded_vocab, device=device)),
         }
 
-    def _init_dec_blocks(self, gen, device, mesh=None):
+    def _init_dec_blocks(self, gen, device, mesh=None, post=None):
         return (_stacked(self.cfg.num_cycles,
                          lambda: _init_dec_block(gen, self.cfg, device),
-                         _keeper(mesh, stacked=True)),)
+                         _keeper(mesh, stacked=True),
+                         _part(post, "dec_blocks")),)
 
     def encode(self, params, frames):
         cfg = self.cfg

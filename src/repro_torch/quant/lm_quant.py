@@ -65,11 +65,12 @@ OLD_LAYOUT = ("a W8A8 leaf {'q', 'n'} holds W as [..., K, N], the "
 
 
 def _quantize_2d(w):
-    """[K, N] -> (int8 [K, N], int32 [N])."""
-    wf = w.float()
+    """[K, N] -> (int8 [K, N], int32 [N]); one float32 copy of w is
+    scaled, rounded and clamped in place."""
+    wf = w.to(torch.float32, copy=True)
     n = exponent(wf.abs().amax(dim=-2)).to(torch.int32)
-    q = torch.clamp(torch.round(wf * pow2(n)[None, :]), -128, 127)
-    return q.to(torch.int8), n
+    wf.mul_(pow2(n)[None, :]).round_().clamp_(-128, 127)
+    return wf.to(torch.int8), n
 
 
 def _quantize_weight(w) -> dict:
@@ -90,6 +91,30 @@ def _quantize_weight(w) -> dict:
     return {"qt": qt, "n": n}
 
 
+def _quantize_tree(tree, names: tuple, quantize_head: bool,
+                   consume: bool):
+    """The W8A8 form of `tree`, found at `names` in a param tree: a leaf
+    named in QUANT_LEAF_NAMES of two or more axes, and the lm_head's w
+    (if `quantize_head`), become {"qt", "n"}; the others stay as they
+    are."""
+    if isinstance(tree, dict):
+        out = tree if consume else {}
+        for k in list(tree):
+            out[k] = _quantize_tree(tree[k], names + (str(k),),
+                                    quantize_head, consume)
+        return out
+    if isinstance(tree, (tuple, list)):
+        return tuple(_quantize_tree(v, names + (str(i),), quantize_head,
+                                    consume)
+                     for i, v in enumerate(tree))
+    name = names[-1]
+    if name in QUANT_LEAF_NAMES and tree.dim() >= 2:
+        return _quantize_weight(tree)
+    if quantize_head and name == "w" and "lm_head" in names:
+        return _quantize_weight(tree)
+    return tree
+
+
 def quantize_lm_params(params, quantize_head: bool = True,
                        consume: bool = False):
     """Transform a float param tree into the W8A8 tree (norms,
@@ -97,22 +122,25 @@ def quantize_lm_params(params, quantize_head: bool = True,
     each float leaf is dropped from its dict as soon as its int8 leaf
     exists, so the float tree is freed as it goes (given no other
     reference to it); the tuples of the tree are rebuilt."""
-    def visit(tree, names):
-        if isinstance(tree, dict):
-            out = tree if consume else {}
-            for k in list(tree):
-                out[k] = visit(tree[k], names + (str(k),))
-            return out
-        if isinstance(tree, (tuple, list)):
-            return tuple(visit(v, names + (str(i),))
-                         for i, v in enumerate(tree))
-        name = names[-1]
-        if name in QUANT_LEAF_NAMES and tree.dim() >= 2:
-            return _quantize_weight(tree)
-        if quantize_head and name == "w" and "lm_head" in names:
-            return _quantize_weight(tree)
-        return tree
-    return visit(params, ())
+    return _quantize_tree(params, (), quantize_head, consume)
+
+
+def init_quantized(model, gen, device=None, mesh=None):
+    """`quantize_lm_params(model.init(gen, device, mesh))` bit for bit,
+    without the float tree: each top-level part (embed, lm_head,
+    frontend) is quantized as soon as it is drawn, and each block right
+    after `model.init` draws it (and, under `mesh`, cuts this rank's
+    share), before it is copied into the int8 leaves stacked over the
+    cycles.  The generator is drawn in the same order, and a weight's
+    exponents are per output column over K, so quantizing a cycle and
+    stacking equals stacking and quantizing (no leaf that
+    QUANT_LEAF_NAMES names has fewer than two axes within a cycle; the
+    CPU tests hold every config to it).  The device holds at most the
+    int8 tree so far, one block's float leaves, one leaf's float32 draw
+    and the temporaries of quantizing one [K, N] slice."""
+    def post(name: str, tree):
+        return _quantize_tree(tree, (name,), True, consume=True)
+    return model.init(gen, device, mesh, post=post)
 
 
 def is_qweight(w) -> bool:

@@ -228,6 +228,33 @@ def tp_checks(cases: list, misc=None) -> dict:
     return out
 
 
+def streamed_init_checks(archs: list) -> dict:
+    """For each arch at d 64 and two cycles, this rank's W8A8 tree drawn
+    one cycle at a time under the model-line mesh
+    (`lm_quant.init_quantized`) against `quantize_lm_params` of the
+    rank's float init: {arch: (leaves, every leaf equal, this rank's
+    bytes, the one-process tree's bytes)}."""
+    mesh = world_mesh(1)
+    out = {"rank": current_world().rank}
+    for arch in archs:
+        c = tbase.get_config(arch)
+        cfg = reduced(c, d_model=64, layers=2 * len(c.blocks))
+        model = build_model(cfg)
+
+        def gen():
+            return torch.Generator().manual_seed(0)
+        got = leaves(lm_quant.init_quantized(model, gen(), "cpu", mesh))
+        want = leaves(lm_quant.quantize_lm_params(model.init(gen(), "cpu",
+                                                             mesh)))
+        whole = lm_quant.init_quantized(model, gen(), "cpu")
+        out[arch] = (len(got), len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)),
+            sum(t.numel() * t.element_size() for t in got),
+            lm_quant.quantized_bytes(whole))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the collectives, the layouts, checkpoints, and the CapsNet paths
 # ---------------------------------------------------------------------------
