@@ -9,6 +9,7 @@
     python3 chip_smoke.py --multi          # the build, then phase 18 alone
     python3 chip_smoke.py --tp             # the build, then phase 19 alone
     python3 chip_smoke.py --tp-count       # phase 19's steps dry-run (JSON)
+    python3 chip_smoke.py --examples       # the build, then phase 20 alone
     python3 chip_smoke.py --train-times    # phase 10's MNIST step times
                                            # and peak memory, no build
     python3 chip_smoke.py --forward-pairs PARENT_TREE
@@ -213,9 +214,8 @@ Phases, each raising on failure:
    consistency held to the same tolerance with at most 8 logits beyond
    it and none more than 0.25 off, and a float32 copy of its params
    (the witness) required to pass the tolerance with none beyond, each
-   bf16 path's distance from the witness printed;
-   `python -m repro_torch.launch.serve --arch stablelm_3b --no-reduce
-   --quant w8a8 --requests 8 --prompt-len 64 --gen 32` exits 0;
+   bf16 path's distance from the witness printed (stablelm_3b in full
+   is served in bf16 and W8A8 by phase 20's `torch_serve_quantized_lm`);
    qwen2_72b in full (80 layers, 145.42 GB of bf16: over the card) in
    W8A8 alone, its int8 tree drawn one cycle at a time
    (`lm_quant.init_quantized`), `w8a8_dense` at each of its products
@@ -326,11 +326,11 @@ Phases, each raising on failure:
    beside the state's bytes); a learning check (AdamW at a constant lr
    of 1e-3, 4 steps: batch 0's loss must fall, the step timed as
    forward + backward and the in-place AdamW; the CLI's schedule warms
-   up over 2,000 steps); (b) at full width cut to 4 of 32 layers, a
+   up over 2,000 steps); (b) at full width cut to 2 of 32 layers, a
    straight run, then the same command with `--ckpt-every 4` and a fault
    before step 6: `run_with_restarts` rebuilds it, it resumes from step
    4, and its final params, m, v and steps must equal the straight
-   run's bit for bit (three 6.9 GB checkpoints in
+   run's bit for bit (three 5.0 GB checkpoints in
    `build/lm_train_smoke/`, removed after); (c) 4 steps of (a) with
    `--grad-compress` (ms a step against (a), peak GiB); (d) one step of
    each other family at `--reduce` under deterministic algorithms,
@@ -391,9 +391,9 @@ Phases, each raising on failure:
    (`dist.api`'s groups and autograd Functions, the models' shard sites,
    `launch.steps.make_cell` on meshes; `[tp]` lines, every number beside
    the card's name and power limit, 2 ranks sharing one card: not a
-   multi-card rate): (a) qwen3_14b in full (40 layers, d 5120, seed-0
-   weights), 8 requests of 64 tokens, a prefill into 512 slots and 32
-   greedy decode steps, bf16 and W8A8, first in this process (logits and
+   multi-card rate): (a) qwen3_14b at full width (d 5120) cut to 8 of
+   its 40 layers (seed-0 weights), 8 requests of 64 tokens, a prefill
+   into 512 slots and 32 greedy decode steps, bf16 and W8A8, first in this process (logits and
    tokens kept on the host, the card freed), then over a gloo world of 2
    ranks sharing cuda:0 whose `make_host_mesh()` puts both on the model
    axis, each drawing its shares from the seed: the logits of the
@@ -403,7 +403,7 @@ Phases, each raising on failure:
    rounding boundary, and the next products' codes follow), greedy
    tokens equal on every (row, step) without a near-tie (a top-two gap
    under twice the row's measured difference; the count printed), every
-   `w8a8_dense` launch (281 a
+   `w8a8_dense` launch (57 a
    forward, counts from 0 just before the meshed run) bit-exact against
    its plain version on the rank's share, the activation exponent of
    every W8A8 product of the prefill equal to the one-process run's
@@ -411,11 +411,11 @@ Phases, each raising on failure:
    param bytes within 5 % of half the split leaves plus the whole
    replicated ones; each rank's prefill and warm decode ms and the
    collectives of one decode step replayed alone; (b) in the same world,
-   stablelm_3b at full width cut to 4 of 32 layers, B 8 x S 256,
+   stablelm_3b at full width cut to 2 of 32 layers, B 8 x S 256,
    deterministic algorithms: 3 make_cell train steps (losses and grad
    norms within rtol 1e-3 / 1.5e-2 of this process's steps, step ms,
    peak GiB), then from the same init a step, a sharded checkpoint
-   (gathered onto rank 0, one 6.9 GB file), a fault, a restore into
+   (gathered onto rank 0, one 5.0 GB file), a fault, a restore into
    fresh shares and the last two steps, equal to the uninterrupted run
    bit for bit, and the checkpoint restored into this process equal to
    the ranks' gathered state; (c) a (data 2, model 2) world of 4 ranks
@@ -430,6 +430,37 @@ Phases, each raising on failure:
    dry run's count of that rank's step, and each bound, held against
    the rank's warm decode ms a step and median train step, must give a
    share of at most 1.05 (`[roofline]` lines).
+
+20. (run last, after phase 19) the repository's four examples on the
+   port, each `examples/torch_*.py`'s `main(argv)` in this process, with
+   every `routing_q7`, `squash_q7` and `w8a8_dense` launch held against its
+   plain version on the same inputs (bit for bit) and the three counts from
+   0 just before the first example (`[examples]` lines, each run's wall
+   seconds beside the card's name and power limit): (a) `torch_quickstart`:
+   MNIST "L" PTQ'd on 64 images, the `cuda` backend bit-identical to the
+   `torch` oracle, 6 requests served at buckets (1, 4, 8) equal to a direct
+   forward, the export re-verified, `quickstart OK`; (b)
+   `torch_train_capsnet --dataset mnist`, `smallnorb`, `cifar10` at the
+   reference's defaults (250 float steps, 60 QAT steps a rounding, batch
+   64, 768 eval images) with `--ckpt-dir build/examples_smoke/DATASET`,
+   which keeps each float run's state of step 250 for
+   `tools/table2_witness.py` (that state quantized on the CPU by the
+   port's oracle and by the reference): each Table-2 row's saving_pct equal to 100 (1 -
+   int8 / fp32) of TABLE2_FOOTPRINTS (the CPU test's pinned bytes), acc_f32
+   above twice chance, MNIST's at most 0.05 below the reference example's
+   own CPU row (REF_MNIST_ACC_F32), both kernels launched by each run's
+   `eval_q7`, and the seconds of table2_rows' float and QAT fits, PTQ,
+   `eval_float`, `eval_q7`, `lower` and `run_numerics`; (c)
+   `torch_serve_quantized_lm --arch stablelm_3b --no-reduce`: 8 requests of
+   64 tokens, 24 generated, float then W8A8 from the same weights, (7 x 32
+   + 1) x 24 = 5,400 `w8a8_dense` launches required, prefill and decode ms,
+   agreement and peak GiB printed; (d) `torch_train_lm` at its defaults
+   (~100 M parameters, B 4 x S 256, 200 steps, checkpoints into
+   build/examples_smoke/, removed after), the loss required to fall, then
+   `--steps 220`, which must print `[resume] step 200`; neither launches a
+   kernel of the port.  Then (c) once more with the recorder off and its
+   launches not counted: the prefill and decode ms a user of the example
+   sees, beside the recorded run's.
 
 The line before the last is the kernels' JSON record, the one before it
 the card's name and power limit; the last line is the result.  Exits
@@ -508,10 +539,22 @@ SEARCH_DIR = ROOT / "build" / "search_smoke"
 SEARCH_MNIST_BUDGET = 24           # phase 11: the CLI's default
 SEARCH_RANDOM_BUDGET = 12
 SEARCH_SERVED = 64                 # requests of the exported point
+# phase 20: the paper's three networks in full, (fp32 bytes, int8
+# memory_bytes), as tests/test_torch_examples.py pins them against the
+# reference's; each Table-2 row's saving_pct must be 100 (1 - int8 / fp32)
+TABLE2_FOOTPRINTS = {"mnist": (1_187_200, 296_912),
+                     "smallnorb": (1_182_336, 295_696),
+                     "cifar10": (461_184, 115_480)}
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase_done(n: int, t0: float) -> None:
+    """A `[phase]` line: phase n ended, the seconds since t0 (the run's
+    start, before the build)."""
+    log(f"[phase] {n} done at {time.perf_counter() - t0:.1f} s")
 
 
 def card_line() -> str:
@@ -2443,7 +2486,7 @@ def lm_phase(dev, card: str, run) -> dict:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on for float32 matmuls")
     # the W8A8 configs served below: qwen3_14b in full, gemma3_12b one
-    # pattern cycle, stablelm_3b in full through the CLI
+    # pattern cycle; stablelm_3b in full in phase 20's serving example
     qwen = get_config("qwen3_14b")
     gemma = dataclasses.replace(get_config("gemma3_12b"),
                                 num_layers=len(get_config("gemma3_12b")
@@ -2477,10 +2520,6 @@ def lm_phase(dev, card: str, run) -> dict:
                              f"{gemma_launches} times")
     p_f = serve_lm(get_config("paligemma_3b"), dev, card, "none",
                    "bounded")
-
-    # the CLI, at its default arch and full size
-    run_cli(["--arch", "stablelm_3b", "--no-reduce", "--quant", "w8a8"],
-            "[lm]", card)
 
     # qwen2_72b in full, W8A8 (its bf16 tree is over the card), counted
     # from 0 just before, and its CLI
@@ -3094,10 +3133,11 @@ def jamba_full(dev, card: str) -> dict:
 LM_TRAIN_DIR = ROOT / "build" / "lm_train_smoke"
 LM_TRAIN_ARGV = ["--arch", "stablelm_3b", "--steps", "12", "--batch", "8",
                  "--seq", "256", "--log-every", "1"]
-# (b): the same width cut to 4 of 32 layers (0.57 B parameters), so that
-# its three checkpoints (6.9 GB each) stay well inside the 45 GiB a chip
-# call may write to its disk: one full-size snapshot is 33.5 GB
-LM_RESUME_LAYERS = 4
+# (b): the same width cut to 2 of 32 layers (0.42 B parameters), so that
+# its three checkpoints (5.0 GB each) stay well inside the 45 GiB a chip
+# call may write to its disk (one full-size snapshot is 33.5 GB), and
+# the whole run inside its time limit
+LM_RESUME_LAYERS = 2
 LM_RESUME_CKPT = ["--ckpt-every", "4"]
 LM_TRAIN_FAULT = 6                 # the crashed run raises before step 6
 LM_TRAIN_GC_STEPS = 4              # --grad-compress steps
@@ -4584,6 +4624,79 @@ def multi_phase(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# every launch of a run held against its plain version (phases 19, 20)
+# ---------------------------------------------------------------------------
+SPIED = ("routing_q7", "squash_q7", "w8a8_dense")
+
+
+def launch_spy(pending: list):
+    """Patch the `routing_q7` and `squash_q7` wrappers (the module
+    attributes `CudaBackend` calls) and `lm_quant.w8a8_dense` so that
+    every launch's inputs and output are copied into `pending` as (name,
+    plain version, args, kwargs, output), for `check_pending` to hold
+    against the plain version after the run: the run's own times carry
+    the copies (up to three device copies a launch), not the plain
+    versions.  A wrapper counts its launches on the module attribute of
+    its name, so while patched the spies hold `routing_q7` and
+    `squash_q7`'s counts, handed back by the undo.  Returns the undo."""
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels.w8a8_dense import w8a8_dense_plain
+    from repro_torch.quant import lm_quant
+    rq, sq, wd = kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense
+
+    def routing(u_hat, **kw):
+        n = routing.launches
+        v = rq(u_hat, **kw)
+        if routing.launches != n:
+            pending.append(("routing_q7", kr.routing_q7_plain,
+                            (u_hat.clone(),), {k: a for k, a in kw.items()
+                                               if k not in ("cs", "stage")},
+                            v.clone()))
+        return v
+
+    def squash(s, in_frac, out_frac=7):
+        n = squash.launches
+        out = sq(s, in_frac, out_frac)
+        if squash.launches != n:
+            pending.append(("squash_q7", ks.squash_q7_plain, (s.clone(),),
+                            dict(in_frac=in_frac, out_frac=out_frac),
+                            out.clone()))
+        return out
+
+    def dense(xq, wt, xe, n, out_dtype):
+        y = wd(xq, wt, xe, n, out_dtype)
+        pending.append(("w8a8_dense", w8a8_dense_plain,
+                        (xq.clone(), wt, xe.clone(), n, out_dtype), {},
+                        y.clone()))
+        return y
+    routing.launches, squash.launches = rq.launches, sq.launches
+    kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense = routing, squash, dense
+
+    def undo():
+        rq.launches, sq.launches = routing.launches, squash.launches
+        kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense = rq, sq, wd
+    return undo
+
+
+def check_pending(pending: list, checked: dict) -> None:
+    """Each recorded launch's plain version on its inputs: the max
+    |kernel - plain| of each into checked[name], which must be 0;
+    `pending` emptied."""
+    import torch
+    with torch.inference_mode():
+        while pending:
+            name, plain, args, kw, out = pending.pop()
+            want = plain(*args, **kw)
+            err = float((out.float() - want.float()).abs().max())
+            checked[name].append(err)
+            if err != 0:
+                raise AssertionError(f"{name}: a launch of the examples "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+
+
+# ---------------------------------------------------------------------------
 # phase 19: tensor parallelism on the model axis (dist.api's groups and
 # Functions, the models' shard sites, launch.steps.make_cell on meshes)
 # ---------------------------------------------------------------------------
@@ -4595,6 +4708,10 @@ TP_DECODE = 32                   # greedy decode steps of (a), after prefill
 TP_TIMED = 4                     # warm decode steps timed in (a)
 TP_REPLAYS = 2                   # replays of a decode step's collectives
 TP_TRAIN_LAYERS = LM_RESUME_LAYERS           # (b): phase 16's resume depth
+# (a): qwen3_14b at full width cut to 8 of its 40 layers, to keep the
+# whole run inside its time limit (a layer's products and collectives
+# are those of every other)
+TP_QWEN_LAYERS = 8
 TP_TRAIN_B, TP_TRAIN_S, TP_TRAIN_STEPS = 8, 256, 3
 TP_C_B, TP_C_STEPS = 8, 4                    # (c): rows, decode steps
 TP_PARAM_RTOL = 0.05             # a rank's params against its share
@@ -4659,32 +4776,21 @@ def tp_digest(x) -> tuple:
     return tuple(x.shape), int(bits.sum()), int((bits * w).sum())
 
 
-def tp_spy(exps, checked):
-    """Patch `lm_quant` so that every W8A8 product's input digest and
-    activation exponent go into `exps` (when a list) and every
-    `w8a8_dense` launch is held against its plain version, its max
-    |kernel - plain| going into `checked` (when a list).  Returns the
-    undo.  The plain version's calls launch nothing."""
-    from repro_torch.kernels.w8a8_dense import w8a8_dense_plain
+def tp_spy(exps):
+    """Patch `lm_quant.quantize_activation` so that every W8A8 product's
+    input digest and activation exponent go into `exps`.  Returns the
+    undo."""
     from repro_torch.quant import lm_quant
-    qa, wd = lm_quant.quantize_activation, lm_quant.w8a8_dense
+    qa = lm_quant.quantize_activation
 
     def quantize(x):
         q, e = qa(x)
-        if exps is not None:
-            exps.append((tp_digest(x), float(e)))
+        exps.append((tp_digest(x), float(e)))
         return q, e
-
-    def dense(xq, wt, xe, n, out_dtype):
-        y = wd(xq, wt, xe, n, out_dtype)
-        if checked is not None:
-            checked.append(float((y.float() - w8a8_dense_plain(
-                xq, wt, xe, n, out_dtype).float()).abs().max()))
-        return y
-    lm_quant.quantize_activation, lm_quant.w8a8_dense = quantize, dense
+    lm_quant.quantize_activation = quantize
 
     def undo():
-        lm_quant.quantize_activation, lm_quant.w8a8_dense = qa, wd
+        lm_quant.quantize_activation = qa
     return undo
 
 
@@ -4695,7 +4801,7 @@ def tp_generate(model, params, prompts, feed=None, exps=None):
     (logits [TP_DECODE + 1, B, V] float32 on the host, the tokens fed)."""
     import torch
     from repro_torch.models.transformer import decode_alloc
-    undo = tp_spy(exps, None) if exps is not None else None
+    undo = tp_spy(exps) if exps is not None else None
     with torch.inference_mode():
         logits, cache = model.prefill(params, {"inputs": prompts},
                                       alloc=decode_alloc(LM_PROMPT + LM_GEN))
@@ -4800,8 +4906,9 @@ def tp_serve_rank(cfg, mesh, quant: str) -> dict:
     one = torch.load(TP_DIR / f"one_{quant}.pt", weights_only=False)
     secs["init"] = time.perf_counter() - t0
     prompts = tp_prompts(cfg, dev)
-    exps, checked = [], []
-    undo = tp_spy(None, checked)
+    exps, pending = [], []
+    checked = {name: [] for name in SPIED}
+    undo = launch_spy(pending)
     kd.w8a8_dense.launches = 0          # from 0 just before the TP path
     t0 = time.perf_counter()
     try:
@@ -4810,9 +4917,10 @@ def tp_serve_rank(cfg, mesh, quant: str) -> dict:
                                     feed=one["tokens"], exps=exps)
     finally:
         undo()
+    launches = kd.w8a8_dense.launches
+    check_pending(pending, checked)
     torch.cuda.synchronize()
     secs["checked"] = time.perf_counter() - t0
-    launches = kd.w8a8_dense.launches
     want = one["logits"]
     diff = (logits - want).abs()
     over = diff > CONSIST_ATOL + CONSIST_RTOL * want.abs()
@@ -4832,8 +4940,8 @@ def tp_serve_rank(cfg, mesh, quant: str) -> dict:
     first_diff = next((i for i, ((d1, _), (d2, _)) in enumerate(
         zip(one["exps"], exps)) if d1 != d2), None)
     out = {"resident": quantized_bytes(params), "launches": launches,
-           "dense_checked": len(checked),
-           "dense_max_err": max(checked, default=0.0),
+           "dense_checked": len(checked["w8a8_dense"]),
+           "dense_max_err": max(checked["w8a8_dense"], default=0.0),
            "max_diff": float(diff.max()), "beyond": beyond,
            "step_max": [round(float(d), 6) for d in diff.amax((1, 2))],
            "step_beyond": [int(n) for n in over.sum((1, 2))],
@@ -4898,6 +5006,12 @@ def tp_train_batches(cfg, dev) -> list:
     return [{k: torch.as_tensor(v, device=dev) for k, v in
              task.batch(i, TP_TRAIN_B).items()}
             for i in range(TP_TRAIN_STEPS)]
+
+
+def tp_qwen_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3_14b"),
+                               num_layers=TP_QWEN_LAYERS)
 
 
 def tp_train_cfg():
@@ -4999,9 +5113,8 @@ def tp_dryrun_cells() -> tuple:
     runs on each rank: qwen3_14b's decode at phase 12's 8 rows and
     512-slot cache at position LM_PROMPT, bf16 and W8A8, and (b)'s
     stablelm_3b train step."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
-    qwen = get_config("qwen3_14b")
+    qwen = tp_qwen_cfg()
     decode = ShapeSpec("tp_decode", "decode", LM_PROMPT + LM_GEN - 1,
                        LM_REQUESTS)
     train = ShapeSpec("tp_train", "train", TP_TRAIN_S, TP_TRAIN_B)
@@ -5066,7 +5179,8 @@ def tp_dryrun(card: str, got: list) -> dict:
             r = g[key]
             measured = r["decode_ms"] if key != "train" else \
                 statistics.median(r["ms"])
-            what = (f"qwen3_14b decode {key}" if key != "train" else
+            what = (f"qwen3_14b x{TP_QWEN_LAYERS} decode {key}"
+                    if key != "train" else
                     f"stablelm_3b x{TP_TRAIN_LAYERS} train") + \
                 f" rank {g['rank']}"
             if r["by_kind"] != dry["by_kind"]:
@@ -5104,7 +5218,6 @@ def tp_dryrun(card: str, got: list) -> dict:
 def tp_rank() -> dict:
     """(a) and (b) on one rank of the 2-rank world, whose default host
     mesh puts both ranks on the model axis."""
-    from repro_torch.configs import get_config
     from repro_torch.dist import api
     from repro_torch.dist.world import current_world
     from repro_torch.launch.mesh import make_host_mesh
@@ -5115,7 +5228,7 @@ def tp_rank() -> dict:
                              f"{mesh.shape}")
     out = {"rank": world.rank, "mesh": mesh.tag(), "tp_rank":
            api.tp_rank(mesh), "device": str(world.device)}
-    qwen = get_config("qwen3_14b")
+    qwen = tp_qwen_cfg()
     for quant in ("none", "w8a8"):
         out[quant] = tp_serve_rank(qwen, mesh, quant)
     out["train"] = tp_train_rank(mesh)
@@ -5203,9 +5316,9 @@ def tp_c_rank(waves: dict) -> dict:
 
 
 def tp_phase(dev, card: str) -> dict:
-    """Phase 19: (a) qwen3_14b in full, bf16 and W8A8, over a model line
-    of 2 gloo ranks sharing cuda:0 against the one-process run before
-    it; (b) stablelm_3b at full width, 4 layers, 3 make_cell train steps
+    """Phase 19: (a) qwen3_14b at full width, TP_QWEN_LAYERS deep, bf16
+    and W8A8, over a model line of 2 gloo ranks sharing cuda:0 against
+    the one-process run before it; (b) stablelm_3b at full width, 2 layers, 3 make_cell train steps
     over the same ranks against the one-process steps, a fault and a
     resume from the sharded checkpoint bit for bit, the checkpoint
     restored into this process equal to the state the ranks gathered;
@@ -5213,7 +5326,6 @@ def tp_phase(dev, card: str) -> dict:
     make_cell and mnist@cuda waves.  Returns the TP path's launches."""
     import torch
     from repro_torch import ckpt
-    from repro_torch.configs import get_config
     from repro_torch.dist import world as dworld
     from repro_torch.launch import steps
     from repro_torch.serving import ModelRegistry
@@ -5222,11 +5334,11 @@ def tp_phase(dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(TP_DIR, ignore_errors=True)
-    qwen = get_config("qwen3_14b")
+    qwen = tp_qwen_cfg()
     one = {q: tp_one(qwen, dev, q) for q in ("none", "w8a8")}
     train_one = tp_train_one(dev)
     one_s = time.perf_counter() - t_phase
-    log(f"[tp] {card} | one process: qwen3_14b params "
+    log(f"[tp] {card} | one process: qwen3_14b x{TP_QWEN_LAYERS} params "
         + ", ".join(f"{q} {one[q]['bytes']:,} bytes, prefill "
                     f"{one[q]['prefill_ms']:.2f} ms, decode "
                     f"{one[q]['decode_ms']:.3f} ms a step" for q in one)
@@ -5258,7 +5370,7 @@ def tp_phase(dev, card: str) -> dict:
             if q == "w8a8" else 0
         for g in got:
             r = g[q]
-            what = f"[tp] (a) qwen3_14b {q} rank {g['rank']}"
+            what = f"[tp] (a) qwen3_14b x{TP_QWEN_LAYERS} {q} rank {g['rank']}"
             if abs(r["resident"] / share - 1) > TP_PARAM_RTOL:
                 raise AssertionError(f"{what}: {r['resident']:,} param "
                                      f"bytes, its share is {share:,.0f}")
@@ -5302,7 +5414,8 @@ def tp_phase(dev, card: str) -> dict:
                 f"{r['first_input_diff']}); w8a8_dense {r['launches']} "
                 f"launches, {r['dense_checked']} held against the plain "
                 f"version, max |kernel - plain| {r['dense_max_err']}")
-            log(f"[tp] {card} | {TP_LABEL}: qwen3_14b {q} rank {g['rank']}: "
+            log(f"[tp] {card} | {TP_LABEL}: qwen3_14b x{TP_QWEN_LAYERS} {q} "
+                f"rank {g['rank']}: "
                 f"prefill {r['prefill_ms']:.2f} ms ({LM_REQUESTS}x"
                 f"{LM_PROMPT}), warm decode {r['decode_ms']:.3f} ms a step "
                 f"(one process {one[q]['prefill_ms']:.2f} / "
@@ -5419,14 +5532,308 @@ def tp_phase(dev, card: str) -> dict:
             "one": one, "train_one": train_one, "dryrun": dry}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the repository's four examples on the port (examples/torch_*.py)
+# ---------------------------------------------------------------------------
+EXAMPLES_DIR = ROOT / "build" / "examples_smoke"
+EXAMPLE_DATASETS = ("mnist", "smallnorb", "cifar10")
+EXAMPLE_CAPS_STEPS = 250         # the example's --steps default; with
+                                 # --ckpt-dir its float run saves every 50
+EXAMPLE_LM_ARGV = ["--arch", "stablelm_3b", "--no-reduce"]
+EXAMPLE_LM_GEN = 24                # the example's --gen default
+EXAMPLE_TRAIN_LM_STEPS = (200, 220)  # the default run, then its resume
+# the reference example's own MNIST row at its defaults, run once on a
+# CPU (PERF.md §6): the card's acc_f32 may lie at most 0.05 below it
+REF_MNIST_ACC_F32 = 1.0
+REF_ACC_MARGIN = 0.05
+# the spans of table2_rows timed on the host clock, each after a
+# synchronize: (module, attribute) patched for the run
+TABLE2_SPANS = (("repro_torch.captrain.evalq", "eval_q7"),
+                ("repro_torch.captrain.evalq", "eval_float"),
+                ("repro_torch.captrain.trainer", "CapsTrainer.fit"),
+                ("repro_torch.captrain.trainer", "CapsTrainer.quantize"),
+                ("repro_torch.edge", "lower"),
+                ("repro_torch.obs.numerics", "run_numerics"))
+
+
+def table2_spans(secs: dict):
+    """Patch TABLE2_SPANS so that each call's host seconds, ended by a
+    synchronize, add up in secs[attribute].  Returns the undo."""
+    import importlib
+    import torch
+    undo = []
+    for mod_name, attr in TABLE2_SPANS:
+        owner = importlib.import_module(mod_name)
+        *path, name = attr.split(".")
+        for p in path:
+            owner = getattr(owner, p)
+        orig = owner.__dict__[name]
+
+        def timed(*a, _orig=orig, _attr=attr, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                secs[_attr] = secs.get(_attr, 0.0) + time.perf_counter() - t0
+        setattr(owner, name, timed)
+        undo.append((owner, name, orig))
+
+    def restore():
+        for owner, name, orig in reversed(undo):
+            setattr(owner, name, orig)
+    return restore
+
+
+def run_example(name: str, argv: list, pending: list | None = None,
+                checked: dict | None = None) -> tuple:
+    """`examples/NAME.py`'s `main(argv)` in this process, its printed
+    lines captured and logged: (its result, its lines, wall seconds);
+    then the launches it recorded in `pending` (`launch_spy`) are held
+    against their plain versions into `checked`."""
+    import contextlib
+    import importlib.util
+    import io
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = mod.main([str(a) for a in argv])
+    finally:
+        for line in buf.getvalue().splitlines():
+            log(f"[examples]   {line}")
+    secs = time.perf_counter() - t0
+    if pending is not None:
+        check_pending(pending, checked)
+    return res, buf.getvalue().splitlines(), secs
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Phase 20: each example's `main(argv)` in this process, every
+    `routing_q7`, `squash_q7` and `w8a8_dense` launch held against its
+    plain version (`launch_spy`), the counts from 0 just before the
+    first example and read after each.  (a) torch_quickstart: the cuda
+    backend bit-identical to the torch oracle, `quickstart OK`; (b)
+    torch_train_capsnet --dataset mnist, smallnorb, cifar10 at the
+    reference's defaults (with --ckpt-dir, which keeps each float state):
+    the Table-2 rows on the card, each saving_pct equal to
+    TABLE2_FOOTPRINTS', acc_f32 above twice chance and MNIST's within
+    REF_ACC_MARGIN of the reference's CPU row, table2_rows' spans timed;
+    (c) torch_serve_quantized_lm --arch stablelm_3b --no-reduce: bf16 and
+    W8A8 in full, (7 L + 1) x gen `w8a8_dense` launches; (d)
+    torch_train_lm at its defaults, then with --steps 220, which must
+    resume at step 200; it launches no kernel of the port.  After the
+    counts are read, (c) once more with the recorder off, for the times
+    a user sees."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import routing as kr
+    from repro_torch.kernels import squash as ks
+    from repro_torch.kernels import w8a8_dense as kd
+    from repro_torch.nn.config import CAPSNET_CONFIGS
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    kernels = {"routing_q7": kr, "squash_q7": ks, "w8a8_dense": kd}
+    checked = {name: [] for name in kernels}
+    pending = []
+
+    def counts():       # the module attributes: the spies while patched
+        return {name: getattr(mod, name).launches
+                for name, mod in kernels.items()}
+
+    def launched(before):
+        return {k: v - before[k] for k, v in counts().items()}
+    for name, mod in kernels.items():            # from 0 just before
+        getattr(mod, name).launches = 0
+    out = {"runs": {}}
+    undo = launch_spy(pending)
+    try:
+        # (a) the quickstart
+        before = counts()
+        res, lines, secs = run_example("torch_quickstart", [], pending,
+                                       checked)
+        got = launched(before)
+        if res["match"] is not True or lines[-1] != "quickstart OK" or \
+                min(got["routing_q7"], got["squash_q7"]) == 0:
+            raise AssertionError(f"torch_quickstart: match {res['match']}, "
+                                 f"last line {lines[-1]!r}, launches {got}")
+        fp = res["footprint"]
+        log(f"[examples] {card} | torch_quickstart: {secs:.1f} s; fp32 "
+            f"{fp['fp32_kb']:.2f} KB -> int8 {fp['int8_kb']:.2f} KB, cuda "
+            f"== torch oracle, preds {res['preds']}, flash "
+            f"{res['report']['flash_bytes']}, RAM {res['report']['ram_bytes']}"
+            f", arena {res['report']['arena_bytes']} B; launches {got}")
+        out["runs"]["torch_quickstart"] = dict(
+            s=secs, launches=got, saving_pct=fp["saving_pct"],
+            preds=res["preds"])
+
+        # (b) the paper's Table 2 for its three networks
+        for ds in EXAMPLE_DATASETS:
+            cfg = CAPSNET_CONFIGS[f"capsnet_{ds}"]
+            fp32, int8 = TABLE2_FOOTPRINTS[ds]
+            spans = {}
+            before = counts()
+            restore = table2_spans(spans)
+            try:
+                rows, _, secs = run_example(
+                    "torch_train_capsnet",
+                    ["--dataset", ds, "--ckpt-dir", EXAMPLES_DIR / ds],
+                    pending, checked)
+            finally:
+                restore()
+            got = launched(before)
+            for r in rows:
+                log(f"[examples] {card} | torch_train_capsnet --dataset {ds} "
+                    f"{r.rounding}: acc_f32 {r.acc_f32!r}, acc_ptq "
+                    f"{r.acc_ptq!r}, acc_qat {r.acc_qat!r}, saving_pct "
+                    f"{r.saving_pct!r}, flash {r.flash_bytes}, RAM "
+                    f"{r.ram_bytes}, est. M7 {r.est_ms_m7:.2f} ms")
+                if r.saving_pct != 100.0 * (1 - int8 / fp32):
+                    raise AssertionError(f"{ds}: saving_pct {r.saving_pct!r}"
+                                         f", pinned {fp32} -> {int8} bytes")
+                if not r.acc_f32 > 2.0 / cfg.num_classes:
+                    raise AssertionError(f"{ds}: acc_f32 {r.acc_f32} not "
+                                         f"above twice chance")
+                if ds == "mnist" and \
+                        r.acc_f32 < REF_MNIST_ACC_F32 - REF_ACC_MARGIN:
+                    raise AssertionError(
+                        f"mnist: acc_f32 {r.acc_f32} more than "
+                        f"{REF_ACC_MARGIN} below the reference's CPU row "
+                        f"({REF_MNIST_ACC_F32})")
+            if min(got["routing_q7"], got["squash_q7"]) == 0:
+                raise AssertionError(f"{ds}: eval_q7 launched {got}")
+            log(f"[examples] {card} | torch_train_capsnet --dataset {ds}: "
+                f"{secs:.1f} s wall; " + ", ".join(
+                    f"{k.split('.')[-1]} {v:.1f} s" for k, v in spans.items())
+                + f"; launches {got}; its float state of step "
+                f"{EXAMPLE_CAPS_STEPS} kept in {EXAMPLES_DIR / ds} (for "
+                f"tools/table2_witness.py)")
+            out["runs"][f"torch_train_capsnet {ds}"] = dict(
+                s=secs, spans_s=spans, launches=got,
+                rows=[dataclasses.asdict(r) for r in rows])
+
+        # (c) an LM in full, bf16 and W8A8
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        res, _, secs = run_example("torch_serve_quantized_lm",
+                                   EXAMPLE_LM_ARGV, pending, checked)
+        got = launched(before)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        cfg = get_config("stablelm_3b")
+        want = (7 * cfg.num_layers + 1) * EXAMPLE_LM_GEN
+        if got["w8a8_dense"] != want:
+            raise AssertionError(f"stablelm_3b W8A8: {got['w8a8_dense']} "
+                                 f"w8a8_dense launches, want {want}")
+        gen = EXAMPLE_LM_GEN - 1
+        log(f"[examples] {card} | torch_serve_quantized_lm "
+            f"{' '.join(EXAMPLE_LM_ARGV)}: {secs:.1f} s; "
+            f"{res['fp_bytes'] / 2**20:.1f} MiB bf16 -> "
+            f"{res['q_bytes'] / 2**20:.1f} MiB W8A8; prefill "
+            f"{res['prefill_s'][0] * 1e3:.2f} / "
+            f"{res['prefill_s'][1] * 1e3:.2f}"
+            f" ms, decode {res['decode_s'][0] * 1e3 / gen:.3f} / "
+            f"{res['decode_s'][1] * 1e3 / gen:.3f} ms a step (float / "
+            f"W8A8); agreement {res['agree']:.3f}; peak {peak:.2f} GiB; "
+            f"w8a8_dense {got['w8a8_dense']}, each exact")
+        out["runs"]["torch_serve_quantized_lm"] = dict(
+            s=secs, launches=got, peak_gib=peak, fp_bytes=res["fp_bytes"],
+            q_bytes=res["q_bytes"], prefill_ms=[t * 1e3 for t in
+                                                res["prefill_s"]],
+            decode_ms_step=[t * 1e3 / gen for t in res["decode_s"]],
+            agree=res["agree"])
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) an LM trained, then resumed
+        ck = EXAMPLES_DIR / "train_lm"
+        for steps in EXAMPLE_TRAIN_LM_STEPS:
+            before = counts()
+            res, lines, secs = run_example("torch_train_lm", [
+                "--ckpt-dir", ck, "--steps", steps], pending, checked)
+            got = launched(before)
+            rows = res["log"]
+            losses = [r["loss"] for r in rows]
+            ms = statistics.median(r["ms"] for r in rows[1:] or rows)
+            resumed = steps != EXAMPLE_TRAIN_LM_STEPS[0]
+            want_start = EXAMPLE_TRAIN_LM_STEPS[0] if resumed else 0
+            if res["start"] != want_start or (resumed and (
+                    f"[resume] step {want_start}" not in lines)) or \
+                    any(got.values()) or \
+                    not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"torch_train_lm --steps {steps}: start "
+                                     f"{res['start']}, launches {got}, "
+                                     f"losses {losses[:3]}...")
+            if not resumed and not losses[-1] < losses[0]:
+                raise AssertionError(f"torch_train_lm: loss {losses[0]} -> "
+                                     f"{losses[-1]}")
+            log(f"[examples] {card} | torch_train_lm --steps {steps}: "
+                f"{secs:.1f} s; steps {res['start']}..{steps - 1}, loss "
+                f"{losses[0]:.4f} -> {losses[-1]:.4f}, median {ms:.2f} ms a "
+                f"step (B 4 x S 256)")
+            out["runs"][f"torch_train_lm {steps}"] = dict(
+                s=secs, start=res["start"], first_loss=losses[0],
+                last_loss=losses[-1], ms_step=ms)
+            del res
+        shutil.rmtree(ck, ignore_errors=True)
+    finally:
+        undo()
+        pending.clear()
+    out["launches"] = counts()
+    out["max_abs_err"] = {k: max(v, default=0) for k, v in checked.items()}
+    out["checked"] = {k: len(v) for k, v in checked.items()}
+    for name, n in out["launches"].items():
+        if out["checked"][name] != n or out["max_abs_err"][name] != 0:
+            raise AssertionError(f"{name}: {n} launches, "
+                                 f"{out['checked'][name]} held against the "
+                                 f"plain version, max |kernel - plain| "
+                                 f"{out['max_abs_err'][name]}")
+
+    # (c) again with the recorder off, after the counted window (its
+    # launches are not counted): the times a user of the example sees;
+    # beside the recorded run's, the recorder's cost (its bf16 path
+    # launches nothing recorded, so its change is the order's alone)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, _, secs = run_example("torch_serve_quantized_lm", EXAMPLE_LM_ARGV)
+    spied = out["runs"]["torch_serve_quantized_lm"]
+    bare = dict(s=secs, prefill_ms=[t * 1e3 for t in res["prefill_s"]],
+                decode_ms_step=[t * 1e3 / gen for t in res["decode_s"]],
+                agree=res["agree"])
+    out["runs"]["torch_serve_quantized_lm, recorder off"] = bare
+    log(f"[examples] {card} | torch_serve_quantized_lm "
+        f"{' '.join(EXAMPLE_LM_ARGV)} again, the recorder off (not "
+        f"counted): {secs:.1f} s; prefill {bare['prefill_ms'][0]:.2f} / "
+        f"{bare['prefill_ms'][1]:.2f} ms, decode "
+        f"{bare['decode_ms_step'][0]:.3f} / {bare['decode_ms_step'][1]:.3f}"
+        f" ms a step (float / W8A8) against {spied['decode_ms_step'][0]:.3f}"
+        f" / {spied['decode_ms_step'][1]:.3f} with it on; agreement "
+        f"{bare['agree']:.3f} ({spied['agree']:.3f} with it on)")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    log(f"[examples] {card} | phase 20 passed in {out['s']:.1f} s; launches "
+        f"{out['launches']}, each held against its plain version")
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv not in ([], ["--device-times"], ["--forward-worker"],
                     ["--train-lm"], ["--train-times"], ["--multi"],
-                    ["--tp"], ["--tp-count"]) and (
+                    ["--tp"], ["--tp-count"], ["--examples"]) and (
             len(argv) != 2 or argv[0] != "--forward-pairs"):
         print("usage: chip_smoke.py [--device-times | --train-lm | "
-              "--train-times | --multi | --tp | --tp-count | "
+              "--train-times | --multi | --tp | --tp-count | --examples | "
               "--forward-pairs PARENT_TREE]",
               file=sys.stderr)
         return 2
@@ -5523,6 +5930,11 @@ def main(argv=None) -> int:
         log(card)
         log(json.dumps({"tp": tp}))
         return 0
+    if argv == ["--examples"]:
+        examples = examples_phase(dev, card)
+        log(card)
+        log(json.dumps({"examples": examples}))
+        return 0
 
     for name in ("q7_matmul", "w8a8_matmul", "w8a8_dense"):
         sass = sass_counts(libs[name])
@@ -5534,6 +5946,8 @@ def main(argv=None) -> int:
 
     # phase 2
     errs = check_kernels(dev)
+
+    phase_done(2, t0)
 
     # phase 3: counts from 0 just before the main path, read just after
     ks.squash_q7.launches = 0
@@ -5569,8 +5983,12 @@ def main(argv=None) -> int:
         raise AssertionError(f"default-variant mnist@cuda fell back: "
                              f"{dict(fallbacks)}")
 
+    phase_done(3, t0)
+
     # phase 4: the artifact path, counted on its own
     artifact = serve_artifact(run, dev)
+
+    phase_done(4, t0)
 
     # phase 5
     serve_other(dev, "smallnorb@cuda")
@@ -5591,6 +6009,8 @@ def main(argv=None) -> int:
     log(f"[other] cuda backend fallbacks {dict(fallbacks)}; "
         f"{len(caught)} warning(s): "
         f"{sorted({str(w.message)[:60] for w in caught})}")
+
+    phase_done(5, t0)
 
     # phase 6: counts from 0 just before the library path, read just after
     kq.matmul_q7.launches = kq.bmm_q7.launches = 0
@@ -5616,6 +6036,8 @@ def main(argv=None) -> int:
         if launches[name] == 0:
             raise AssertionError(f"{name} was not launched on the "
                                  f"kernel-library path")
+
+    phase_done(6, t0)
 
     # phase 7
     times = time_kernels(run, dev)
@@ -5647,28 +6069,39 @@ def main(argv=None) -> int:
 
     times.update(time_library(dev, card))
 
+    phase_done(7, t0)
+
     # phase 10: training; its int8 path's counts from 0 inside, read after
     train = train_phase(dev, card)
 
+    phase_done(10, t0)
+
     # phase 11: the search; its counts from 0 inside, read after
     search = search_phase(dev, card)
+
+    phase_done(11, t0)
 
     # phase 12: the LM serving path and the host mesh; w8a8_dense's count
     # from 0 just before the qwen3_14b W8A8 run, read just after
     lm = lm_phase(dev, card, run)
     times["w8a8_dense"] = time_dense(dev, card)
 
+    phase_done(12, t0)
+
     # phase 13: the MoE FFN; w8a8_bmm's and w8a8_dense's counts from 0
     # just before each W8A8 run, read just after
     moe = moe_phase(dev, card)
     times["w8a8_bmm"] = time_bmm(dev, card)
 
+    phase_done(13, t0)
+
     # phase 14: the SSM and hybrid LMs, phase 15: the encoder-decoder;
     # w8a8_dense's and w8a8_bmm's counts from 0 just before each W8A8 run,
     # read just after
     ssm = ssm_phase(dev, card)
+    phase_done(14, t0)
     encdec = encdec_phase(dev, card)
-
+    phase_done(15, t0)
 
     # phase 9, before phase 8: a torch.profiler session leaves the later
     # launches of the process slower, and phase 9 times the host's path
@@ -5677,6 +6110,8 @@ def main(argv=None) -> int:
     serve_widened_geometries(dev, card)
     probes_off_times(run, dev, card)
     busy_share(run, card)
+
+    phase_done(9, t0)
 
     # phase 8: device times from the profiler, and each cluster size
     dt = device_times(dev)
@@ -5707,23 +6142,36 @@ def main(argv=None) -> int:
             row["int_mm_device_ms"] = dt["int_mm"].get(
                 shape_key(row["shape"]))
 
+    phase_done(8, t0)
+
     # phase 16: LM training in a process of its own; it launches none of
     # the kernels, and no profiler session follows it
     train_lm = train_lm_phase(card)
+    phase_done(16, t0)
 
-    # phase 17, last: the dry run on the host's CPU (one card and 512),
-    # its bounds held against the steps phases 12 and 16 measured (no
+    # phase 17: the dry run on the host's CPU (one card and 512), its
+    # bounds held against the steps phases 12 and 16 measured (no
     # launch, no timing of its own)
     dryrun = dryrun_phase(card, lm, train_lm)
+    phase_done(17, t0)
 
     # phase 18: data-parallel meshes across processes; each rank's counts
     # from 0 just before its wave, read just after
     multi = multi_phase(dev, card)
+    phase_done(18, t0)
 
     # phase 19: tensor parallelism; each rank's w8a8_dense count from 0
     # just before its meshed run, its routing/squash counts before each
     # wave, read just after
     tp = tp_phase(dev, card)
+    phase_done(19, t0)
+
+    # phase 20, last: the repository's examples; the kernels' counts from
+    # 0 just before its first example, read after its last
+    examples = examples_phase(dev, card)
+    for name in ("routing_q7", "squash_q7"):
+        errs[name] = max(errs[name], examples["max_abs_err"][name])
+    phase_done(20, t0)
 
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"squash_q7": ("squash_q7.cu", "src/repro/kernels/squash.py:50"),
@@ -5739,7 +6187,9 @@ def main(argv=None) -> int:
     for name, (src, replaces) in sources.items():
         t = times[name]
         entry = {"name": name, "route": "cuda", "source": csrc + src,
-                 "replaces": replaces, "launches": launches[name],
+                 "replaces": replaces,
+                 "launches": launches[name]
+                 + examples["launches"].get(name, 0),
                  "max_abs_err": errs[name], "ms": t["ms"],
                  "device_ms": t["device_ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5758,9 +6208,10 @@ def main(argv=None) -> int:
                 "search": search["launches"][name],
                 "multi": multi["launches"][name],
                 "multi_nccl": multi["nccl_launches"][name],
-                "tp": tp["launches"][name]}
+                "tp": tp["launches"][name],
+                "examples": examples["launches"][name]}
         else:
-            entry["launches_by_path"] = {"multi": 0, "tp": 0}
+            entry["launches_by_path"] = {"multi": 0, "tp": 0, "examples": 0}
         if "shapes" in t:
             entry["shapes"] = t["shapes"]
             entry["yardstick"] = (
@@ -5775,13 +6226,16 @@ def main(argv=None) -> int:
         "replaces_note": "no TPU kernel: the reference computes this "
         "product with XLA's int8 dot_general and an elementwise pow2 "
         "dequantization, src/repro/quant/lm_quant.py:76 (q_dense)",
-        "launches": lm["launches"],
+        "launches": lm["launches"] + examples["launches"]["w8a8_dense"],
         "launches_by_path": {**lm["launches_by_path"],
                              **moe["dense_launches_by_path"],
                              **ssm["dense"], **encdec["dense"],
-                             "multi": 0, "tp": tp["launches"]["w8a8_dense"]},
+                             "multi": 0, "tp": tp["launches"]["w8a8_dense"],
+                             "examples": examples["launches"]["w8a8_dense"]},
         "max_abs_err": max(lm["max_abs_err"], ssm["max_abs_err"],
-                           encdec["max_abs_err"]), "ms": t["ms"],
+                           encdec["max_abs_err"],
+                           examples["max_abs_err"]["w8a8_dense"]),
+        "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["int_mm_ms"],
@@ -5808,7 +6262,7 @@ def main(argv=None) -> int:
         "batched face of w8a8_dense.cu's kernel, one expert a batch entry",
         "launches": moe["launches"],
         "launches_by_path": {**moe["launches_by_path"], **ssm["bmm"],
-                             "multi": 0, "tp": 0},
+                             "multi": 0, "tp": 0, "examples": 0},
         "max_abs_err": max(moe["max_abs_err"], ssm["max_abs_err"]),
         "ms": t["ms"],
         "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
@@ -5825,6 +6279,7 @@ def main(argv=None) -> int:
     log(f"[dryrun] summary {json.dumps(dryrun)}")
     log(f"[multi] summary {json.dumps(multi)}")
     log(f"[tp] summary {json.dumps(tp)}")
+    log(f"[examples] summary {json.dumps(examples)}")
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f} s, "
         f"the build included")
     log(card)

@@ -105,7 +105,9 @@ def table2_rows(cfg: CapsNetConfig, tcfg: TrainConfig, *,
     weights directly, and QAT-fine-tune a copy before quantizing it
     (same seed, same calibration images, so the two deltas are
     comparable).  `variants` selects the int8 operator variants, which
-    the plans carry and QAT trains against.  Under a data-parallel
+    the plans carry and QAT trains against.  The int8 models run the
+    `cuda` backend (the kernels) on the card and the `torch` oracle on
+    the CPU, so the accuracies are the ones served.  Under a data-parallel
     `mesh` both trainers split their steps over its ranks (the rows are
     those of the one-rank run); the evaluations run replicated.
     Returns [Table2Row, ...]."""
@@ -114,6 +116,7 @@ def table2_rows(cfg: CapsNetConfig, tcfg: TrainConfig, *,
     from repro_torch.obs.numerics import run_numerics
 
     device = resolve_device(api.rank_device(mesh, device))
+    backend = "cuda" if device.type == "cuda" else "torch"
     if variants is not None:
         tcfg = dataclasses.replace(tcfg, softmax_impl=variants.softmax,
                                    squash_impl=variants.squash)
@@ -137,14 +140,15 @@ def table2_rows(cfg: CapsNetConfig, tcfg: TrainConfig, *,
         # QAT branches fork from the float weights; no checkpointing here
         # (they would clobber the float run's snapshots)
         rtc = dataclasses.replace(tcfg, rounding=rounding, ckpt_every=0)
-        q_ptq = trainer.quantize(state, rounding=rounding)
+        q_ptq = trainer.quantize(state, rounding=rounding, backend=backend)
         acc_ptq = eval_q7(q_ptq, images, labels)
 
         qtrainer = CapsTrainer(cfg, rtc, mesh=mesh, device=device)
         qstate, _, _ = qtrainer.fit(state, qat_steps, qat=True,
                                     log_every=25 if log else 0,
                                     log=log or print)
-        q_qat = qtrainer.quantize(qstate, rounding=rounding)
+        q_qat = qtrainer.quantize(qstate, rounding=rounding,
+                                  backend=backend)
         acc_qat = eval_q7(q_qat, images, labels)
 
         fp32 = trainer.pipeline.param_bytes(state["params"]["caps"])

@@ -1,1 +1,2 @@
-"""Float reference pieces the pipeline reuses (the float squash)."""
+"""Float reference pieces: the float squash the pipeline reuses, and
+Sabour's float dynamic routing (Algorithm 1)."""

@@ -21,11 +21,11 @@ from repro_torch.edge.export import export_artifacts, format_export
 from repro_torch.edge.importer import load_qnet, program_config, to_qnet
 from repro_torch.edge.lower import describe, lower
 from repro_torch.edge.program import EdgeOp, EdgeProgram, TensorSpec
-from repro_torch.edge.vm import EdgeVM
+from repro_torch.edge.vm import EdgeVM, execute
 
 __all__ = ["MCU_PROFILES", "ArenaPlan", "EdgeOp", "EdgeProgram", "EdgeVM",
            "McuProfile", "TensorSpec", "assign_offsets", "describe",
-           "emit_c", "estimate_all", "estimate_program",
+           "emit_c", "estimate_all", "estimate_program", "execute",
            "export_artifacts", "format_estimate", "format_estimates",
            "format_export", "format_report", "get_profile", "lifetimes",
            "load_qnet", "lower", "memory_report", "op_scratch_bytes",

@@ -266,3 +266,8 @@ class EdgeVM:
                 if trace is not None:
                     trace[op.name] = h
         return h[0] if squeeze else h
+
+
+def execute(program: EdgeProgram, x_q) -> np.ndarray:
+    """One-shot convenience: EdgeVM(program).run(x_q)."""
+    return EdgeVM(program).run(x_q)

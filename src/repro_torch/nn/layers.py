@@ -1,4 +1,5 @@
-"""Capsule-network layers: small frozen objects with one protocol.
+"""Capsule-network layers: small frozen objects with one protocol
+(`CapsLayer`):
 
   init(generator)               -> float params (explicit torch.Generator)
   fwd_f32(params, x)            -> (y, taps)   float forward; `taps` are
@@ -25,6 +26,7 @@ the config.
 from __future__ import annotations
 
 import dataclasses
+from typing import Protocol, runtime_checkable
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +37,22 @@ from repro_torch.nn.plans import (ConvPlan, PrimaryCapsPlan, RoutingPlan,
                                   TapStats)
 from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH, REGISTRY
 from repro_torch.quant import qformat as qf
+
+
+@runtime_checkable
+class CapsLayer(Protocol):
+    """The protocol above; `QuantConv2D`, `PrimaryCaps` and
+    `CapsuleRouting` satisfy it."""
+    name: str
+
+    def init(self, generator) -> dict: ...
+    def fwd_f32(self, params, x) -> tuple: ...
+    def plan_tap_names(self) -> tuple: ...
+    def plan(self, params, stats: TapStats, in_frac: int): ...
+    def quantize(self, params, plan) -> dict: ...
+    def fwd_q7(self, qweights, plan, x, *, backend="torch",
+               rounding="floor"): ...
+    def fwd_fq(self, params, plan, x, *, rounding="floor"): ...
 
 
 def _conv(x, w, b, stride: int):

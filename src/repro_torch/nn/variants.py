@@ -363,6 +363,14 @@ class VariantSet:
             layers[name] = dataclasses.replace(p, **kw) if kw else p
         return dataclasses.replace(plan, layers=layers)
 
+    def to_json(self) -> dict:
+        return {"softmax": self.softmax, "squash": self.squash}
+
+    @classmethod
+    def from_json(cls, d: dict) -> "VariantSet":
+        return cls(softmax=d.get("softmax", DEFAULT_SOFTMAX),
+                   squash=d.get("squash", DEFAULT_SQUASH))
+
 
 def all_variant_sets() -> tuple:
     """Every registered (softmax, squash) combination."""

@@ -48,6 +48,7 @@ QUANT_LEAF_NAMES = {
     "up_proj", "down_proj", "in_proj", "out_proj", "wx",
     "ffn_up", "ffn_down",
 }
+HEAD_LEAF_NAMES = {"w"}        # lm_head / frontend dense
 
 
 def exponent(max_abs):
@@ -110,7 +111,7 @@ def _quantize_tree(tree, names: tuple, quantize_head: bool,
     name = names[-1]
     if name in QUANT_LEAF_NAMES and tree.dim() >= 2:
         return _quantize_weight(tree)
-    if quantize_head and name == "w" and "lm_head" in names:
+    if quantize_head and name in HEAD_LEAF_NAMES and "lm_head" in names:
         return _quantize_weight(tree)
     return tree
 

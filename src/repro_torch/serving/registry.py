@@ -35,8 +35,8 @@ from repro_torch import obs
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.device import resolve_device
 from repro_torch.dist import api
-from repro_torch.nn.config import (CIFAR10, EDGE_TINY, MNIST, SMALLNORB,
-                                   CapsNetConfig)
+from repro_torch.nn.config import (CAPSNET_CONFIGS, CIFAR10, EDGE_TINY, MNIST,
+                                   SMALLNORB, CapsNetConfig)
 from repro_torch.nn.pipeline import CapsPipeline, QuantCapsNet
 from repro_torch.nn.variants import DEFAULT_SOFTMAX, DEFAULT_SQUASH, VariantSet
 from repro_torch.serving import sharded
@@ -260,3 +260,9 @@ class ModelRegistry:
         self._execs[key] = exe
         self._c_compile.inc(model=model_id, bucket=str(bucket))
         return exe
+
+
+def config_for_dataset(dataset: str) -> CapsNetConfig:
+    """The geometry served for a dataset kind: "mnist", "smallnorb",
+    "cifar10" or "edge_tiny"."""
+    return CAPSNET_CONFIGS[f"capsnet_{dataset}"]

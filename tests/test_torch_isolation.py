@@ -1,6 +1,7 @@
-"""The port stands alone: `src/repro_torch` and `chip_smoke.py` import
-neither JAX nor anything of the reference package `repro`, the serving
-entry point imports in a process where both are blocked, and every entry
+"""The port stands alone: `src/repro_torch`, `chip_smoke.py` and the
+port's examples (`examples/torch_*.py`) import neither JAX nor anything
+of the reference package `repro`, the serving entry point and the
+examples import in a process where both are blocked, and every entry
 point asked for the default device on a host without a GPU raises instead
 of quietly running on the CPU.
 """
@@ -20,6 +21,7 @@ from repro_torch.serving import ModelRegistry, default_specs
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -34,8 +36,8 @@ def imported_roots(path: pathlib.Path) -> set:
 
 
 def test_no_jax_or_reference_import_in_the_port():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 20
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
+    assert len(files) > 20 and len(EXAMPLES) == 4
     bad = {str(p.relative_to(ROOT)): sorted(imported_roots(p) & set(FORBIDDEN))
            for p in files}
     assert {k: v for k, v in bad.items() if v} == {}
@@ -54,6 +56,10 @@ def test_the_port_imports_with_jax_and_the_reference_blocked():
         "import repro_torch.launch.serve_caps",
         "import repro_torch.launch.serve",
         "import repro_torch.models.transformer",
+        "import importlib.util",
+        f"for p in {[str(p) for p in EXAMPLES]!r}:",
+        "    spec = importlib.util.spec_from_file_location('ex', p)",
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))",
         "assert not any(m.split('.')[0] in " + repr(FORBIDDEN)
         + " for m in sys.modules if sys.modules[m] is not None)",
         "print('ok', len(" + repr(modules) + "))",
@@ -144,3 +150,23 @@ def test_chip_smoke_alone_fails_without_printing_a_result(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_the_examples_default_to_the_card(no_gpu, tmp_path):
+    """Each example's `main` with its default device raises before it
+    draws a weight or writes a file."""
+    import importlib.util
+    argv = {"torch_quickstart": [],
+            "torch_train_capsnet": ["--dataset", "edge_tiny", "--steps", "1",
+                                    "--ckpt-dir", str(tmp_path / "c")],
+            "torch_serve_quantized_lm": ["--d-model", "64", "--gen", "2"],
+            "torch_train_lm": ["--params", "1e6", "--steps", "1",
+                               "--ckpt-dir", str(tmp_path / "l")]}
+    assert sorted(argv) == [p.stem for p in EXAMPLES]
+    for path in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            mod.main(argv[path.stem])
+    assert not any(tmp_path.iterdir())
