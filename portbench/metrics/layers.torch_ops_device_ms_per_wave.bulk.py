@@ -1,0 +1,14 @@
+"""layers.torch_ops_device_ms_per_wave.bulk: the profiler's device time a
+wave of every kernel other than squash_q7 and routing_q7 (the int8 convs
+and u_hat as torch ops, shifts, saturation), in ms."""
+
+KERNELS = ("squash_q7", "routing_q7")
+
+
+def read(run):
+    p = run.profile
+    if p is None or not p.waves:
+        return None
+    t = sum(d for name, _, d, _ in p.kernels()
+            if not any(k in name for k in KERNELS))
+    return t / len(p.waves) * 1e3
