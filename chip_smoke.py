@@ -124,10 +124,7 @@ Phases, each raising on failure:
    `torch` backend, both kernels launched for each and no fallback
    counted; the untraced, unprobed B=64 forward_q7 (7 x 50 calls)
    beside a probed one, and untraced beside traced serving img/s in
-   turns; and the card's busy share of an untraced 128-request window
-   over 5 pairs of windows, one unprofiled and one under torch.profiler:
-   the union of the profiled window's CUDA kernel intervals over the
-   paired unprofiled window's wall and over its own;
+   turns;
 10. (run between phases 7 and 9) training, `repro_torch.captrain`:
    MNIST "L" at full size, `TrainConfig(dataset="mnist", batch=64,
    microbatches=8)`, 8 float steps (finite losses, the last below the
@@ -1108,7 +1105,6 @@ GEOMETRY_EDITS = (dict(pcap_dim=18), dict(caps_dim=20), dict(routings=9))
 FORWARD_REPEATS = 7                # forward_q7 timings of 50 calls each
 FORWARD_ROUNDS = 40                # --forward-pairs rounds, 50 calls a side
 SERVE_PAIRS = 8                    # untraced / traced serving windows
-BUSY_WINDOWS = 5                   # window pairs (unprofiled, profiled)
 
 
 def serve_stream(reg, mid: str, images) -> tuple:
@@ -1403,77 +1399,6 @@ def probes_off_times(run, dev, card: str) -> dict:
         + "; traced " + ", ".join(f"{r:.1f}" for r in rates["traced"])
         + f"; medians {med['untraced']:.1f} and {med['traced']:.1f}")
     return dict(forward_ms=off, probed_ms=probed, rates=rates)
-
-
-def busy_share(run, card: str) -> dict:
-    """The card's busy share of an untraced serving window (submit ->
-    drained, on a warm engine), from BUSY_WINDOWS pairs of windows: an
-    unprofiled one, then one under torch.profiler (CUDA activity only).
-    The union of the profiled window's kernel intervals is taken over
-    its own wall ("same window": the profiler slows the host, so this
-    understates the share) and over the wall of the unprofiled window
-    just before it ("paired"): the kernels run on one stream, so the
-    union is the sum of their durations, which the host's speed does
-    not change; the unions' spread across the pairs checks that."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serving import CapsServeEngine
-    reg, mid = run["registry"], run["spec"].model_id
-    images = run["images"][:N_REQUESTS]
-    OBS_DIR.mkdir(parents=True, exist_ok=True)
-    path = OBS_DIR / "serve_window_profile.json"
-
-    def warm_engine():
-        engine = CapsServeEngine(reg, buckets=BUCKETS)
-        engine.warmup(mid)
-        torch.cuda.synchronize()
-        return engine
-
-    def window(engine) -> float:
-        t0 = time.perf_counter()
-        engine.submit_many(images, mid)
-        if len(engine.drain()) != N_REQUESTS:
-            raise AssertionError(f"a window served fewer than {N_REQUESTS}")
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e6
-
-    def union(trace: Path) -> tuple:
-        kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in
-                         json.loads(trace.read_text())["traceEvents"]
-                         if e.get("cat") == "kernel")
-        if not kernels:
-            raise AssertionError("the profiler saw no kernel in the window")
-        busy, end = 0.0, kernels[0][0]
-        for a, b in kernels:
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        return busy, len(kernels)
-
-    pairs = []
-    for _ in range(BUSY_WINDOWS):
-        plain_us = window(warm_engine())
-        engine = warm_engine()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            profiled_us = window(engine)
-        prof.export_chrome_trace(str(path))
-        busy, n = union(path)
-        pairs.append(dict(plain_us=plain_us, profiled_us=profiled_us,
-                          busy_us=busy, kernels=n))
-    same = statistics.median(p["busy_us"] / p["profiled_us"] for p in pairs)
-    paired = statistics.median(p["busy_us"] / p["plain_us"] for p in pairs)
-    unions = [p["busy_us"] / 1e3 for p in pairs]
-    log(f"[obs] {card} | busy share of an untraced {N_REQUESTS}-request "
-        f"{mid} window (submit -> drained, warm engine), {BUSY_WINDOWS} "
-        f"pairs (unprofiled wall ms, profiled wall ms, kernel union ms, "
-        f"kernels): " + "; ".join(
-            f"{p['plain_us'] / 1e3:.3f}, {p['profiled_us'] / 1e3:.3f}, "
-            f"{p['busy_us'] / 1e3:.3f}, {p['kernels']}" for p in pairs)
-        + f"; union spread {min(unions):.3f}-{max(unions):.3f} ms; median "
-        f"share paired {paired * 100:.2f} % busy "
-        f"({(1 - paired) * 100:.2f} % idle), same window "
-        f"{same * 100:.2f} % busy")
-    return dict(paired=paired, same_window=same, pairs=pairs)
 
 
 # ---------------------------------------------------------------------------
@@ -6109,7 +6034,6 @@ def main(argv=None) -> int:
     obs_clis(run, dev, card)
     serve_widened_geometries(dev, card)
     probes_off_times(run, dev, card)
-    busy_share(run, card)
 
     phase_done(9, t0)
 

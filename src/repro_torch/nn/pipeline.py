@@ -16,14 +16,20 @@ runs after they return, so a train step enters the same scope itself
 (`repro_torch.captrain.steps`).
 
 PTQ runs under the spans `ptq.calibrate`, `ptq.plan` and
-`ptq.quantize_weights`; with a numerics probe installed, `forward_q7`
-attributes each layer's requantizations to that layer and observes its
-int8 output (repro_torch.obs), and without one it is the plain loop.
+`ptq.quantize_weights`.  With a tracer installed, `forward_q7` opens one
+span per layer of its loop, `layer.<name>` (`layer.conv0` ...,
+`layer.pcap`, `layer.caps`; arg `kind`, the layer's class), so a wave's
+host time and the card's idle gaps fall to a layer; the loop opens them,
+never a layer, so the primary capsules' inner conv is not counted
+twice.  With a numerics probe installed, it attributes each layer's
+requantizations to that layer and observes its int8 output
+(repro_torch.obs).  With neither, it is the plain loop.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 
 import torch
 
@@ -34,6 +40,7 @@ from repro_torch.nn.layers import CapsuleRouting, PrimaryCaps, QuantConv2D
 from repro_torch.nn.plans import PipelinePlan, TapStats, plan_scalars
 from repro_torch.nn.variants import VariantSet
 from repro_torch.obs import numerics as _health
+from repro_torch.obs import trace as _trace
 from repro_torch.quant import qformat as qf
 
 
@@ -82,6 +89,12 @@ class CapsPipeline:
             cfg.pcap_dim, cfg.routings, softmax_impl=variants.softmax,
             squash_impl=variants.squash, per_channel=per_channel_w))
         return cls(cfg=cfg, layers=tuple(layers))
+
+    @functools.cached_property
+    def _layer_spans(self) -> tuple:
+        """(span name, kind) of each layer, built once per pipeline."""
+        return tuple((f"layer.{l.name}", type(l).__name__)
+                     for l in self.layers)
 
     def layer(self, name: str):
         for l in self.layers:
@@ -206,19 +219,22 @@ class CapsPipeline:
     def forward_q7(self, qweights, plan: PipelinePlan, x_q, *,
                    backend: str = "torch", rounding: str = "floor"):
         """x_q int8 image in the plan's input format -> v int8 [B,J,O]."""
-        if _health._PROBE is None:                 # hot path untouched
+        probe = _health._PROBE
+        if probe is None and _trace._AMBIENT is None:   # hot path untouched
             h = x_q
             for l in self.layers:
                 h = l.fwd_q7(qweights[l.name], plan[l.name], h,
                              backend=backend, rounding=rounding)
             return h
         h = x_q
-        for i, l in enumerate(self.layers):
-            with _health.scope(l.name, index=i, kind=type(l).__name__):
+        for i, (l, (name, kind)) in enumerate(zip(self.layers,
+                                                  self._layer_spans)):
+            with obs.span(name, kind=kind), \
+                    _health.scope(l.name, index=i, kind=kind):
                 h = l.fwd_q7(qweights[l.name], plan[l.name], h,
                              backend=backend, rounding=rounding)
-                _health._PROBE.observe_output(
-                    h, frac=plan[l.name].out_frac)
+                if probe is not None:
+                    probe.observe_output(h, frac=plan[l.name].out_frac)
         return h
 
     def quantize_input(self, x, plan: PipelinePlan):

@@ -20,7 +20,12 @@ Spans (repro_torch.obs; free when no tracer is installed): one
 `serve.bucket`, `serve.compile`, `serve.execute` (which ends with the
 copy to the host, the wave's device sync) and `serve.complete`: the
 reference engine's tree, from which `obs.analyze` rebuilds every
-request's timeline.
+request's timeline.  The port adds, inside `serve.execute` and in
+order, the wave function's `wave.h2d` (the batch's copy to the card)
+and `layer.<name>` spans (`serving.sharded`, `nn.pipeline`), then
+`serve.d2h` around the copies to the host: the host waits there for the
+card to finish the wave.  An explicit `tracer=` is made ambient around
+the wave function, so one wave makes one tree.
 """
 from __future__ import annotations
 
@@ -157,9 +162,15 @@ class CapsServeEngine:
             with self._span("serve.execute", bucket=bucket,
                             n_real=len(wave)):
                 t0 = self.clock()
+                if self.tracer is None:
+                    out = exe(x)
+                else:
+                    with obs.tracing(self.tracer):
+                        out = exe(x)
                 # the host copies wait for the device, so t_done ends the
                 # work
-                v_q, lengths, pred = (t.cpu().numpy() for t in exe(x))
+                with self._span("serve.d2h"):
+                    v_q, lengths, pred = (t.cpu().numpy() for t in out)
                 t_done = self.clock()
             with self._span("serve.complete", req_ids=req_ids):
                 # only now is the wave irrevocably served: a raising wave

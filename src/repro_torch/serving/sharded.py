@@ -24,6 +24,10 @@ whose queues diverged raise ValueError instead of deadlocking.  With no
 mesh, or a mesh of one device, the very same function runs on all the
 rows.
 
+With a tracer installed, the wave opens `wave.h2d` around the padded
+batch's copy to the model's device, and the forward its `layer.<name>`
+spans (`nn.pipeline`); with none, one `is None` test and no span.
+
 `compile_wave` binds the wave to (model, bucket, mesh).  PyTorch runs
 eagerly, so there is nothing to trace or compile: the registry's wave
 cache holds these bindings, keyed on (model, bucket), and counts them.
@@ -35,7 +39,9 @@ import weakref
 
 import torch
 
+from repro_torch import obs
 from repro_torch.dist import api
+from repro_torch.obs import trace as _trace
 
 # meshed waves run on each mesh in this process: the wave index its
 # ranks agree on
@@ -67,7 +73,10 @@ def wave_fn(qnet, bucket: int, mesh=None, model_id: str | None = None):
         if tuple(x.shape) != shape:
             raise ValueError(f"wave bound to {shape}, got {tuple(x.shape)}")
         with api.use_mesh(mesh):
-            x = api.shard(api.split_rows(x, mesh).to(device), api.BATCH)
+            with (obs.NULL_SPAN if _trace._AMBIENT is None
+                  else obs.span("wave.h2d")):
+                x = api.split_rows(x, mesh).to(device)
+            x = api.shard(x, api.BATCH)
             if x.shape[0]:
                 v_q = qnet.forward(qnet.quantize_input(x))
             else:                       # an empty share launches nothing

@@ -348,11 +348,19 @@ def _serve_traced(engine_cls, registry, mid, images):
     return tracer, done
 
 
+# the port's own spans inside `serve.execute`, which the reference does
+# not open (tests/test_torch_wave_spans.py pins them)
+PORT_SPANS = ("wave.h2d", "layer.conv0", "layer.pcap", "layer.caps",
+              "serve.d2h")
+
+
 def _shape(span, mid):
     """A span's name, args (the served model id mapped to "M") and
-    children: what the two packages must agree on."""
+    children, the port's own spans left out: what the two packages must
+    agree on."""
     args = {k: ("M" if v == mid else v) for k, v in span.args.items()}
-    return (span.name, args, [_shape(c, mid) for c in span.children])
+    return (span.name, args, [_shape(c, mid) for c in span.children
+                              if c.name not in PORT_SPANS])
 
 
 def test_traced_serving_gives_the_references_span_tree():
@@ -394,6 +402,9 @@ def test_traced_serving_gives_the_references_span_tree():
         again = engine.drain()
     assert ambient.span_count() == 0
     assert len(explicit.find("serve.wave")) == 2
+    # the wave function's spans go to the explicit tracer too
+    assert [[c.name for c in e.children]
+            for e in explicit.find("serve.execute")] == [list(PORT_SPANS)] * 2
     for a, b, c in zip(base, pdone, again):
         assert np.array_equal(a.v_q, b.v_q) and np.array_equal(a.v_q, c.v_q)
         assert a.pred == b.pred == c.pred
