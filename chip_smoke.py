@@ -44,18 +44,20 @@ Phases, each raising on failure:
    card (its calibration stats held within rtol 1e-4 of the same params'
    CPU stats), serves 128 requests in one burst and 128 more in groups
    that fill buckets 1/4/16/64, and every completion must equal the same
-   QuantCapsNet on the `torch` backend, on the card and on the CPU; both
-   kernels' launch counts over that run must be > 0; then the command
-   `serve_caps --model mnist@cuda --requests 128` runs, with its own
-   counts, which must be > 0 too;
+   QuantCapsNet on the `torch` backend, on the card and on the CPU; the
+   squash, routing and conv kernels' launch counts over that run must be
+   > 0, the conv's 2 a wave (twice the squash's, one a wave); then the
+   command `serve_caps --model mnist@cuda --requests 128` runs, with its
+   own counts, held to the same;
 4. the artifact path: `ModelRegistry.export("mnist@cuda", build/edge_smoke)`
    writes the `.capsbin`, its manifest and the `.c`/`.h` (VM-verified on
    4 images); the reloaded file `same_as` the lowered program, and
    `lower(to_qnet(p))` `same_as` p; `install_artifact` puts it on the
    card and it serves the burst's 128 requests on the `cuda` backend,
    its kernel counts from 0: every completion must equal the live
-   model's, the first 16 the port's EdgeVM on the CPU, both kernels'
-   counts must be > 0 and `CudaBackend.fallbacks` must not move; then
+   model's, the first 16 the port's EdgeVM on the CPU, the three
+   kernels' counts must be > 0, the conv's 2 a wave, and
+   `CudaBackend.fallbacks` must not move; then
    `serve_caps --capsbin PATH --requests 128` must exit 0, and on a
    copy with conv0's out_shift at 45 (outside [-31, 31]) exit 1;
 5. the other configs and the variant fallback: 16 requests each of
@@ -114,7 +116,7 @@ Phases, each raising on failure:
    wave breakdown (queue, compile, execute ms per bucket) printed;
    `serve_caps --model mnist@cuda --trace --trace-summary --metrics-out
    --numerics-out --profile` into build/obs_smoke/ with kernel launches
-   > 0, its trace, metrics and numerics doc read back by
+   > 0 (the conv kernel's 2 a wave under the probe too), its trace, metrics and numerics doc read back by
    `python -m repro_torch.obs.analyze` (`--gate-clips`), the doc holding
    0 int32 clips and contained in the static bounds; `export_caps
    --model mnist@cuda --numerics --drift` exits 0 and `costmodel_drift`
@@ -1010,6 +1012,20 @@ def check_completions(run) -> None:
 # ---------------------------------------------------------------------------
 # phase 4: the exported artifact, served on the card
 # ---------------------------------------------------------------------------
+def conv_launches(kc) -> int:
+    """The conv kernel's launches on both faces since they were zeroed."""
+    return kc.conv2d_q7.launches + kc.conv2d_q7_per_channel.launches
+
+
+def check_conv_launches(where: str, launches: dict, convs: int) -> None:
+    """A CapsNet wave launches the squash kernel once and the conv kernel
+    once a conv layer (`convs`, the primary capsules' included)."""
+    if launches["conv2d_q7"] == 0 or \
+            launches["conv2d_q7"] != convs * launches["squash_q7"]:
+        raise AssertionError(f"{where}: launches {launches}, not {convs} "
+                             f"conv launches a wave")
+
+
 def serve_artifact(run, dev) -> dict:
     """Export the main path's model as an MCU artifact, install the file
     on the card and serve it: the second path through the entry points a
@@ -1017,6 +1033,7 @@ def serve_artifact(run, dev) -> dict:
     import numpy as np
     import torch
     from repro_torch.edge import EdgeProgram, EdgeVM, lower, to_qnet
+    from repro_torch.kernels import conv as kc
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
     from repro_torch.launch import serve_caps
@@ -1046,12 +1063,15 @@ def serve_artifact(run, dev) -> dict:
     fb0 = dict(fallbacks)
     ks.squash_q7.launches = 0
     kr.routing_q7.launches = 0
+    kc.conv2d_q7.launches = kc.conv2d_q7_per_channel.launches = 0
     reg = ModelRegistry(specs={}, device=dev)
     qnet = reg.install_artifact(paths["capsbin"])
     images = run["images"][:N_REQUESTS]
     engine, done, _ = serve_window(reg, BUCKETS, images, program.name)
     launches = {"squash_q7": ks.squash_q7.launches,
-                "routing_q7": kr.routing_q7.launches}
+                "routing_q7": kr.routing_q7.launches,
+                "conv2d_q7": conv_launches(kc)}
+    check_conv_launches("artifact path", launches, 2)
     if qnet.backend != "cuda" or qnet.device.type != "cuda":
         raise AssertionError(f"installed on {qnet.device}, backend "
                              f"{qnet.backend}")
@@ -1179,6 +1199,7 @@ def obs_clis(run, dev, card: str) -> None:
     """serve_caps and export_caps with every observability flag, into
     build/obs_smoke/, read back by the analyzer."""
     from repro_torch.edge import EdgeProgram, EdgeVM, lower
+    from repro_torch.kernels import conv as kc
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
     from repro_torch.launch import export_caps, serve_caps
@@ -1189,16 +1210,19 @@ def obs_clis(run, dev, card: str) -> None:
                                              "numerics")}
     ks.squash_q7.launches = 0
     kr.routing_q7.launches = 0
+    kc.conv2d_q7.launches = kc.conv2d_q7_per_channel.launches = 0
     rc = serve_caps.main(["--model", "mnist@cuda", "--requests",
                           str(N_REQUESTS), "--trace", str(out["trace"]),
                           "--trace-summary", "--metrics-out",
                           str(out["metrics"]), "--numerics-out",
                           str(out["numerics"]), "--profile"])
     launches = {"squash_q7": ks.squash_q7.launches,
-                "routing_q7": kr.routing_q7.launches}
+                "routing_q7": kr.routing_q7.launches,
+                "conv2d_q7": conv_launches(kc)}
     if rc != 0 or min(launches.values()) == 0:
         raise AssertionError(f"serve_caps with the obs flags: exit {rc}, "
                              f"launches {launches}")
+    check_conv_launches("serve_caps --numerics-out", launches, 2)
     if analyze.main([str(out["trace"]), "--metrics",
                      str(out["metrics"])]) != 0 or \
             analyze.main([str(out["numerics"]), "--gate-clips"]) != 0:
@@ -3644,10 +3668,10 @@ def time_kernels(run, dev) -> dict:
         conv0 = pipe.layers[0]
         split = {
             "quantize_input": lambda: qnet.quantize_input(x),
-            "conv0 (int8 conv + relu)": lambda: conv0.fwd_q7(
-                qnet.qweights["conv0"], plan["conv0"], xq),
-            "pcap conv (int8)": lambda: pcap.conv.fwd_q7(
-                qnet.qweights["pcap"], plan["pcap"].conv, h),
+            "conv0 (conv_q7 kernel, relu fused)": lambda: conv0.fwd_q7(
+                qnet.qweights["conv0"], plan["conv0"], xq, backend="cuda"),
+            "pcap conv (conv_q7 kernel)": lambda: pcap.conv.fwd_q7(
+                qnet.qweights["pcap"], plan["pcap"].conv, h, backend="cuda"),
             "squash_q7 kernel": work["squash_q7"]["fn"],
             "u_hat (float64 einsum)": lambda: tb.uhat_q7(
                 qnet.qweights["caps"]["W"], u, shift=rp.uhat_shift,
@@ -3996,6 +4020,75 @@ def cluster_device_times(dev) -> dict:
                                 KERNEL_NAMES["routing_q7"])
                   for cs in kr.CLUSTER_SIZES}
     return out
+
+
+# the benchmark cells' convs at their B 256 waves: (cell, layer, geometry
+# (H, W, Cin, kernel, stride, Cout))
+CONV_WAVE = 256
+CONV_CELLS = (("capsnet_mnist_L", "capsnet_mnist"),
+              ("capsnet_cifar10_S", "capsnet_cifar10"))
+
+
+def conv_rows(dev, card: str) -> list:
+    """`csrc/conv_q7.cu` at the seven convs of the two benchmark cells
+    (B 256, scalar face, floor, relu as the layer runs it), operands from
+    SEED + 5: bit for bit against its plain version, then its device ms
+    (profiler), its wall ms a call (CUDA events), its bound (input,
+    weights and bias read once and output written once at HBM's rate, or
+    2 M K Cout int8 operations at the int8 peak, whichever is larger)
+    and the plain version's ms.  No single PyTorch call computes an int8
+    conv with these shifts, so library_ms is none."""
+    import torch
+    from repro_torch.kernels import conv as kc
+    from repro_torch.nn.config import CAPSNET_CONFIGS
+    g = torch.Generator().manual_seed(SEED + 5)
+
+    def i8(shape):
+        return torch.randint(-128, 128, shape, generator=g,
+                             dtype=torch.int8).to(dev)
+    rows = []
+    for cell, name in CONV_CELLS:
+        geoms = CAPSNET_CONFIGS[name].conv_geometries
+        for i, (H, W, Cin, k, st, Cout) in enumerate(geoms):
+            layer = "pcap" if i == len(geoms) - 1 else f"conv{i}"
+            relu = layer != "pcap"
+            x, w, b = i8((CONV_WAVE, H, W, Cin)), i8((k, k, Cin, Cout)), \
+                i8((Cout,))
+            with torch.inference_mode():
+                def call():
+                    return kc.conv2d_q7(x, w, b, 9, 2, stride=st, relu=relu)
+
+                def plain():
+                    y = kc.conv2d_q7_plain(x, w, b, 9, 2, stride=st)
+                    return y.clamp(min=0) if relu else y
+                require_equal(f"conv_q7 {cell} {layer}", call(), plain())
+                OH, OW = (H - k) // st + 1, (W - k) // st + 1
+                M, K = CONV_WAVE * OH * OW, k * k * Cin
+                nbytes = x.numel() + w.numel() + Cout + M * Cout
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = 2 * M * K * Cout / INT8_OPS_PER_S * 1e3
+                dev_ms = device_ms(call, "conv_q7")
+                row = dict(cell=cell, layer=layer,
+                           shape=[CONV_WAVE, H, W, Cin, k, st, Cout],
+                           M=M, K=K, plan=kc.conv_plan(
+                               M, Cout, kc._sm_count(0))._asdict(),
+                           device_ms=dev_ms, kernel_ms=cuda_ms(call),
+                           bound_ms=max(bytes_ms, ops_ms),
+                           bound_by="bytes" if bytes_ms >= ops_ms
+                           else "operations",
+                           plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                           library_ms=None)
+            rows.append(row)
+            log(f"[device] {card} | conv_q7 {cell} {layer} "
+                f"{shape_key(row['shape'][:4])} k{k} s{st} -> {Cout} (M "
+                f"{M}, K {K}, tile {row['plan']['bm']}x{row['plan']['bn']}, "
+                f"{row['plan']['blocks']} blocks): device {dev_ms:.5f} ms, "
+                f"kernel {row['kernel_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']}, "
+                f"{row['bound_ms'] / dev_ms:.2%} of it), plain "
+                f"{row['plain_ms']:.4f} ms, library none")
+            del x, w, b
+    return rows
 
 
 def log_device_times(card: str, dt: dict) -> None:
@@ -4551,24 +4644,34 @@ def multi_phase(dev, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # every launch of a run held against its plain version (phases 19, 20)
 # ---------------------------------------------------------------------------
-SPIED = ("routing_q7", "squash_q7", "w8a8_dense")
+SPIED = ("routing_q7", "squash_q7", "w8a8_dense", "conv2d_q7")
+
+
+def conv_plain_relu(x, w, bias, out_shift, bias_shift, relu=False, **kw):
+    """`conv2d_q7`'s plain version, then the relu the kernel fuses."""
+    from repro_torch.kernels import conv as kc
+    y = kc.conv2d_q7_plain(x, w, bias, out_shift, bias_shift, **kw)
+    return y.clamp(min=0) if relu else y
 
 
 def launch_spy(pending: list):
-    """Patch the `routing_q7` and `squash_q7` wrappers (the module
-    attributes `CudaBackend` calls) and `lm_quant.w8a8_dense` so that
+    """Patch the `routing_q7`, `squash_q7` and `conv2d_q7` wrappers (the
+    module attributes `CudaBackend` calls) and `lm_quant.w8a8_dense` so that
     every launch's inputs and output are copied into `pending` as (name,
     plain version, args, kwargs, output), for `check_pending` to hold
     against the plain version after the run: the run's own times carry
     the copies (up to three device copies a launch), not the plain
     versions.  A wrapper counts its launches on the module attribute of
-    its name, so while patched the spies hold `routing_q7` and
-    `squash_q7`'s counts, handed back by the undo.  Returns the undo."""
+    its name, so while patched the spies hold `routing_q7`, `squash_q7`
+    and `conv2d_q7`'s counts, handed back by the undo.  Returns the
+    undo."""
+    from repro_torch.kernels import conv as kc
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
     from repro_torch.kernels.w8a8_dense import w8a8_dense_plain
     from repro_torch.quant import lm_quant
     rq, sq, wd = kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense
+    cq = kc.conv2d_q7
 
     def routing(u_hat, **kw):
         n = routing.launches
@@ -4595,12 +4698,25 @@ def launch_spy(pending: list):
                         (xq.clone(), wt, xe.clone(), n, out_dtype), {},
                         y.clone()))
         return y
+
+    def conv(x, w, bias, out_shift, bias_shift, **kw):
+        n = conv.launches
+        y = cq(x, w, bias, out_shift, bias_shift, **kw)
+        if conv.launches != n:
+            pending.append(("conv2d_q7", conv_plain_relu,
+                            (x.clone(), w, bias, out_shift, bias_shift), kw,
+                            y.clone()))
+        return y
     routing.launches, squash.launches = rq.launches, sq.launches
+    conv.launches = cq.launches
     kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense = routing, squash, dense
+    kc.conv2d_q7 = conv
 
     def undo():
         rq.launches, sq.launches = routing.launches, squash.launches
+        cq.launches = conv.launches
         kr.routing_q7, ks.squash_q7, lm_quant.w8a8_dense = rq, sq, wd
+        kc.conv2d_q7 = cq
     return undo
 
 
@@ -5539,9 +5655,9 @@ def run_example(name: str, argv: list, pending: list | None = None,
 
 def examples_phase(dev, card: str) -> dict:
     """Phase 20: each example's `main(argv)` in this process, every
-    `routing_q7`, `squash_q7` and `w8a8_dense` launch held against its
-    plain version (`launch_spy`), the counts from 0 just before the
-    first example and read after each.  (a) torch_quickstart: the cuda
+    `routing_q7`, `squash_q7`, `conv2d_q7` and `w8a8_dense` launch held
+    against its plain version (`launch_spy`), the counts from 0 just
+    before the first example and read after each.  (a) torch_quickstart: the cuda
     backend bit-identical to the torch oracle, `quickstart OK`; (b)
     torch_train_capsnet --dataset mnist, smallnorb, cifar10 at the
     reference's defaults (with --ckpt-dir, which keeps each float state):
@@ -5556,6 +5672,7 @@ def examples_phase(dev, card: str) -> dict:
     a user sees."""
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import conv as kc
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
     from repro_torch.kernels import w8a8_dense as kd
@@ -5564,7 +5681,8 @@ def examples_phase(dev, card: str) -> dict:
     torch.cuda.empty_cache()
     shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
     t_phase = time.perf_counter()
-    kernels = {"routing_q7": kr, "squash_q7": ks, "w8a8_dense": kd}
+    kernels = {"routing_q7": kr, "squash_q7": ks, "w8a8_dense": kd,
+               "conv2d_q7": kc}
     checked = {name: [] for name in kernels}
     pending = []
 
@@ -5585,7 +5703,8 @@ def examples_phase(dev, card: str) -> dict:
                                        checked)
         got = launched(before)
         if res["match"] is not True or lines[-1] != "quickstart OK" or \
-                min(got["routing_q7"], got["squash_q7"]) == 0:
+                min(got["routing_q7"], got["squash_q7"],
+                    got["conv2d_q7"]) == 0:
             raise AssertionError(f"torch_quickstart: match {res['match']}, "
                                  f"last line {lines[-1]!r}, launches {got}")
         fp = res["footprint"]
@@ -5631,7 +5750,8 @@ def examples_phase(dev, card: str) -> dict:
                         f"mnist: acc_f32 {r.acc_f32} more than "
                         f"{REF_ACC_MARGIN} below the reference's CPU row "
                         f"({REF_MNIST_ACC_F32})")
-            if min(got["routing_q7"], got["squash_q7"]) == 0:
+            if min(got["routing_q7"], got["squash_q7"],
+                   got["conv2d_q7"]) == 0:
                 raise AssertionError(f"{ds}: eval_q7 launched {got}")
             log(f"[examples] {card} | torch_train_capsnet --dataset {ds}: "
                 f"{secs:.1f} s wall; " + ", ".join(
@@ -5808,6 +5928,7 @@ def main(argv=None) -> int:
         log(json.dumps({"train_lm": res}))
         return 0
     from repro_torch.kernels import build
+    from repro_torch.kernels import conv as kc
     from repro_torch.kernels import q7_matmul as kq
     from repro_torch.kernels import routing as kr
     from repro_torch.kernels import squash as ks
@@ -5839,6 +5960,7 @@ def main(argv=None) -> int:
         dt = device_times(dev)
         log_device_times(card, dt)
         dt.update(w8a8_device_times(dev, card))
+        dt["conv_q7"] = conv_rows(dev, card)
         log(card)
         log(json.dumps({"device_times": dt}))
         return 0
@@ -5877,14 +5999,17 @@ def main(argv=None) -> int:
     # phase 3: counts from 0 just before the main path, read just after
     ks.squash_q7.launches = 0
     kr.routing_q7.launches = 0
+    kc.conv2d_q7.launches = kc.conv2d_q7_per_channel.launches = 0
     run = serve_main_path(dev)
     launches = {"squash_q7": ks.squash_q7.launches,
-                "routing_q7": kr.routing_q7.launches}
+                "routing_q7": kr.routing_q7.launches,
+                "conv2d_q7": conv_launches(kc)}
     log(f"[main] mnist@cuda lazy PTQ on the card {run['ptq_s']:.2f} s; "
         f"launches over the main path: {launches}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    check_conv_launches("main path", launches, 2)
     plan_card = check_calibration(run["spec"], dev)
     log(f"[main] registry plan equals the card calibration's plan: "
         f"{plan_card == run['qnet'].plan}")
@@ -5894,13 +6019,16 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve_caps
     ks.squash_q7.launches = 0
     kr.routing_q7.launches = 0
+    kc.conv2d_q7.launches = kc.conv2d_q7_per_channel.launches = 0
     rc = serve_caps.main(["--model", "mnist@cuda",
                           "--requests", str(N_REQUESTS)])
     cli = {"squash_q7": ks.squash_q7.launches,
-           "routing_q7": kr.routing_q7.launches}
+           "routing_q7": kr.routing_q7.launches,
+           "conv2d_q7": conv_launches(kc)}
     if rc != 0 or min(cli.values()) == 0:
         raise AssertionError(f"serve_caps --model mnist@cuda: exit {rc}, "
                              f"launches {cli}")
+    check_conv_launches("serve_caps --model mnist@cuda", cli, 2)
     log(f"[main] serve_caps --model mnist@cuda --requests {N_REQUESTS}: "
         f"launches {cli}")
     fallbacks = get_backend("cuda").fallbacks
@@ -6040,6 +6168,7 @@ def main(argv=None) -> int:
     # phase 8: device times from the profiler, and each cluster size
     dt = device_times(dev)
     log_device_times(card, dt)
+    times["conv_q7"] = dict(shapes=conv_rows(dev, card))
     for B, row in cluster_device_times(dev).items():
         log(f"[device] {card} | routing_q7 [{B}, 10, 1024, 6] by cluster "
             f"size: " + ", ".join(f"cs={cs} {ms:.5f} ms"

@@ -5,20 +5,26 @@
           reproduce, the counterpart of the reference's `jnp` backend.
           Operator variants resolve through the variant registry.
 `cuda`  — the hand-written CUDA kernels (repro_torch.kernels): the
-          integer squash of the primary capsules and the fused
-          r-iteration routing loop, the counterparts of the reference's
-          `pallas` backend.  The kernels implement the default variants
-          ("q7" softmax, "exact" squash) and a Q0.7 routing output.  A
-          plan with another variant runs the torch oracle on the same
-          CUDA tensors (bit-identical, slower), counted per decision in
+          int8 convs (an implicit GEMM with the bias, shifts, saturation
+          and relu in its epilogue; the reference has no Pallas kernel
+          for them), the integer squash of the primary capsules and the
+          fused r-iteration routing loop, the counterparts of the
+          reference's `pallas` backend.  With a numerics probe installed
+          a conv still runs on its kernel, and the probe is handed the
+          torch oracle's int32 accumulator besides (an observer mode,
+          not the hot path).
+          The kernels implement the default variants ("q7" softmax,
+          "exact" squash) and a Q0.7 routing output.  A plan with another
+          variant runs the torch oracle on the same CUDA tensors
+          (bit-identical, slower), counted per decision in
           `CudaBackend.fallbacks` under (op, variant) and warned once per
           label; a routing plan with another output format runs the
           torch loop uncounted, as the reference's `pallas` backend
           does.  A tensor that is not on a CUDA device is refused with
           NotImplementedError: no call leaves the card.
 
-The convolutions and the u_hat product are exact integer torch code on
-both backends (float64 im2col products, see int8_ops).
+The u_hat product is exact integer torch code on both backends (a
+float64 einsum, see int8_ops); so are the convolutions on `torch`.
 """
 from __future__ import annotations
 
@@ -26,10 +32,12 @@ import warnings
 
 import torch
 
+from repro_torch.kernels import conv as kconv
 from repro_torch.kernels import routing as kroute
 from repro_torch.kernels import squash as ksquash
 from repro_torch.nn.variants import REGISTRY
 from repro_torch.obs import METRICS, MetricsRegistry
+from repro_torch.obs import numerics as _health
 from repro_torch.quant import int8_ops as q
 
 
@@ -38,17 +46,17 @@ class TorchBackend:
 
     name = "torch"
 
-    def conv2d_q7(self, x, w, b, out_shift, bias_shift, *, stride, rounding):
-        return q.conv2d_q7(x, w, b, out_shift, bias_shift,
-                           stride=stride, rounding=rounding)
+    def conv2d_q7(self, x, w, b, out_shift, bias_shift, *, stride, rounding,
+                  relu: bool = False):
+        y = q.conv2d_q7(x, w, b, out_shift, bias_shift,
+                        stride=stride, rounding=rounding)
+        return q.relu_q7(y) if relu else y
 
     def conv2d_q7_per_channel(self, x, w, b, out_shifts, bias_shifts, *,
-                              stride, rounding):
-        return q.conv2d_q7_per_channel(x, w, b, out_shifts, bias_shifts,
-                                       stride=stride, rounding=rounding)
-
-    def relu_q7(self, x):
-        return q.relu_q7(x)
+                              stride, rounding, relu: bool = False):
+        y = q.conv2d_q7_per_channel(x, w, b, out_shifts, bias_shifts,
+                                    stride=stride, rounding=rounding)
+        return q.relu_q7(y) if relu else y
 
     def squash_q7(self, s, *, in_frac, out_frac=7, impl=None):
         impl = impl or REGISTRY.default("squash")
@@ -86,8 +94,8 @@ _TORCH_ORACLE = TorchBackend()
 
 
 class CudaBackend(TorchBackend):
-    """Kernel backend: CUDA squash and the fused routing kernel.  The
-    convs and u_hat stay on the exact torch ops of TorchBackend."""
+    """Kernel backend: the CUDA convs, squash and fused routing kernel.
+    u_hat stays on the exact torch ops of TorchBackend."""
 
     name = "cuda"
 
@@ -123,6 +131,27 @@ class CudaBackend(TorchBackend):
                 f"cuda backend has no {op} kernel for variant {variant!r}; "
                 "falling back to the torch oracle on the card "
                 "(bit-identical, slower)", RuntimeWarning, stacklevel=3)
+
+    def conv2d_q7(self, x, w, b, out_shift, bias_shift, *, stride, rounding,
+                  relu: bool = False):
+        self._require_cuda("conv2d_q7", x)
+        if _health._PROBE is not None:     # observer only: the accumulator
+            _health.observe_requant(
+                q.conv_acc_q7(x, w, b, bias_shift, stride), out_shift,
+                rounding)
+        return kconv.conv2d_q7(x, w, b, out_shift, bias_shift, stride=stride,
+                               rounding=rounding, relu=relu)
+
+    def conv2d_q7_per_channel(self, x, w, b, out_shifts, bias_shifts, *,
+                              stride, rounding, relu: bool = False):
+        self._require_cuda("conv2d_q7_per_channel", x)
+        if _health._PROBE is not None:     # observer only: the accumulator
+            _health.observe_requant(
+                q.conv_acc_q7_per_channel(x, w, b, bias_shifts, stride),
+                out_shifts, rounding)
+        return kconv.conv2d_q7_per_channel(
+            x, w, b, out_shifts, bias_shifts, stride=stride,
+            rounding=rounding, relu=relu)
 
     def squash_q7(self, s, *, in_frac, out_frac=7, impl=None):
         self._require_cuda("squash_q7", s)

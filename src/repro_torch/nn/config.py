@@ -51,6 +51,19 @@ class CapsNetConfig:
         h, w = self.pcap_out_hw
         return h * w * self.pcap_caps
 
+    @property
+    def conv_geometries(self) -> tuple:
+        """(H, W, Cin, kernel, stride, Cout) of each conv, the primary
+        capsules' last: the shapes the int8 conv kernel serves."""
+        (h, w, c), out = self.input_shape, []
+        for f, k, s in zip(self.conv_filters + (self.pcap_caps
+                                                * self.pcap_dim,),
+                           self.conv_kernels + (self.pcap_kernel,),
+                           self.conv_strides + (self.pcap_stride,)):
+            out.append((h, w, c, k, s, f))
+            h, w, c = (h - k) // s + 1, (w - k) // s + 1, f
+        return tuple(out)
+
 
 MNIST = CapsNetConfig("capsnet_mnist", (28, 28, 1), (16,), (7,), (1,),
                       num_classes=10, caps_dim=6, lr=1e-3)

@@ -122,15 +122,13 @@ class QuantConv2D:
                rounding="floor"):
         be = get_backend(backend)
         if plan.per_channel:
-            y = be.conv2d_q7_per_channel(
+            return be.conv2d_q7_per_channel(
                 x, qweights["w"], qweights["b"],
                 plan.out_shift_per_channel, plan.bias_shift_per_channel,
-                stride=self.stride, rounding=rounding)
-        else:
-            y = be.conv2d_q7(x, qweights["w"], qweights["b"], plan.out_shift,
-                             plan.bias_shift, stride=self.stride,
-                             rounding=rounding)
-        return be.relu_q7(y) if self.relu else y
+                stride=self.stride, rounding=rounding, relu=self.relu)
+        return be.conv2d_q7(x, qweights["w"], qweights["b"], plan.out_shift,
+                            plan.bias_shift, stride=self.stride,
+                            rounding=rounding, relu=self.relu)
 
     def fwd_fq(self, params, plan: ConvPlan, x, *, rounding="floor"):
         """Fake-quant forward at fwd_q7's requantization points: weights

@@ -18,7 +18,10 @@ Products that jnp computes on XLA's int32 conv / einsum run here in
 float64: every partial sum is an integer far below 2^53, so the result
 is exact and does not depend on the summation order (`_exact_int32`).
 cuDNN's float convolutions are avoided, since their Winograd and FFT
-algorithms are not exact.
+algorithms are not exact.  These are the plain versions: on the `cuda`
+backend the convs run on the hand-written kernel instead
+(`repro_torch.kernels.conv` -> `csrc/conv_q7.cu`, an int8 implicit GEMM
+held bit for bit against `conv2d_q7` and `conv2d_q7_per_channel`).
 
 `rounding="floor"` matches the paper/CMSIS `__SSAT(sum >> shift, 8)`
 truncation; `rounding="nearest"` adds the half-LSB before shifting.
@@ -109,7 +112,8 @@ def _conv_acc(x, w, stride: int, padding: str):
     """NHWC int8 x HWIO int8 -> NHWC int32 accumulator, VALID padding.
 
     im2col (`F.unfold`) and one float64 matmul; exact for any int8
-    geometry whose accumulators fit int32 (far below 2^53)."""
+    geometry whose accumulators fit int32 (far below 2^53).  The plain
+    version: CUDA tensors on the `cuda` backend take csrc/conv_q7.cu."""
     if padding != "VALID":
         raise NotImplementedError(f"padding {padding!r}: only VALID")
     B, H, W, _ = x.shape
@@ -123,6 +127,18 @@ def _conv_acc(x, w, stride: int, padding: str):
     return _exact_int32(acc.permute(0, 2, 3, 1))
 
 
+def conv_acc_q7(x, w, bias, bias_shift: int, stride: int = 1,
+                padding: str = "VALID"):
+    """conv2d_q7's int32 accumulator, the shifted bias added: what its
+    output shift requantizes."""
+    acc = _conv_acc(x, w, stride, padding)
+    if bias is not None:
+        b = _i32(bias)
+        b = b << bias_shift if bias_shift >= 0 else b >> -bias_shift
+        acc = acc + b
+    return acc
+
+
 def conv2d_q7(x, w, bias, out_shift: int, bias_shift: int,
               stride: int = 1, padding: str = "VALID",
               rounding: str = "floor"):
@@ -131,12 +147,8 @@ def conv2d_q7(x, w, bias, out_shift: int, bias_shift: int,
     x [B,H,W,Cin] int8; w [KH,KW,Cin,Cout] int8; bias [Cout] int8.
     bias is left-shifted by `bias_shift` into the accumulator's Qm.n
     (paper Alg. 6 line 10)."""
-    acc = _conv_acc(x, w, stride, padding)
-    if bias is not None:
-        b = _i32(bias)
-        b = b << bias_shift if bias_shift >= 0 else b >> -bias_shift
-        acc = acc + b
-    return rshift_sat8(acc, out_shift, rounding)
+    return rshift_sat8(conv_acc_q7(x, w, bias, bias_shift, stride, padding),
+                       out_shift, rounding)
 
 
 def rshift_sat8_vec(acc, shifts, rounding: str = "floor"):
@@ -154,10 +166,9 @@ def rshift_sat8_vec(acc, shifts, rounding: str = "floor"):
     return acc.clamp(INT8_MIN, INT8_MAX).to(torch.int8)
 
 
-def conv2d_q7_per_channel(x, w, bias, out_shifts, bias_shifts,
-                          stride: int = 1, padding: str = "VALID",
-                          rounding: str = "floor"):
-    """conv2d_q7 with per-output-channel bias and output shift tables."""
+def conv_acc_q7_per_channel(x, w, bias, bias_shifts, stride: int = 1,
+                            padding: str = "VALID"):
+    """conv_acc_q7 with a bias shift table, one entry a channel."""
     acc = _conv_acc(x, w, stride, padding)
     if bias is not None:
         b = _i32(bias)
@@ -166,7 +177,16 @@ def conv2d_q7_per_channel(x, w, bias, out_shifts, bias_shifts,
         b = b << bs.clamp(min=0)
         b = b >> (-bs).clamp(min=0)
         acc = acc + b
-    return rshift_sat8_vec(acc, out_shifts, rounding)
+    return acc
+
+
+def conv2d_q7_per_channel(x, w, bias, out_shifts, bias_shifts,
+                          stride: int = 1, padding: str = "VALID",
+                          rounding: str = "floor"):
+    """conv2d_q7 with per-output-channel bias and output shift tables."""
+    return rshift_sat8_vec(
+        conv_acc_q7_per_channel(x, w, bias, bias_shifts, stride, padding),
+        out_shifts, rounding)
 
 
 def relu_q7(x):

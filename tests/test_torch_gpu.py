@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import conv as kc
 from repro_torch.kernels import ops
 from repro_torch.kernels import q7_matmul as kq
 from repro_torch.kernels import routing as kr
 from repro_torch.kernels import squash as ks
 from repro_torch.kernels import w8a8_matmul as kw
 from repro_torch.nn.backend import get_backend
+from repro_torch.nn.config import CIFAR10, MNIST, SMALLNORB
+from repro_torch.quant import int8_ops as q
 from repro_torch.serving import ModelRegistry, default_specs
 
 ROUNDINGS = ("floor", "nearest")
@@ -115,6 +118,158 @@ def test_cuda_backend_forward_equals_the_torch_backend(cuda):
     assert (ks.squash_q7.launches, kr.routing_q7.launches) == \
         (n0[0] + 1, n0[1] + 1)
     assert torch.equal(v, qnet.with_backend("torch").forward(x_q))
+
+
+# ---------------------------------------------------------------------------
+# the int8 conv kernel (csrc/conv_q7.cu)
+# ---------------------------------------------------------------------------
+PAPER_CONVS = [(cfg.name.split("_")[1], g) for cfg in (MNIST, SMALLNORB,
+                                                        CIFAR10)
+               for g in cfg.conv_geometries]
+# past the paper's nets: a ragged Cout (byte stores), Cout over 64 (two
+# columns of blocks), Cin 5 (byte gathers), Cin 4 (4-byte gathers)
+RAGGED_CONVS = [(7, 9, 4, 3, 2, 49), (6, 6, 8, 3, 1, 80), (9, 9, 5, 5, 1, 3)]
+
+
+def conv_faces(x, w, b, stride, rounding, relu, rng):
+    """Each face of the wrapper on the card beside its plain version on
+    the same CUDA tensors: [(got, want), ...]."""
+    Cout = w.shape[3]
+    out_shift, bias_shift = int(rng.integers(4, 13)), int(rng.integers(0, 7))
+    os_ = tuple(int(s) for s in rng.integers(-8, 41, Cout))
+    bs = tuple(int(s) for s in rng.integers(-8, 41, Cout))
+    kw = dict(stride=stride, rounding=rounding)
+    pairs = []
+    for face, plain, shifts in (
+            (kc.conv2d_q7, kc.conv2d_q7_plain, (out_shift, bias_shift)),
+            (kc.conv2d_q7_per_channel, kc.conv2d_q7_per_channel_plain,
+             (os_, bs))):
+        want = plain(x, w, b, *shifts, **kw)
+        pairs.append((face(x, w, b, *shifts, relu=relu, **kw),
+                      q.relu_q7(want) if relu else want))
+    return pairs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 4, 37, 256])
+@pytest.mark.parametrize("net_geom", PAPER_CONVS + [("ragged", g)
+                                                    for g in RAGGED_CONVS],
+                         ids=lambda p: f"{p[0]}-{'x'.join(map(str, p[1]))}")
+def test_cuda_conv_every_geometry_matches_plain(cuda, net_geom, B):
+    H, W, Cin, k, stride, Cout = net_geom[1]
+    rng = np.random.default_rng(B * 1000 + H * 10 + Cin)
+    x = i8(rng, (B, H, W, Cin)).to(cuda)
+    w, b = i8(rng, (k, k, Cin, Cout)).to(cuda), i8(rng, (Cout,)).to(cuda)
+    n0 = (kc.conv2d_q7.launches, kc.conv2d_q7_per_channel.launches)
+    calls = 0
+    for rounding in ROUNDINGS:
+        for relu in (False, True):
+            for got, want in conv_faces(x, w, b, stride, rounding, relu, rng):
+                assert torch.equal(got, want), (rounding, relu)
+            calls += 1
+    assert (kc.conv2d_q7.launches, kc.conv2d_q7_per_channel.launches) == \
+        (n0[0] + calls, n0[1] + calls)
+    nb = kc.conv2d_q7(x, w, None, 9, 0, stride=stride)
+    assert torch.equal(nb, kc.conv2d_q7_plain(x, w, None, 9, 0,
+                                              stride=stride))
+
+
+@pytest.mark.gpu
+def test_cuda_conv_every_shift_and_the_int32_wrap(cuda):
+    """Every out and bias shift in [-8, 40] on both faces (the scalar
+    face at every pair, the per-channel face with all 49 in one table),
+    with x and w at the int8 extremes and K = 1,152, so that a bias
+    shifted by 24 wraps the int32 accumulator both ways."""
+    shifts = list(range(-8, 41))
+    Cout = len(shifts)
+    x = torch.full((2, 5, 5, 128), -128, dtype=torch.int8)
+    x[1] = 127
+    w = torch.full((3, 3, 128, Cout), -128, dtype=torch.int8)
+    b = torch.tensor([127, -128] * (Cout // 2) + [127], dtype=torch.int8)
+    x, w, b = x.to(cuda), w.to(cuda), b.to(cuda)
+    perm = tuple(int(s) for s in np.random.default_rng(40)
+                 .permutation(shifts))
+    for rounding in ROUNDINGS:
+        for relu in (False, True):
+            want = kc.conv2d_q7_per_channel_plain(
+                x, w, b, tuple(shifts), perm, rounding=rounding)
+            assert torch.equal(
+                kc.conv2d_q7_per_channel(x, w, b, tuple(shifts), perm,
+                                         rounding=rounding, relu=relu),
+                q.relu_q7(want) if relu else want), (rounding, relu)
+        for bias_shift in shifts:
+            for out_shift in shifts:
+                assert torch.equal(
+                    kc.conv2d_q7(x, w, b, out_shift, bias_shift,
+                                 rounding=rounding),
+                    kc.conv2d_q7_plain(x, w, b, out_shift, bias_shift,
+                                       rounding=rounding)), \
+                    (rounding, out_shift, bias_shift)
+
+
+@pytest.mark.gpu
+def test_cuda_conv_entry_refuses_what_it_does_not_take(cuda):
+    """The C entry checks what the wrapper hands it and launches nothing
+    on a shift table of another length or a Cout over its tables."""
+    rng = np.random.default_rng(11)
+    x = i8(rng, (2, 9, 9, 16)).to(cuda)
+    w = i8(rng, (3, 3, 16, 32)).to(cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kc.conv2d_q7_per_channel(x, w, None, (8,) * 31, (0,))
+    wide = i8(rng, (1, 1, 16, 1025)).to(cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kc.conv2d_q7(x, wide, None, 8, 0)
+    good = kc.conv2d_q7(x, w, None, 8, 0)             # the card is sound
+    assert torch.equal(good, kc.conv2d_q7_plain(x, w, None, 8, 0))
+
+
+@pytest.mark.gpu
+def test_cuda_conv_over_48kb_on_every_card(cuda):
+    """MNIST's primary caps (K 784, a 64 x 64 tile: 65,408 bytes of shared
+    memory) on each card in turn, with card 0 current throughout: the
+    opt-in above 48 KB holds per card, and the current card is put
+    back.  One card runs it on itself alone."""
+    H, W, Cin, k, stride, Cout = MNIST.conv_geometries[-1]
+    for index in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", index)
+        rng = np.random.default_rng(index)
+        x = i8(rng, (256, H, W, Cin)).to(dev)
+        w, b = i8(rng, (k, k, Cin, Cout)).to(dev), i8(rng, (Cout,)).to(dev)
+        with torch.cuda.device(0):
+            y = kc.conv2d_q7(x, w, b, 11, 2, stride=stride, relu=True)
+            assert torch.cuda.current_device() == 0
+        assert y.device == dev
+        assert torch.equal(y, q.relu_q7(kc.conv2d_q7_plain(
+            x, w, b, 11, 2, stride=stride)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mid,convs", [("mnist@cuda", 2),
+                                       ("cifar10@cuda", 5)])
+def test_cuda_backend_b256_forward_is_one_conv_launch_a_layer(cuda, mid,
+                                                              convs):
+    """A B 256 wave on the cuda backend equals the torch backend's bits,
+    launches the conv kernel once a conv layer (the primary capsules'
+    included) and runs no im2col kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    spec = default_specs()[mid]
+    qnet = ModelRegistry({spec.model_id: spec}, device=cuda) \
+        .model(spec.model_id)
+    x_q = qnet.quantize_input(torch.from_numpy(spec.images(256, seed=5))
+                              .to(cuda))
+    with torch.inference_mode():
+        want = qnet.with_backend("torch").forward(x_q)
+        qnet.forward(x_q)                               # warm
+        n0 = (kc.conv2d_q7.launches, kc.conv2d_q7_per_channel.launches)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            v = qnet.forward(x_q)
+            torch.cuda.synchronize()
+    assert torch.equal(v, want)
+    assert (kc.conv2d_q7.launches, kc.conv2d_q7_per_channel.launches) == \
+        (n0[0] + convs, n0[1])
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    assert any("conv_q7" in n for n in names), names
+    assert not any("im2col" in n for n in names), names
 
 
 @pytest.mark.gpu
@@ -467,10 +622,20 @@ def test_cuda_probed_forward_is_bit_identical_to_unprobed(cuda):
                               .to(cuda))
     with torch.inference_mode():
         base = qnet.forward(x_q)
+        n0 = kc.conv2d_q7.launches + kc.conv2d_q7_per_channel.launches
         probe = nh.NumericsProbe()
         with nh.probing(probe):
             probed = qnet.forward(x_q)
+        n1 = kc.conv2d_q7.launches + kc.conv2d_q7_per_channel.launches
+        oracle = nh.NumericsProbe()
+        with nh.probing(oracle):
+            qnet.with_backend("torch").forward(x_q)
     assert torch.equal(base, probed)
+    # the convs stay on their kernel under a probe, which is handed the
+    # oracle's accumulators: the torch backend's conv records, bit for bit
+    assert n1 - n0 == 2
+    assert [r for r in probe.rows() if r["op"] != "caps"] == \
+        [r for r in oracle.rows() if r["op"] != "caps"]
     rows = probe.rows()
     assert {r["op"] for r in rows} == {"conv0", "pcap", "caps"}
     assert sum(r.get("int32_clip", 0) for r in rows) == 0

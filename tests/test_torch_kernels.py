@@ -324,18 +324,21 @@ def test_cluster_decomposition_equals_the_plain_routing(cs):
 
 def test_kernel_sources_name_what_they_replace():
     names = sorted(p.stem for p in build.sources())
-    assert names == ["q7_matmul", "routing_q7", "squash_float", "squash_q7",
-                     "w8a8_dense", "w8a8_matmul"]
+    assert names == ["conv_q7", "q7_matmul", "routing_q7", "squash_float",
+                     "squash_q7", "w8a8_dense", "w8a8_matmul"]
     notes = {"routing_q7": "src/repro/kernels/routing.py",
              "squash_q7": "src/repro/kernels/squash.py",
              "squash_float": "src/repro/kernels/squash.py",
              "q7_matmul": "src/repro/kernels/q7_matmul.py",
              "w8a8_matmul": "src/repro/kernels/w8a8_matmul.py",
              # no TPU kernel: the XLA product it takes the place of
-             "w8a8_dense": "src/repro/quant/lm_quant.py:76"}
+             "w8a8_dense": "src/repro/quant/lm_quant.py:76",
+             "conv_q7": "src/repro/quant/int8_ops.py"}
     for p in build.sources():
         text = p.read_text()
-        what = "(q_dense)" if p.stem == "w8a8_dense" else f"{p.stem}_pallas"
+        what = {"w8a8_dense": "(q_dense)",
+                "conv_q7": "conv2d_q7_per_channel"}.get(p.stem,
+                                                        f"{p.stem}_pallas")
         assert notes[p.stem] in text and what in text
         assert "Bound on the H100" in text
         assert f'extern "C" int {p.stem}_launch' in text
