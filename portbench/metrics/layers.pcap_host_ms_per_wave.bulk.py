@@ -1,6 +1,6 @@
 """layers.pcap_host_ms_per_wave.bulk: the int8 forward's layer.pcap span
-(the primary capsules: their im2col conv and squash_q7) a wave, over
-the traced run's unprofiled stretch, in ms of the host's clock.
+(the primary capsules: their conv on csrc/conv_q7.cu and squash_q7) a
+wave, over the traced run's unprofiled stretch, in ms of the host's clock.
 Set-up's warm-up waves open it first, so the stretch's are the last;
 nothing is read where the program opens no such span."""
 

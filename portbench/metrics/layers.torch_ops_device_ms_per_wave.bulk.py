@@ -1,6 +1,7 @@
 """layers.torch_ops_device_ms_per_wave.bulk: the profiler's device time a
-wave of every kernel other than squash_q7 and routing_q7 (the int8 convs
-and u_hat as torch ops, shifts, saturation), in ms."""
+wave of every kernel other than squash_q7 and routing_q7 (the int8 convs,
+one launch each of csrc/conv_q7.cu, and u_hat, shifts and saturation as
+torch ops), in ms."""
 
 KERNELS = ("squash_q7", "routing_q7")
 

@@ -56,8 +56,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} CUDA device(s); "
               f"available: {torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    result, detail = harness.run_cell(cell, args.seed, args.seconds,
-                                      bool(args.trace), t_start=T_START)
+    runner = harness
+    if spec.family(cell.config) == "lm":
+        from portbench import lm_harness as runner
+    result, detail = runner.run_cell(cell, args.seed, args.seconds,
+                                     bool(args.trace), t_start=T_START)
     forbidden = harness.forbidden_modules()
     if forbidden:
         print(f"loaded modules of JAX or the JAX package: {forbidden}",

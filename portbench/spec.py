@@ -1,6 +1,8 @@
 """What `BENCHMARK.json` names, found by name in files of their own.
 
-  * a configuration: `configs/<config>.json`, the geometry as it is run;
+  * a configuration: `configs/<config>.json`, the geometry as it is run
+    (a CapsNet's, or with `"family": "lm"` a language model's sizes, its
+    block kinds' references in `references/<kind>.py`);
   * a cell: the `workloads` entry of `BENCHMARK.json` (configuration,
     traffic label, chips) and `workloads/<cell>.json`, the parameters the
     one traffic generator (`loadgen.py`) reads;
@@ -22,6 +24,11 @@ ROOT = PKG.parent
 CONFIG_KEYS = ("input_shape", "conv_filters", "conv_kernels", "conv_strides",
                "pcap_caps", "pcap_dim", "pcap_kernel", "pcap_stride",
                "num_classes", "caps_dim", "routings")
+# a language model's (`"family": "lm"`): the port's architecture it runs
+# and every size the plain reference reads
+LM_KEYS = ("arch", "precision", "num_layers", "d_model", "num_heads",
+           "num_kv_heads", "head_dim", "d_ff", "vocab_size", "blocks",
+           "norm_eps", "rope_theta")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +51,16 @@ def benchmark(root: Path = ROOT) -> dict:
     return load_json(root / "BENCHMARK.json")
 
 
+def family(cfg: dict) -> str:
+    """A configuration's family: "lm" where its file says so, else the
+    CapsNet's."""
+    return cfg.get("family", "capsnet")
+
+
 def load_config(name: str, pkg: Path = PKG) -> dict:
     cfg = load_json(pkg / "configs" / f"{name}.json")
-    missing = [k for k in CONFIG_KEYS if k not in cfg]
+    keys = LM_KEYS if family(cfg) == "lm" else CONFIG_KEYS
+    missing = [k for k in keys if k not in cfg]
     if missing:
         raise ValueError(f"configuration {name} lacks {missing}")
     return cfg

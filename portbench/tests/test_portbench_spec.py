@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 from portbench import spec
+from portbench.lm_data import Waves
 from portbench.loadgen import Traffic
 
 BENCH = spec.benchmark()
@@ -48,7 +49,7 @@ def test_cell_loads_and_reports(cell):
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
     assert NAME.match(w["traffic"]) and _line(w["why"]) and w["chips"] == 1
     c = spec.cell(cell)
-    Traffic.of(c.traffic)
+    (Waves if spec.family(c.config) == "lm" else Traffic).of(c.traffic)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2
     assert c.per_layer
